@@ -1,0 +1,16 @@
+"""The port's CUDA kernels, their plain versions, their build and routing."""
+
+from .defocus import defocus_box
+from .sweep import jc_sweep_resident, jc_sweep_tiles
+
+_KERNELS = (jc_sweep_tiles, jc_sweep_resident, defocus_box)
+
+
+def launch_counts() -> dict:
+    """Launches of each kernel wrapper since the last reset."""
+    return {k.__name__: k.launches for k in _KERNELS}
+
+
+def reset_launch_counts() -> None:
+    for k in _KERNELS:
+        k.launches = 0

@@ -1,0 +1,124 @@
+"""Build and load the port's CUDA kernels.
+
+At first use, nvcc compiles every source under ``csrc/`` into one shared
+library with a plain C interface, which ctypes loads. The library lands in
+``realtimedepthdiffusion_tpu_torch/build/``, named by a hash of the sources
+and flags, so an edit to a kernel rebuilds it and an unchanged tree reuses
+it. Importing this module runs nothing: a machine without nvcc can import
+the package and run the plain versions.
+
+No ``--use_fast_math``: it implies flush-to-zero and the approximate divide,
+and the kernels must equal their plain versions bit for bit.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+
+PKG_DIR = Path(__file__).resolve().parent.parent
+CSRC_DIR = PKG_DIR / "csrc"
+BUILD_DIR = PKG_DIR / "build"
+
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    # ptxas reports each kernel's registers, shared memory and spills.
+    "-Xptxas", "-v",
+)
+
+P = ctypes.c_void_p
+I = ctypes.c_int
+
+# C entry points and their argument types: pointers and the stream as
+# c_void_p (ctypes would otherwise pass a Python int as a 32-bit int and cut
+# the pointer), ints as c_int. Each returns cudaGetLastError() as an int.
+SIGNATURES = {
+    # u_in, p_in, u_out, p_out, bh, bv, inv, mask, abc, h, w, base, n_active, k, stream
+    "jc_sweep_tiles": (P, P, P, P, P, P, P, P, P, I, I, I, I, I, P),
+    # u (in/out), bh, bv, inv, mask, abc, h, w, iters, stream
+    "jc_sweep_resident": (P, P, P, P, P, P, I, I, I, P),
+    # rgb, depth, half (out), sat (scratch), out, h, w, k, max_half,
+    # approx, exact_upto, stride, stream
+    "defocus_box": (P, P, P, P, P, I, I, I, I, I, I, I, P),
+}
+
+_lock = threading.Lock()
+_lib = None
+# What the build this process ran reported, if it ran one.
+build_seconds = None
+build_log = ""
+
+
+def _sources():
+    return sorted(CSRC_DIR.glob("*.cu")) + sorted(CSRC_DIR.glob("*.cuh"))
+
+
+def _nvcc() -> str:
+    for cand in (
+        shutil.which("nvcc"),
+        os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc"),
+    ):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError(
+        "nvcc not found (searched PATH and $CUDA_HOME/bin): the CUDA kernels "
+        "cannot be built on this machine"
+    )
+
+
+def library_path() -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in _sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return BUILD_DIR / f"librtdd_kernels_{h.hexdigest()[:16]}.so"
+
+
+def _compile(out: Path) -> None:
+    global build_seconds, build_log
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+           *[str(s) for s in sorted(CSRC_DIR.glob("*.cu"))]]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stderr}"
+        )
+    os.replace(tmp, out)
+    build_seconds = time.perf_counter() - t0
+    build_log = proc.stderr
+
+
+def load_library() -> ctypes.CDLL:
+    """The kernels' library, built on first call if needed."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            path = library_path()
+            if not path.exists():
+                _compile(path)
+            lib = ctypes.CDLL(str(path))
+            for name, argtypes in SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = list(argtypes)
+                fn.restype = ctypes.c_int
+            lib.rtdd_error_string.argtypes = [ctypes.c_int]
+            lib.rtdd_error_string.restype = ctypes.c_char_p
+            _lib = lib
+        return _lib
+
+
+def check(name: str, err: int) -> None:
+    """Raise if a C entry point reported a CUDA error."""
+    if err != 0:
+        msg = load_library().rtdd_error_string(err) or b"?"
+        raise RuntimeError(f"{name}: CUDA error {err} ({msg.decode()})")

@@ -1,0 +1,174 @@
+"""The level solve: kernels K1 and K2 (``csrc/sweep.cu``) and their plain version.
+
+Counterpart of ``realtimedepthdiffusion_tpu/ops/pallas_sweep.py``:
+
+- ``jc_sweep_tiles`` (K1) launches up to k temporally blocked sweeps over
+  the whole level; it replaces ``_strip_mega_kernel_arena``.
+- ``jc_sweep_resident`` (K2) runs every sweep of a level that fits one
+  CTA's shared memory in one launch; it replaces ``_resident_kernel``.
+- ``sweep_plain`` / ``solve_level_plain`` compute the same thing with torch
+  ops, one rounding per op in the kernels' order. The CPU runs them, and
+  on the card they are what the kernels are held to, bit for bit.
+- ``solve_level_cuda`` routes a level to K1 or K2, in the part of
+  ``solve_level_pallas``.
+
+Each kernel wrapper counts its launches in ``<wrapper>.launches``.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from . import build
+
+# Sweeps per K1 launch: the ring of halo each tile carries. Deeper blocks
+# read the state from device memory less often and recompute more halo.
+TILE_SWEEPS = 8
+# The largest ring K1 accepts (shared memory grows as (32+2k)*(64+2k)*8 B).
+MAX_TILE_SWEEPS = 32
+# One CTA's shared memory on Hopper (232,448 bytes) and K2's need per pixel
+# of the level padded by a one-pixel ring: u, prev, bh, bv, inv (f32) and
+# mask (u8).
+SMEM_PER_CTA = 232448
+RESIDENT_BYTES_PER_PX = 21
+
+
+def sweep_plain(u, prev, wl, bh, wu, bv, inv, mask, a, b, c):
+    """One Jacobi-Chebyshev sweep in the kernels' op order; returns (u', u)."""
+    ul = F.pad(u[:, :-1], (1, 0))
+    ur = F.pad(u[:, 1:], (0, 1))
+    uu = F.pad(u[:-1, :], (0, 0, 1, 0))
+    ud = F.pad(u[1:, :], (0, 0, 0, 1))
+    s = wl * ul
+    s = s + bh * ur
+    s = s + wu * uu
+    s = s + bv * ud
+    r = torch.clamp(s * inv, 0.0, 255.0)
+    out = a * r
+    out = out + b * u
+    out = out + c * prev
+    return torch.where(mask, u, out), u
+
+
+def solve_level_plain(depth: torch.Tensor, mask: torch.Tensor, wts, abc: np.ndarray) -> torch.Tensor:
+    """All sweeps of one level (``abc``: the (iters, 3) schedule), plain torch."""
+    u = depth.to(torch.float32)
+    prev = torch.zeros_like(u)
+    mask = mask.to(torch.bool)
+    for a, b, c in abc.tolist():
+        u, prev = sweep_plain(u, prev, wts.wl, wts.wr, wts.wu, wts.wd,
+                              wts.inv_count, mask, a, b, c)
+    return u
+
+
+def _check(name, t, dtype, shape):
+    if not t.is_cuda:
+        raise ValueError(f"{name}: expected a CUDA tensor, got device {t.device}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name}: expected {dtype}, got {t.dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: expected shape {tuple(shape)}, got {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: expected a contiguous tensor")
+
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def jc_sweep_tiles(u_in, p_in, u_out, p_out, bh, bv, inv, mask_u8, abc_dev,
+                   base: int, n_active: int, k: int = TILE_SWEEPS) -> None:
+    """K1: sweeps base .. base+n_active-1 of the (iters, 3) device table
+    ``abc_dev``, reading (u_in, p_in) and writing (u_out, p_out)."""
+    h, w = u_in.shape
+    for name, t in (("u_in", u_in), ("p_in", p_in), ("u_out", u_out),
+                    ("p_out", p_out), ("bh", bh), ("bv", bv), ("inv", inv)):
+        _check(name, t, torch.float32, (h, w))
+    _check("mask", mask_u8, torch.uint8, (h, w))
+    if abc_dev.dim() != 2 or abc_dev.shape[1] != 3:
+        raise ValueError(f"abc: expected shape (iters, 3), got {tuple(abc_dev.shape)}")
+    _check("abc", abc_dev, torch.float32, abc_dev.shape)
+    if not 1 <= k <= MAX_TILE_SWEEPS:
+        raise ValueError(f"k must be in 1..{MAX_TILE_SWEEPS}, got {k}")
+    if not 1 <= n_active <= k or base < 0 or base + n_active > abc_dev.shape[0]:
+        raise ValueError(
+            f"sweeps {base}..{base + n_active - 1} with k={k} do not fit a "
+            f"table of {abc_dev.shape[0]}"
+        )
+    lib = build.load_library()
+    err = lib.jc_sweep_tiles(
+        u_in.data_ptr(), p_in.data_ptr(), u_out.data_ptr(), p_out.data_ptr(),
+        bh.data_ptr(), bv.data_ptr(), inv.data_ptr(), mask_u8.data_ptr(),
+        abc_dev.data_ptr(), h, w, base, n_active, k, _stream(u_in),
+    )
+    build.check("jc_sweep_tiles", err)
+    jc_sweep_tiles.launches += 1
+
+
+jc_sweep_tiles.launches = 0
+
+
+def resident_fits(h: int, w: int) -> bool:
+    """Whether K2 can hold an (h, w) level in one CTA's shared memory."""
+    return (h + 2) * (w + 2) * RESIDENT_BYTES_PER_PX <= SMEM_PER_CTA
+
+
+def jc_sweep_resident(u, bh, bv, inv, mask_u8, abc_dev) -> None:
+    """K2: every sweep of the (iters, 3) device table ``abc_dev`` on the
+    level ``u``, in place, starting from a zero Chebyshev history."""
+    h, w = u.shape
+    for name, t in (("u", u), ("bh", bh), ("bv", bv), ("inv", inv)):
+        _check(name, t, torch.float32, (h, w))
+    _check("mask", mask_u8, torch.uint8, (h, w))
+    if abc_dev.dim() != 2 or abc_dev.shape[1] != 3:
+        raise ValueError(f"abc: expected shape (iters, 3), got {tuple(abc_dev.shape)}")
+    _check("abc", abc_dev, torch.float32, abc_dev.shape)
+    if not resident_fits(h, w):
+        raise ValueError(f"a {h}x{w} level does not fit one CTA's shared memory")
+    lib = build.load_library()
+    err = lib.jc_sweep_resident(
+        u.data_ptr(), bh.data_ptr(), bv.data_ptr(), inv.data_ptr(),
+        mask_u8.data_ptr(), abc_dev.data_ptr(), h, w, abc_dev.shape[0], _stream(u),
+    )
+    build.check("jc_sweep_resident", err)
+    jc_sweep_resident.launches += 1
+
+
+jc_sweep_resident.launches = 0
+
+
+def solve_level_cuda(depth: torch.Tensor, mask: torch.Tensor, wts, abc: np.ndarray,
+                     k: int = TILE_SWEEPS) -> torch.Tensor:
+    """All sweeps of one level on the card: K2 when the level fits one CTA's
+    shared memory, else ceil(iters/k) launches of K1."""
+    h, w = depth.shape
+    iters = abc.shape[0]
+    u = depth.to(torch.float32).contiguous().clone()
+    if iters == 0:
+        return u
+    abc_dev = torch.from_numpy(np.ascontiguousarray(abc, np.float32)).to(u.device)
+    bh = wts.wr.contiguous()
+    bv = wts.wd.contiguous()
+    inv = wts.inv_count.contiguous()
+    m8 = mask.to(torch.uint8).contiguous()
+    if resident_fits(h, w):
+        jc_sweep_resident(u, bh, bv, inv, m8, abc_dev)
+        return u
+    return _solve_tiles(u, bh, bv, inv, m8, abc_dev, k)
+
+
+def _solve_tiles(u, bh, bv, inv, m8, abc_dev, k):
+    """ceil(iters/k) K1 launches; (u, prev) ping-pong between two buffer
+    pairs, and the last launch runs the remaining iters - base sweeps."""
+    iters = abc_dev.shape[0]
+    us = [u, torch.empty_like(u)]
+    ps = [torch.zeros_like(u), torch.empty_like(u)]
+    n_blocks = -(-iters // k)
+    for blk in range(n_blocks):
+        src, dst = blk % 2, 1 - blk % 2
+        base = blk * k
+        jc_sweep_tiles(us[src], ps[src], us[dst], ps[dst], bh, bv, inv, m8, abc_dev,
+                       base, min(k, iters - base), k)
+    return us[n_blocks % 2]

@@ -1,0 +1,101 @@
+"""The port's CUDA kernels against their plain versions on the card, at
+shapes the 1080p run does not reach: single rows, levels smaller than one
+tile, ragged tiles, every ring width k, and large apertures. Every
+comparison is exact.
+
+Needs a CUDA device and nvcc; skips without them. This file imports no JAX,
+so it runs on a machine without it:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from realtimedepthdiffusion_tpu_torch import ops
+from realtimedepthdiffusion_tpu_torch.config import DiffusionConfig
+from realtimedepthdiffusion_tpu_torch.core.annotation import seed_depth
+from realtimedepthdiffusion_tpu_torch.core.solver import abc_schedule
+from realtimedepthdiffusion_tpu_torch.core.weights import edge_weights
+from realtimedepthdiffusion_tpu_torch.ops import defocus, sweep
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture()
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the port's kernels have no CPU form")
+    return torch.device("cuda", 0)
+
+
+def _level(dev, h, w, iters, seed, level=1):
+    r = np.random.default_rng(seed)
+    gray = torch.from_numpy(r.integers(0, 256, (h, w), dtype=np.uint8)).to(dev)
+    mask = torch.from_numpy(r.random((h, w)) < 0.05).to(dev)
+    value = torch.from_numpy(r.integers(0, 255, (h, w), dtype=np.uint8)).to(dev)
+    depth = torch.from_numpy((r.random((h, w)) * 255).astype(np.float32)).to(dev)
+    depth = seed_depth(depth, mask, value)
+    wts = edge_weights(gray, depth, level, 2)
+    return depth, mask, wts, abc_schedule(iters, DiffusionConfig())
+
+
+@pytest.mark.parametrize("h,w", [(1, 70), (5, 3), (33, 65), (70, 130), (135, 240)])
+@pytest.mark.parametrize("k", [1, 3, 8, 32])
+@pytest.mark.parametrize("iters", [1, 7, 20])
+def test_tiles_kernel_equals_plain(dev, h, w, k, iters):
+    depth, mask, wts, abc = _level(dev, h, w, iters, seed=h * w + k)
+    before = sweep.jc_sweep_tiles.launches
+    abc_dev = torch.from_numpy(abc).to(dev)
+    got = sweep._solve_tiles(depth.clone(), wts.wr.contiguous(), wts.wd.contiguous(),
+                             wts.inv_count, mask.to(torch.uint8), abc_dev, k)
+    want = sweep.solve_level_plain(depth, mask, wts, abc)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert sweep.jc_sweep_tiles.launches - before == -(-iters // k)
+
+
+@pytest.mark.parametrize("h,w", [(1, 1), (5, 7), (67, 120), (30, 300)])
+@pytest.mark.parametrize("iters", [1, 10, 37])
+@pytest.mark.parametrize("level", [0, 2])
+def test_resident_kernel_equals_plain(dev, h, w, iters, level):
+    depth, mask, wts, abc = _level(dev, h, w, iters, seed=h + w + iters, level=level)
+    assert sweep.resident_fits(h, w)
+    before = sweep.jc_sweep_resident.launches
+    got = sweep.solve_level_cuda(depth, mask, wts, abc)
+    want = sweep.solve_level_plain(depth, mask, wts, abc)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert sweep.jc_sweep_resident.launches == before + 1
+
+
+@pytest.mark.parametrize("h,w", [(7, 9), (96, 160), (257, 130), (540, 960)])
+@pytest.mark.parametrize("aperture", [0.025, 0.3])
+@pytest.mark.parametrize("quality", ["exact", "approx"])
+def test_defocus_kernel_equals_plain(dev, h, w, aperture, quality):
+    r = np.random.default_rng(h * w)
+    rgb = torch.from_numpy(r.integers(0, 256, (h, w, 3), dtype=np.uint8)).to(dev)
+    depth = torch.from_numpy((r.random((h, w)) * 300 - 20).astype(np.float32)).to(dev)
+    cfg = DiffusionConfig(defocus_aperture=aperture, pallas_defocus_quality=quality)
+    got = defocus.defocus_box(rgb, depth, cfg)
+    want = defocus.defocus_sat(rgb, depth, cfg)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.uint8 and torch.equal(got, want)
+
+
+def test_wrappers_reject_bad_arguments(dev):
+    f = torch.zeros((8, 9), device=dev)
+    m = torch.zeros((8, 9), dtype=torch.uint8, device=dev)
+    abc = torch.zeros((4, 3), device=dev)
+    with pytest.raises(ValueError, match="float32"):
+        sweep.jc_sweep_tiles(f.double(), f, f, f, f, f, f, m, abc, 0, 4)
+    with pytest.raises(ValueError, match="shape"):
+        sweep.jc_sweep_resident(f, f[:, :8].contiguous(), f, f, m, abc)
+    with pytest.raises(ValueError, match="do not fit"):
+        sweep.jc_sweep_tiles(f, f, f, f, f, f, f, m, abc, 2, 4)
+    with pytest.raises(ValueError, match="rgb"):
+        defocus.defocus_box(m, f)
+    ops.reset_launch_counts()
+    assert ops.launch_counts() == {"jc_sweep_tiles": 0, "jc_sweep_resident": 0,
+                                   "defocus_box": 0}

@@ -1,0 +1,119 @@
+"""The port's plain level solve (what kernels K1 and K2 are held to on the
+card) against the JAX package's Pallas sweep kernels, run in interpret
+mode on the CPU as the JAX suite runs them.
+
+Tolerance: atol 5e-3 gray levels, the JAX suite's own bar between its
+kernels and its XLA path (tests/test_pallas.py): both sides use the (a,b,c)
+form of the Chebyshev update, but XLA and torch may round a product or a
+contracted FMA differently over 25 dependent sweeps."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from realtimedepthdiffusion_tpu.config import DiffusionConfig as JConfig
+from realtimedepthdiffusion_tpu.ops import pallas_sweep as jps
+from realtimedepthdiffusion_tpu_torch import ops
+from realtimedepthdiffusion_tpu_torch.config import DiffusionConfig
+from realtimedepthdiffusion_tpu_torch.core import solver
+from realtimedepthdiffusion_tpu_torch.core.weights import edge_weights
+from realtimedepthdiffusion_tpu_torch.ops import dispatch, sweep
+
+
+def _case(seed, h=49, w=67):
+    r = np.random.default_rng(seed)
+    gray = r.integers(0, 256, (h, w), dtype=np.uint8)
+    mask = r.random((h, w)) < 0.06
+    value = r.integers(0, 255, (h, w), dtype=np.uint8)
+    depth = np.where(mask, value, r.random((h, w)) * 255.0).astype(np.float32)
+    return gray, mask, depth
+
+
+# level 1 of 1 takes the coarsest-level weights, level 0 of 1 the depth
+# threshold 0; the strip kernel runs k=16 at this height, so 11 and 25
+# sweeps end on a ragged block (11 of 16, 9 of 16).
+@pytest.mark.parametrize("iters", [1, 11, 25])
+@pytest.mark.parametrize("kernel,level", [("resident", 1), ("strips", 0)])
+def test_plain_level_solve_matches_pallas(iters, kernel, level):
+    gray, mask, depth = _case(iters)
+    args = (jnp.asarray(depth), jnp.asarray(mask), jnp.asarray(gray), level, 1, iters, JConfig())
+    if kernel == "resident":
+        want = np.asarray(jps.solve_level_resident(*args, interpret=True))
+    else:
+        want = np.asarray(jps.solve_level_strips(*args, block_h=16, interpret=True))
+    got = solver.solve_level(torch.from_numpy(depth), torch.from_numpy(mask),
+                             torch.from_numpy(gray), level, 1, iters, DiffusionConfig())
+    assert got.dtype == torch.float32
+    got = got.numpy()
+    np.testing.assert_allclose(got, want, atol=5e-3, rtol=0)
+    assert np.array_equal(got[mask], depth[mask])
+
+
+def test_plain_sweep_is_the_abc_form():
+    """One sweep by hand in float32 numpy, op by op, equals sweep_plain exactly."""
+    gray, mask, depth = _case(3, 13, 17)
+    wts = edge_weights(torch.from_numpy(gray), torch.from_numpy(depth), 0, 1)
+    a, b, c = (float(v) for v in solver.abc_schedule(12, DiffusionConfig())[11])
+    prev = (np.random.default_rng(4).random(depth.shape) * 255).astype(np.float32)
+    got, old = sweep.sweep_plain(
+        torch.from_numpy(depth), torch.from_numpy(prev), wts.wl, wts.wr, wts.wu,
+        wts.wd, wts.inv_count, torch.from_numpy(mask), a, b, c)
+    u = np.pad(depth, 1)
+    wl, wr, wu, wd, inv = (t.numpy() for t in wts)
+    f = np.float32
+    s = wl * u[1:-1, :-2]
+    s = s + wr * u[1:-1, 2:]
+    s = s + wu * u[:-2, 1:-1]
+    s = s + wd * u[2:, 1:-1]
+    r = np.clip(s * inv, f(0), f(255))
+    out = f(a) * r
+    out = out + f(b) * depth
+    out = out + f(c) * prev
+    want = np.where(mask, depth, out)
+    assert np.array_equal(got.numpy(), want)
+    assert np.array_equal(old.numpy(), depth)
+
+
+@pytest.mark.parametrize("cfg_kw,match", [
+    ({"solver": "red_black"}, "A8"),
+    ({"solver": "jacobi"}, "A8"),
+    ({"early_exit": True}, "A8"),
+    ({"multigrid": "vcycle"}, "A9"),
+])
+def test_unported_configs_raise(cfg_kw, match):
+    gray, mask, depth = _case(5)
+    with pytest.raises(NotImplementedError, match=match):
+        solver.solve_level(torch.from_numpy(depth), torch.from_numpy(mask),
+                           torch.from_numpy(gray), 0, 1, 3, DiffusionConfig(**cfg_kw))
+
+
+def test_cpu_solve_launches_no_kernel():
+    ops.reset_launch_counts()
+    gray, mask, depth = _case(6)
+    dispatch.run_sweeps(torch.from_numpy(depth), torch.from_numpy(mask),
+                        edge_weights(torch.from_numpy(gray), torch.from_numpy(depth), 0, 1),
+                        solver.abc_schedule(5, DiffusionConfig()))
+    assert ops.launch_counts() == {"jc_sweep_tiles": 0, "jc_sweep_resident": 0,
+                                   "defocus_box": 0}
+
+
+def test_kernel_wrappers_refuse_cpu_tensors():
+    h, w = 8, 9
+    f = torch.zeros((h, w))
+    m = torch.zeros((h, w), dtype=torch.uint8)
+    abc = torch.zeros((4, 3))
+    with pytest.raises(ValueError, match="CUDA"):
+        sweep.jc_sweep_tiles(f, f, f, f, f, f, f, m, abc, 0, 4)
+    with pytest.raises(ValueError, match="CUDA"):
+        sweep.jc_sweep_resident(f, f, f, f, m, abc)
+    with pytest.raises(ValueError, match="CUDA"):
+        sweep.solve_level_cuda(f, m.bool(), edge_weights(m, f, 0, 1),
+                               solver.abc_schedule(4, DiffusionConfig()))
+    assert ops.launch_counts()["jc_sweep_tiles"] == 0
+
+
+def test_resident_fit_rule():
+    """K2 holds L4 of a 1080p cascade (67x120) and nothing from L3 up."""
+    assert sweep.resident_fits(67, 120)
+    assert not sweep.resident_fits(135, 240)
