@@ -8,15 +8,23 @@ Phases, each printed on its own lines; any failure raises and exits non-zero:
 1. Requires a CUDA device and prints the card's name and power limit.
 2. Builds the port's CUDA kernels from ``realtimedepthdiffusion_tpu_torch/csrc``.
 3. Holds each kernel against its plain torch version on the card, at the
-   shapes the 1080p main path gives it, with inputs from a numpy seed:
+   shapes the 1080p main paths give it, with inputs from a numpy seed:
    K1 on L0 and L1 and at k=1 against its default k, K2 on L4, K3 exact and
-   approx. Every comparison must be exact (max abs difference 0).
-4. Drives the main path: ``DepthPipeline(1080, 1920, device="cuda")`` and
+   approx, K4 on L0 and L1 and K5 on L4 with the red-black omegas. Every
+   comparison must be exact (max abs difference 0).
+4. Drives the default path: ``DepthPipeline(1080, 1920, device="cuda")`` and
    three ``solve_and_effect(EFFECT_DEFOCUS, ...)`` updates with a scribble
    added before the second. Checks finite depth, exact scribbles, the
-   output's shape and type, that every kernel launched, that a frame equals
-   the same frame computed by the plain versions on the card, and that a
-   small solve on the card agrees with the CPU's.
+   output's shape and type, that every kernel of the path (K1, K2, K3)
+   launched, that a frame equals the same frame computed by the plain
+   versions on the card, and that a small solve on the card agrees with the
+   CPU's.
+5. Drives the ``--profile fast`` path (red-black SOR with the rms early
+   exit, resolved by the port's ``flags.py``) the same way: three frames
+   through K4, K5 and K3, the iterations and residual probes of every
+   level, a kernel frame against the plain frame, and a small solve against
+   the CPU's. Then one ``solver="jacobi"`` frame and one Jacobi-Chebyshev
+   early-exit frame, each exact against the plain frame.
 
 The line before the last is a JSON object of the kernels; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -24,6 +32,7 @@ The line before the last is a JSON object of the kernels; the last line is
 
 from __future__ import annotations
 
+import argparse
 import json
 import subprocess
 import sys
@@ -33,6 +42,10 @@ import numpy as np
 
 H, W = 1080, 1920
 SEED = 0
+# What argparse gives every CLI surface for ``--profile fast``.
+FAST_ARGS = argparse.Namespace(backend="auto", solver=None, tolerance=None,
+                               residual_metric=None, rb_rho=None, rb_plain=False,
+                               defocus_quality=None, defocus_stride=None, profile="fast")
 TPU_SWEEP = "realtimedepthdiffusion_tpu/ops/pallas_sweep.py"
 TPU_DEFOCUS = "realtimedepthdiffusion_tpu/ops/pallas_defocus.py"
 
@@ -89,16 +102,17 @@ def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; this needs a GPU")
 
-    from realtimedepthdiffusion_tpu_torch import DepthPipeline, DiffusionConfig, ops
+    from realtimedepthdiffusion_tpu_torch import DepthPipeline, DiffusionConfig, flags, ops
     from realtimedepthdiffusion_tpu_torch.core import effects as fx
     from realtimedepthdiffusion_tpu_torch.core.annotation import seed_depth
     from realtimedepthdiffusion_tpu_torch.core.color import rgb_to_gray
     from realtimedepthdiffusion_tpu_torch.core.multigrid import (
         build_annotation_pyramids, build_gray_pyramid)
     from realtimedepthdiffusion_tpu_torch.core.pyramid import pyr_up
-    from realtimedepthdiffusion_tpu_torch.core.solver import abc_schedule
+    from realtimedepthdiffusion_tpu_torch.core import solver
+    from realtimedepthdiffusion_tpu_torch.core.solver import abc_schedule, rb_omegas
     from realtimedepthdiffusion_tpu_torch.core.weights import edge_weights
-    from realtimedepthdiffusion_tpu_torch.ops import build, defocus, sweep
+    from realtimedepthdiffusion_tpu_torch.ops import build, defocus, rb_sweep, sweep
 
     # -- 1. the card ---------------------------------------------------------
     smi = subprocess.run(
@@ -172,6 +186,36 @@ def main() -> None:
         raise AssertionError(f"L4 {tuple(gray_pyr[L].shape)} does not fit K2")
     k2 = check_level("K2 L4", L, "jc_sweep_resident", timed=True)
 
+    # K4 and K5 at the same levels, with the fast profile's omegas (the fixed
+    # count of each level, as when no probe fires).
+    fast_cfg = DiffusionConfig(**flags.resolve_solver_flags(FAST_ARGS, None))
+
+    def check_rb_level(name, level, kernel_name):
+        depth_t, mask_t, wts, _ = level_case(level)
+        om = rb_omegas(fast_cfg.level_iterations(n_levels, level), fast_cfg)
+        before = ops.launch_counts()[kernel_name]
+        got = rb_sweep.solve_level_rb_cuda(depth_t, mask_t, wts, om)
+        if ops.launch_counts()[kernel_name] == before:
+            raise AssertionError(f"{name}: {kernel_name} did not launch")
+        want = rb_sweep.solve_level_rb_plain(depth_t, mask_t, wts, om)
+        torch.cuda.synchronize()
+        err = require_equal(torch, name, got, want)
+        if not torch.equal(got[mask_t], depth_t[mask_t]):
+            raise AssertionError(f"{name}: scribble pixels moved")
+        line = {"shape": list(depth_t.shape), "iterations": len(om), "max_abs_err": err,
+                "ms": time_ms(torch, lambda: rb_sweep.solve_level_rb_cuda(
+                    depth_t, mask_t, wts, om), 10),
+                "plain_ms": time_ms(torch, lambda: rb_sweep.solve_level_rb_plain(
+                    depth_t, mask_t, wts, om), 3)}
+        print(f"{name}: {json.dumps(line)}")
+        return line
+
+    k4_l0 = check_rb_level("K4 L0", 0, "rb_sweep_tiles")
+    k4_l1 = check_rb_level("K4 L1", 1, "rb_sweep_tiles")
+    if not rb_sweep.rb_resident_fits(*gray_pyr[L].shape):
+        raise AssertionError(f"L4 {tuple(gray_pyr[L].shape)} does not fit K5")
+    k5 = check_rb_level("K5 L4", L, "rb_sweep_resident")
+
     ramp = np.linspace(0.0, 255.0, W, dtype=np.float32)[None, :].repeat(H, 0)
     ramp = np.clip(ramp + rng.normal(0.0, 6.0, (H, W)).astype(np.float32), 0.0, 255.0)
     depth_fx = torch.from_numpy(ramp).to(dev)
@@ -216,8 +260,8 @@ def main() -> None:
     wall = time.perf_counter() - t0
     launches = ops.launch_counts()
     print(f"main path: 3 frames in {wall:.3f} s, launches {json.dumps(launches)}")
-    for name, n in launches.items():
-        if n == 0:
+    for name in ("jc_sweep_tiles", "jc_sweep_resident", "defocus_box"):
+        if launches[name] == 0:
             raise AssertionError(f"main path never launched {name}")
     for i, (depth0, out, mask_d, value_d) in enumerate(frames):
         if not bool(torch.isfinite(depth0).all()):
@@ -234,34 +278,49 @@ def main() -> None:
     # kernel path's bit for bit: same glue, kernels equal to their twins.
     _, _, mask_d, value_d = frames[2]
 
-    def plain_frame(st):
-        masks, values = build_annotation_pyramids(mask_d, value_d, cfg)
+    def plain_level(c, depth, mask, wts, iters):
+        table = solver._SCHEDULES[c.solver](iters, c)
+        chunks = rb_sweep.chunks_plain if c.solver == "red_black" else sweep.chunks_plain
+        st, run, u_of = chunks(depth, mask, wts, table)
+        if c.early_exit:
+            return u_of(solver._chunked_early_exit(st, run, u_of, mask, wts, iters, c))
+        return u_of(run(st, 0, iters))
+
+    def plain_frame(c, gp, st):
+        masks, values = build_annotation_pyramids(mask_d, value_d, c)
         st = list(st)
         st[L] = seed_depth(st[L], masks[L], values[L])
         for level in range(L, -1, -1):
-            wts = edge_weights(gpyr[level], st[level], level, L, cfg)
-            abc = abc_schedule(cfg.level_iterations(n_levels, level), cfg)
-            st[level] = sweep.solve_level_plain(st[level], masks[level], wts, abc)
+            wts = edge_weights(gp[level], st[level], level, L, c)
+            st[level] = plain_level(c, st[level], masks[level], wts,
+                                    c.level_iterations(n_levels, level))
             if level > 0:
-                up = pyr_up(st[level], tuple(gpyr[level - 1].shape))
+                up = pyr_up(st[level], tuple(gp[level - 1].shape))
                 st[level - 1] = seed_depth(up, masks[level - 1], values[level - 1])
-        out = defocus.defocus_sat(rgb_d, torch.clamp(st[0], 0.0, 255.0), cfg)
+        out = defocus.defocus_sat(rgb_d, torch.clamp(st[0], 0.0, 255.0), c)
         return st[0], tuple(st), out
 
-    def kernel_frame(st):
-        return pipe.solve_and_effect(fx.EFFECT_DEFOCUS, gpyr, rgb_d, mask_d, value_d, st)
+    def compare_frames(name, p, st, timed):
+        """A kernel frame of pipeline ``p`` against the plain frame, from
+        the depth state ``st``; with ``timed``, both times."""
+        _, gp = p.prepare_image(rgb_np)
+        ops.reset_launch_counts()
+        k_depth, _, k_out = p.solve_and_effect(fx.EFFECT_DEFOCUS, gp, rgb_d, mask_d, value_d, st)
+        counts = ops.launch_counts()
+        p_depth, _, p_out = plain_frame(p.cfg, gp, st)
+        torch.cuda.synchronize()
+        err = max(require_equal(torch, f"{name} frame depth", k_depth, p_depth),
+                  require_equal(torch, f"{name} frame effect", k_out, p_out))
+        line = {"max_abs_err": err, "launches": {k: v for k, v in counts.items() if v}}
+        if timed:
+            line["ms"] = time_ms(torch, lambda: p.solve_and_effect(
+                fx.EFFECT_DEFOCUS, gp, rgb_d, mask_d, value_d, st), 10)
+            line["plain_ms"] = time_ms(torch, lambda: plain_frame(p.cfg, gp, st), 3)
+        print(f"{name} frame {H}x{W} solve+defocus, kernels against plain on the card "
+              f"(CUDA events, median): {json.dumps(line)}")
+        return line
 
-    warm = state
-    k_depth, _, k_out = kernel_frame(warm)
-    p_depth, _, p_out = plain_frame(warm)
-    torch.cuda.synchronize()
-    frame_err = max(require_equal(torch, "frame depth", k_depth, p_depth),
-                    require_equal(torch, "frame effect", k_out, p_out))
-    frame_ms = time_ms(torch, lambda: kernel_frame(warm), 10)
-    plain_frame_ms = time_ms(torch, lambda: plain_frame(warm), 3)
-    print(f"frame {H}x{W} solve+defocus: kernels {frame_ms:.3f} ms, plain {plain_frame_ms:.3f} ms "
-          f"per frame (CUDA events, median); kernel frame == plain frame "
-          f"(max abs diff {frame_err})")
+    frame = compare_frames("default", pipe, state, timed=True)
 
     # A small solve on the card against the CPU's plain path, which the CPU
     # tests hold against the JAX package. exp differs between the two
@@ -270,17 +329,86 @@ def main() -> None:
     srgb = seeded_image(rng, hs, ws)
     smask, svalue = bench_scribbles(hs * 8, ws * 8)
     smask, svalue = smask[::8, ::8].copy(), svalue[::8, ::8].copy()
-    depths = []
-    for device in ("cuda", "cpu"):
-        sp = DepthPipeline(hs, ws, cfg, device=device)
-        _, sg = sp.prepare_image(srgb)
-        d, _ = sp.solve(sg, torch.from_numpy(smask).to(device), torch.from_numpy(svalue).to(device),
-                        sp.initial_state())
-        depths.append(d.cpu().numpy())
-    rmse = float(np.sqrt(np.mean(((depths[0] - depths[1]) / 255.0) ** 2)))
-    print(f"small solve {hs}x{ws}: card vs CPU depth RMSE {rmse:.3e} (bar 1e-3)")
-    if not rmse <= 1e-3:
-        raise AssertionError(f"small solve: card vs CPU RMSE {rmse} > 1e-3")
+
+    def small_solve(c, name):
+        depths, iters = [], []
+        for device in ("cuda", "cpu"):
+            sp = DepthPipeline(hs, ws, c, device=device)
+            _, sg = sp.prepare_image(srgb)
+            log = []
+            d, _ = sp.solve(sg, torch.from_numpy(smask).to(device),
+                            torch.from_numpy(svalue).to(device), sp.initial_state(), log)
+            depths.append(d.cpu().numpy())
+            iters.append([e["iters"] for e in log])
+        rmse = float(np.sqrt(np.mean(((depths[0] - depths[1]) / 255.0) ** 2)))
+        print(f"{name} small solve {hs}x{ws}: card vs CPU depth RMSE {rmse:.3e} (bar 1e-3); "
+              f"early-exit iterations by level, card {iters[0]}, CPU {iters[1]}")
+        if not rmse <= 1e-3:
+            raise AssertionError(f"{name} small solve: card vs CPU RMSE {rmse} > 1e-3")
+
+    small_solve(cfg, "default")
+
+    # -- 5. the --profile fast path ----------------------------------------------
+    print(f"fast profile: {json.dumps(flags.resolve_solver_flags(FAST_ARGS, None))}")
+    fpipe = DepthPipeline(H, W, fast_cfg, device="cuda")
+    _, fgpyr = fpipe.prepare_image(rgb_np)
+    fmask, fvalue = bench_scribbles(H, W)
+    fstate = fpipe.initial_state()
+    ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fast_frames = []
+    for i in range(3):
+        if i == 1:
+            fmask[900:940, 1500:1560] = True
+            fvalue[900:940, 1500:1560] = 96
+        m_d = torch.from_numpy(fmask).to(dev)
+        v_d = torch.from_numpy(fvalue).to(dev)
+        log = []
+        depth0, fstate, out = fpipe.solve_and_effect(fx.EFFECT_DEFOCUS, fgpyr, rgb_d, m_d,
+                                                     v_d, fstate, log)
+        fast_frames.append((depth0, out, m_d, v_d, log))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    fast_launches = ops.launch_counts()
+    print(f"fast path: 3 frames in {wall:.3f} s, launches {json.dumps(fast_launches)}")
+    for name in ("rb_sweep_tiles", "rb_sweep_resident", "defocus_box"):
+        if fast_launches[name] == 0:
+            raise AssertionError(f"fast path never launched {name}")
+    for i, (depth0, out, m_d, v_d, log) in enumerate(fast_frames):
+        if not bool(torch.isfinite(depth0).all()):
+            raise AssertionError(f"fast frame {i}: depth is not finite")
+        if float(depth0.min()) < 0.0 or float(depth0.max()) > 255.0:
+            raise AssertionError(f"fast frame {i}: projected SOR left [0, 255]")
+        if not torch.equal(depth0[m_d], v_d[m_d].to(torch.float32)):
+            raise AssertionError(f"fast frame {i}: scribble pixels are not pinned")
+        if tuple(out.shape) != (H, W, 3) or out.dtype != torch.uint8:
+            raise AssertionError(f"fast frame {i}: effect is {tuple(out.shape)} {out.dtype}")
+        if [e["shape"] for e in log] != [tuple(g.shape) for g in fgpyr[::-1]]:
+            raise AssertionError(f"fast frame {i}: a level skipped the early exit")
+        levels = [{"level": L - j, "shape": list(e["shape"]), "iterations": e["iters"],
+                   "cap": fast_cfg.level_iterations(n_levels, L - j),
+                   "probes": [round(p, 6) for p in e["probes"]]} for j, e in enumerate(log)]
+        print(f"fast frame {i}: tol {log[0]['tol']:.6f}; {json.dumps(levels)}")
+    res = fpipe.residuals(fgpyr, fast_frames[2][2], fast_frames[2][3], fstate)
+    print(f"fast frame 2 residuals (max; rms) by level: {json.dumps(res.tolist())}")
+    if tuple(res.shape) != (2, n_levels) or not bool(torch.isfinite(res).all()):
+        raise AssertionError(f"residuals: {tuple(res.shape)}")
+    u16 = fpipe.depth_u16(fast_frames[2][0])
+    if u16.dtype != torch.uint16 or tuple(u16.shape) != (H, W):
+        raise AssertionError(f"depth_u16: {u16.dtype} {tuple(u16.shape)}")
+
+    mask_d, value_d = fast_frames[2][2], fast_frames[2][3]
+    fast_frame = compare_frames("fast", fpipe, fstate, timed=True)
+    small_solve(fast_cfg, "fast")
+    for name, c in (("jacobi", DiffusionConfig(solver="jacobi")),
+                    ("jacobi_chebyshev early exit",
+                     DiffusionConfig(early_exit=True, tolerance=1e-3))):
+        line = compare_frames(name, DepthPipeline(H, W, c, device="cuda"), fstate, timed=False)
+        want = {"jc_sweep_tiles", "defocus_box"} | ({"jc_sweep_resident"}
+                                                    if not c.early_exit else set())
+        if set(line["launches"]) != want:
+            raise AssertionError(f"{name} frame launched {line['launches']}, not {want}")
 
     kernels = [
         {"name": "jc_sweep_tiles", "route": "cuda",
@@ -297,7 +425,19 @@ def main() -> None:
          "replaces": f"{TPU_DEFOCUS}:234", "launches": launches["defocus_box"],
          "max_abs_err": max(v["max_abs_err"] for v in k3.values()),
          "ms": k3["exact"]["ms"], "plain_ms": k3["exact"]["plain_ms"]},
+        {"name": "rb_sweep_tiles", "route": "cuda",
+         "source": "realtimedepthdiffusion_tpu_torch/csrc/rb_sweep.cu",
+         "replaces": f"{TPU_SWEEP}:1327", "launches": fast_launches["rb_sweep_tiles"],
+         "max_abs_err": max(k4_l0["max_abs_err"], k4_l1["max_abs_err"]),
+         "ms": k4_l0["ms"], "plain_ms": k4_l0["plain_ms"]},
+        {"name": "rb_sweep_resident", "route": "cuda",
+         "source": "realtimedepthdiffusion_tpu_torch/csrc/rb_sweep.cu",
+         "replaces": f"{TPU_SWEEP}:1209", "launches": fast_launches["rb_sweep_resident"],
+         "max_abs_err": k5["max_abs_err"], "ms": k5["ms"], "plain_ms": k5["plain_ms"]},
     ]
+    print(f"frames: default {frame['ms']:.3f} ms (plain {frame['plain_ms']:.3f}), "
+          f"fast {fast_frame['ms']:.3f} ms (plain {fast_frame['plain_ms']:.3f}) "
+          f"on {smi.stdout.strip().splitlines()[0]}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                               "count": torch.cuda.device_count()}}))

@@ -69,9 +69,12 @@ def solve_cascade(
     value0: torch.Tensor,
     depth_state: Sequence[torch.Tensor],
     cfg: DiffusionConfig = DiffusionConfig(),
+    exit_log=None,
 ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, ...]]:
     """One coarse-to-fine solve; returns (depth0, new_depth_state). Level l
-    runs ``cfg.level_iterations`` sweeps, then its pyrUp seeds level l-1."""
+    runs ``cfg.level_iterations`` iterations (fewer under the early exit,
+    which reports each level to the list ``exit_log``, coarsest first),
+    then its pyrUp seeds level l-1."""
     levels = len(gray_pyr)
     L = levels - 1
     sizes = [tuple(g.shape) for g in gray_pyr]
@@ -82,7 +85,7 @@ def solve_cascade(
     for level in range(L, -1, -1):
         iters = cfg.level_iterations(levels, level)
         state[level] = solve_level(
-            state[level], masks[level], gray_pyr[level], level, L, iters, cfg
+            state[level], masks[level], gray_pyr[level], level, L, iters, cfg, exit_log
         )
         if level > 0:
             up = pyr_up(state[level], sizes[level - 1])

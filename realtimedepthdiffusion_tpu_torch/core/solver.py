@@ -1,9 +1,23 @@
-"""The per-level Jacobi-Chebyshev solve (port of ``realtimedepthdiffusion_tpu/core/solver.py``).
+"""The per-level solvers (port of ``realtimedepthdiffusion_tpu/core/solver.py``).
 
-The port computes the Chebyshev update in the (a, b, c) form of the Pallas
-kernels (``ops/pallas_sweep.py:_sweep_full``), ``a*r + b*u + c*prev``, not
-the reference's XLA form ``omega*(gamma*(r-u)+u-prev)+prev``: the two are
-equal in exact arithmetic and differ in rounding.
+``cfg.solver`` picks one of three, as in the reference:
+
+- ``jacobi_chebyshev``: the reference algorithm, in the (a, b, c) form of the
+  Pallas kernels (``ops/pallas_sweep.py:_sweep_full``), ``a*r + b*u +
+  c*prev``, not the reference's XLA form ``omega*(gamma*(r-u)+u-prev)+prev``:
+  the two are equal in exact arithmetic and differ in rounding.
+- ``jacobi``: the table (1, 0, 0) through the same sweep path. Since
+  ``1*r + 0*u + 0*prev == r`` exactly for finite u and prev, it computes
+  what the reference's ``solve_jacobi`` computes.
+- ``red_black``: projected SOR over the red and then the black cells, with
+  the cyclic-Chebyshev omegas of ``rb_omegas`` (``ops/rb_sweep.py``).
+
+Every solver honours the residual early exit (``cfg.early_exit``): the
+level runs in chunks of ``cfg.residual_check_every`` iterations and stops
+once the residual drops below ``tolerance * 255``. The loop runs on the
+host and reads one scalar from the device per chunk; each chunk runs on
+the kernels or on the plain versions by the tensors' device
+(``ops/dispatch.py``).
 """
 
 from __future__ import annotations
@@ -13,7 +27,9 @@ import torch
 
 from ..config import DiffusionConfig
 from ..ops import dispatch
-from .weights import edge_weights
+from ..ops.rb_sweep import red_black_parity  # noqa: F401 (the solver's API, as in JAX)
+from ..ops.sweep import relax_plain
+from .weights import EdgeWeights, edge_weights
 
 
 def chebyshev_omegas(iters: int, cfg: DiffusionConfig = DiffusionConfig()) -> np.ndarray:
@@ -43,6 +59,103 @@ def abc_schedule(iters: int, cfg: DiffusionConfig = DiffusionConfig()) -> np.nda
     return np.stack([a, om - a, np.float32(1.0) - om], axis=1)
 
 
+def jacobi_schedule(iters: int, cfg: DiffusionConfig = DiffusionConfig()) -> np.ndarray:
+    """(iters, 3) float32 rows (1, 0, 0): plain Jacobi in the (a, b, c) form."""
+    out = np.zeros((iters, 3), np.float32)
+    out[:, 0] = 1.0
+    return out
+
+
+def rb_omegas(iters: int, cfg: DiffusionConfig = DiffusionConfig()) -> np.ndarray:
+    """Per-half-sweep SOR omegas of red-black Gauss-Seidel, the cyclic
+    Chebyshev method (Golub & Varga 1961): 1 for the first S half-sweeps,
+    then 1/(1 - rho^2/2), then 1/(1 - rho^2*omega/4), in float64 with each
+    entry stored as float32. An (iters, 2) table: [:, 0] is the red
+    half-sweep's omega, [:, 1] the black one's; all ones when
+    ``cfg.rb_chebyshev`` is off (plain Gauss-Seidel)."""
+    n = max(iters, 1)
+    out = np.ones((n, 2), dtype=np.float32)
+    if cfg.rb_chebyshev:
+        rho2 = float(np.float32(cfg.rb_rho)) ** 2
+        s = cfg.chebyshev_s
+        omega = 1.0
+        for half in range(2 * n):
+            if half < s:
+                omega = 1.0
+            elif half == s:
+                omega = 1.0 / (1.0 - rho2 / 2.0)
+            else:
+                omega = 1.0 / (1.0 - rho2 * omega / 4.0)
+            out[half // 2, half % 2] = np.float32(omega)
+    return out[:iters]
+
+
+# The iteration table of each solver: (iters, 3) (a, b, c) rows for the
+# Jacobi sweeps, (iters, 2) omegas for red-black.
+_SCHEDULES = {
+    "jacobi_chebyshev": abc_schedule,
+    "jacobi": jacobi_schedule,
+    "red_black": rb_omegas,
+}
+
+
+def jacobi_sweep(u: torch.Tensor, wts: EdgeWeights) -> torch.Tensor:
+    """One weighted 5-point relaxation, clip((wl*ul + wr*ur + wu*uu +
+    wd*ud) * inv_count, 0, 255), in the reference's XLA op order."""
+    return relax_plain(u, wts.wl, wts.wr, wts.wu, wts.wd, wts.inv_count)
+
+
+def residual_norm(u: torch.Tensor, mask: torch.Tensor, wts: EdgeWeights) -> torch.Tensor:
+    """Max-norm residual |relax(u) - u| over the pixels that are not scribbled."""
+    r = jacobi_sweep(u, wts) - u
+    return torch.where(mask, 0.0, r).abs().max()
+
+
+def residual_rms(u: torch.Tensor, mask: torch.Tensor, wts: EdgeWeights) -> torch.Tensor:
+    """RMS residual sqrt(mean |relax(u) - u|^2) over the pixels that are not
+    scribbled (the count is at least 1)."""
+    r = torch.where(mask, 0.0, jacobi_sweep(u, wts) - u)
+    cnt = torch.clamp(torch.where(mask, 0.0, 1.0).sum(), min=1.0)
+    return torch.sqrt((r * r).sum() / cnt)
+
+
+def residual_metric_fn(cfg: DiffusionConfig):
+    """The residual functional selected by ``cfg.residual_metric``."""
+    try:
+        return {"max": residual_norm, "rms": residual_rms}[cfg.residual_metric]
+    except KeyError:
+        raise ValueError(
+            f"unknown residual_metric {cfg.residual_metric!r}; "
+            "expected 'rms' or 'max'"
+        ) from None
+
+
+def _chunked_early_exit(state, run, u_of, mask, wts, iters: int, cfg: DiffusionConfig,
+                        exit_log=None):
+    """Run iterations 0, 1, ... of a level in chunks, ``state =
+    run(state, i, n)``, while ``i < iters`` and the residual of
+    ``u_of(state)``, probed after each chunk, is ``>= tolerance*255``. A
+    chunk is ``min(residual_check_every, iters - i)`` iterations, so the
+    loop never passes the cap, and with an unreachable tolerance it visits
+    exactly the iterates of the fixed-count loop. Each probe reads one
+    scalar back to the host. A list given as ``exit_log`` receives a dict
+    of the level's shape, the iterations run, each probe's residual and
+    the threshold."""
+    tol = float(np.float32(cfg.tolerance) * np.float32(255.0))
+    chunk = max(int(cfg.residual_check_every), 1)
+    res_fn = residual_metric_fn(cfg)
+    i, res, probes = 0, float("inf"), []
+    while i < iters and res >= tol:
+        n = min(chunk, iters - i)
+        state = run(state, i, n)
+        i += n
+        res = res_fn(u_of(state), mask, wts).item()
+        probes.append(res)
+    if exit_log is not None:
+        exit_log.append({"shape": tuple(mask.shape), "iters": i, "probes": probes, "tol": tol})
+    return state
+
+
 def solve_level(
     depth: torch.Tensor,
     mask: torch.Tensor,
@@ -51,9 +164,17 @@ def solve_level(
     max_level: int,
     iters: int,
     cfg: DiffusionConfig = DiffusionConfig(),
+    exit_log=None,
 ) -> torch.Tensor:
-    """Weights from the incoming (seeded) depth, then ``iters`` sweeps on
-    the device the tensors live on (``ops/dispatch.py``)."""
+    """Weights from the incoming (seeded) depth, then ``iters`` iterations
+    of ``cfg.solver`` on the device the tensors live on, or fewer under the
+    early exit, which reports to ``exit_log`` (``_chunked_early_exit``)."""
     dispatch.check_supported(cfg)
+    if iters <= 0:
+        return depth.to(torch.float32)
     wts = edge_weights(gray, depth, level, max_level, cfg)
-    return dispatch.run_sweeps(depth, mask, wts, abc_schedule(iters, cfg))
+    table = _SCHEDULES[cfg.solver](iters, cfg)
+    if not cfg.early_exit:
+        return dispatch.run_sweeps(depth, mask, wts, table, cfg.solver)
+    state, run, u_of = dispatch.level_chunks(depth, mask, wts, table, cfg.solver)
+    return u_of(_chunked_early_exit(state, run, u_of, mask, wts, iters, cfg, exit_log))

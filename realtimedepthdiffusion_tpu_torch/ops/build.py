@@ -44,6 +44,11 @@ SIGNATURES = {
     "jc_sweep_tiles": (P, P, P, P, P, P, P, P, P, I, I, I, I, I, P),
     # u (in/out), bh, bv, inv, mask, abc, h, w, iters, stream
     "jc_sweep_resident": (P, P, P, P, P, P, I, I, I, P),
+    # u_in, u_out, bh, bv, inv, mask, om, h, w, base, n_active, k, tile_h,
+    # tile_w, stream
+    "rb_sweep_tiles": (P, P, P, P, P, P, P, I, I, I, I, I, I, I, P),
+    # u (in/out), bh, bv, inv, mask, om, h, w, base, n, stream
+    "rb_sweep_resident": (P, P, P, P, P, P, I, I, I, I, P),
     # rgb, depth, half (out), sat (scratch), out, h, w, k, max_half,
     # approx, exact_upto, stride, stream
     "defocus_box": (P, P, P, P, P, I, I, I, I, I, I, I, P),

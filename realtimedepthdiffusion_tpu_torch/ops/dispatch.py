@@ -1,9 +1,12 @@
 """Routing of the per-level sweeps (counterpart of ``realtimedepthdiffusion_tpu/ops/dispatch.py``).
 
 The device of the tensors decides: a CPU tensor runs the plain torch
-sweeps, a CUDA tensor runs the hand-written kernels (``ops/sweep.py``).
-There is no fallback between the two. What the port does not implement yet
-raises, naming the ROADMAP item that will bring it.
+versions, a CUDA tensor runs the hand-written kernels. There is no
+fallback between the two. The solver decides the kernels: the Jacobi
+sweeps (``jacobi_chebyshev`` and ``jacobi``) run K1 and K2
+(``ops/sweep.py``), red-black runs K4 and K5 (``ops/rb_sweep.py``). What
+the port does not implement yet raises, naming the ROADMAP item that will
+bring it.
 """
 
 from __future__ import annotations
@@ -12,25 +15,34 @@ import numpy as np
 import torch
 
 from ..config import DiffusionConfig
-from . import sweep
+from . import rb_sweep, sweep
 
 VALID_BACKENDS = ("auto", "xla", "pallas", "pallas_interpret")
+VALID_SOLVERS = ("jacobi", "jacobi_chebyshev", "red_black")
+
+# (plain version, kernels) of each solver: every iteration of a level ...
+_FIXED = {
+    "jacobi_chebyshev": (sweep.solve_level_plain, sweep.solve_level_cuda),
+    "red_black": (rb_sweep.solve_level_rb_plain, rb_sweep.solve_level_rb_cuda),
+}
+# ... and the same in chunks, for the residual early exit.
+_CHUNKS = {
+    "jacobi_chebyshev": (sweep.chunks_plain, sweep.chunks_cuda),
+    "red_black": (rb_sweep.chunks_plain, rb_sweep.chunks_cuda),
+}
+_FIXED["jacobi"] = _FIXED["jacobi_chebyshev"]
+_CHUNKS["jacobi"] = _CHUNKS["jacobi_chebyshev"]
 
 
 def check_supported(cfg: DiffusionConfig) -> None:
-    """Raise for a config the port cannot solve yet, on every device."""
+    """Raise for a config the port cannot solve, on every device."""
     if cfg.backend not in VALID_BACKENDS:
         raise ValueError(
             f"unknown backend {cfg.backend!r}; expected one of {VALID_BACKENDS}"
         )
-    if cfg.solver != "jacobi_chebyshev":
-        raise NotImplementedError(
-            f"solver {cfg.solver!r} is not ported yet (ROADMAP A8 and B9); "
-            "the port runs 'jacobi_chebyshev'"
-        )
-    if cfg.early_exit:
-        raise NotImplementedError(
-            "the residual early exit is not ported yet (ROADMAP A8 and B8)"
+    if cfg.solver not in VALID_SOLVERS:
+        raise ValueError(
+            f"unknown solver {cfg.solver!r}; expected one of {list(VALID_SOLVERS)}"
         )
     if cfg.multigrid != "cascadic":
         raise NotImplementedError(
@@ -39,11 +51,23 @@ def check_supported(cfg: DiffusionConfig) -> None:
         )
 
 
-def run_sweeps(depth: torch.Tensor, mask: torch.Tensor, wts, abc: np.ndarray) -> torch.Tensor:
-    """All sweeps of one level: the kernels for a CUDA tensor, the plain
-    version for a CPU tensor."""
+def _pick(pair, depth: torch.Tensor):
     if depth.is_cuda:
-        return sweep.solve_level_cuda(depth, mask, wts, abc)
+        return pair[1]
     if depth.device.type == "cpu":
-        return sweep.solve_level_plain(depth, mask, wts, abc)
+        return pair[0]
     raise ValueError(f"unsupported device {depth.device}")
+
+
+def run_sweeps(depth: torch.Tensor, mask: torch.Tensor, wts, table: np.ndarray,
+               solver: str = "jacobi_chebyshev") -> torch.Tensor:
+    """Every iteration of one level's table (``core/solver.py:_SCHEDULES``):
+    the kernels for a CUDA tensor, the plain version for a CPU tensor."""
+    return _pick(_FIXED[solver], depth)(depth, mask, wts, table)
+
+
+def level_chunks(depth: torch.Tensor, mask: torch.Tensor, wts, table: np.ndarray,
+                 solver: str = "jacobi_chebyshev"):
+    """``(state, run, u_of)`` of one level for the residual early exit, on
+    the kernels or the plain version as ``run_sweeps`` routes."""
+    return _pick(_CHUNKS[solver], depth)(depth, mask, wts, table)

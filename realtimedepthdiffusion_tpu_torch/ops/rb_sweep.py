@@ -1,0 +1,199 @@
+"""The red-black level solve: kernels K4 and K5 (``csrc/rb_sweep.cu``) and their plain version.
+
+Counterpart of the red-black section of
+``realtimedepthdiffusion_tpu/ops/pallas_sweep.py`` (``:1170-1926``):
+
+- ``rb_sweep_tiles`` (K4) runs up to k red-black iterations over the whole
+  level in temporally blocked tiles; it replaces ``_rb_strip_mega_kernel``,
+  the chunked ``_strip_rb_kernel`` and the quadrant-compacted
+  ``_rb_compact_mega_kernel``, which all compute the same iterate.
+- ``rb_sweep_resident`` (K5) runs n iterations of a level that fits one
+  CTA's shared memory in one launch; it replaces ``_resident_rb_kernel``.
+- ``rb_iter_plain`` / ``solve_level_rb_plain`` compute the same thing with
+  torch ops in ``_rb_iter_full``'s order. The CPU runs them, and on the
+  card they are what the kernels are held to, bit for bit.
+- ``solve_level_rb_cuda`` routes a level to K5 when it fits and to K4
+  otherwise. ``pallas_rb_resident``, ``pallas_rb_megakernel``,
+  ``pallas_rb_compact`` and ``pallas_in_kernel_halo`` choose between TPU
+  kernels of one iterate; they change nothing here.
+- ``chunks_plain`` / ``chunks_cuda`` run a level's iterations in chunks for
+  the residual early exit (``core/solver.py:_chunked_early_exit``); on the
+  card each chunk is one K5 launch or ceil(n/k) K4 launches.
+
+Each kernel wrapper counts its launches in ``<wrapper>.launches``.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from . import build
+from .sweep import SMEM_PER_CTA, _check, _stream, relax_plain
+
+# Iterations per K4 launch. One iteration is two half-sweeps, each of which
+# widens the dependency cone by a pixel, so a tile carries a ring of 2k.
+RB_TILE_ITERS = 8
+# The largest k K4 accepts: its buffer is (32 + 4k) x (64 + 4k) floats.
+MAX_RB_TILE_ITERS = 32
+RB_TILE_H, RB_TILE_W = 32, 64
+# K5's need per pixel of the level padded by a one-pixel ring: u, bh, bv,
+# inv (f32) and mask (u8).
+RB_RESIDENT_BYTES_PER_PX = 17
+
+
+def red_black_parity(h: int, w: int, device=None) -> torch.Tensor:
+    """Checkerboard mask: True at red cells ((y+x) even)."""
+    yy = torch.arange(h, device=device)[:, None]
+    xx = torch.arange(w, device=device)[None, :]
+    return (yy + xx) % 2 == 0
+
+
+def rb_iter_plain(u, wl, bh, wu, bv, inv, mask, red, om_r: float, om_b: float):
+    """One red-black iteration: at the red cells that are not scribbled,
+    clip(u + om_r*(r - u), 0, 255) with r the clipped weighted average of
+    the current state; then the same at the black cells, with om_b, from
+    the half-updated state."""
+    free = ~mask
+    r = relax_plain(u, wl, bh, wu, bv, inv)
+    u = torch.where(red & free, torch.clamp(u + om_r * (r - u), 0.0, 255.0), u)
+    r = relax_plain(u, wl, bh, wu, bv, inv)
+    return torch.where(~red & free, torch.clamp(u + om_b * (r - u), 0.0, 255.0), u)
+
+
+def _same(u):
+    return u
+
+
+def chunks_plain(depth: torch.Tensor, mask: torch.Tensor, wts, om: np.ndarray):
+    """A level's iterations in plain torch, as ``(state, run, u_of)``:
+    ``run(u, base, n)`` runs iterations base .. base+n-1 of the (iters, 2)
+    omega table ``om`` and returns the new u, which is the state."""
+    mask = mask.to(torch.bool)
+    red = red_black_parity(*depth.shape, device=depth.device)
+
+    def run(u, base, n):
+        for om_r, om_b in om[base:base + n].tolist():
+            u = rb_iter_plain(u, wts.wl, wts.wr, wts.wu, wts.wd, wts.inv_count, mask,
+                              red, om_r, om_b)
+        return u
+
+    return depth.to(torch.float32), run, _same
+
+
+def solve_level_rb_plain(depth: torch.Tensor, mask: torch.Tensor, wts,
+                         om: np.ndarray) -> torch.Tensor:
+    """Every iteration of the (iters, 2) omega table ``om``, plain torch."""
+    u, run, _ = chunks_plain(depth, mask, wts, om)
+    return run(u, 0, om.shape[0])
+
+
+def _check_planes(h, w, bh, bv, inv, mask_u8, om_dev, base, n):
+    for name, t in (("bh", bh), ("bv", bv), ("inv", inv)):
+        _check(name, t, torch.float32, (h, w))
+    _check("mask", mask_u8, torch.uint8, (h, w))
+    if om_dev.dim() != 2 or om_dev.shape[1] != 2:
+        raise ValueError(f"om: expected shape (iters, 2), got {tuple(om_dev.shape)}")
+    _check("om", om_dev, torch.float32, om_dev.shape)
+    if n < 1 or base < 0 or base + n > om_dev.shape[0]:
+        raise ValueError(
+            f"iterations {base}..{base + n - 1} do not fit a table of {om_dev.shape[0]}"
+        )
+
+
+def rb_sweep_tiles(u_in, u_out, bh, bv, inv, mask_u8, om_dev, base: int, n_active: int,
+                   k: int = RB_TILE_ITERS, tile=(RB_TILE_H, RB_TILE_W)) -> None:
+    """K4: iterations base .. base+n_active-1 of the (iters, 2) device
+    omega table ``om_dev``, reading ``u_in`` and writing ``u_out``, in
+    tiles of ``tile`` = (rows, cols)."""
+    h, w = u_in.shape
+    _check("u_in", u_in, torch.float32, (h, w))
+    _check("u_out", u_out, torch.float32, (h, w))
+    _check_planes(h, w, bh, bv, inv, mask_u8, om_dev, base, n_active)
+    if not 1 <= k <= MAX_RB_TILE_ITERS:
+        raise ValueError(f"k must be in 1..{MAX_RB_TILE_ITERS}, got {k}")
+    if n_active > k:
+        raise ValueError(f"n_active {n_active} exceeds k={k}")
+    tile_h, tile_w = tile
+    if min(tile) < 1 or (tile_h + 4 * k) * (tile_w + 4 * k) * 4 > SMEM_PER_CTA:
+        raise ValueError(f"a {tile_h}x{tile_w} tile with k={k} does not fit shared memory")
+    lib = build.load_library()
+    err = lib.rb_sweep_tiles(
+        u_in.data_ptr(), u_out.data_ptr(), bh.data_ptr(), bv.data_ptr(), inv.data_ptr(),
+        mask_u8.data_ptr(), om_dev.data_ptr(), h, w, base, n_active, k, tile_h, tile_w,
+        _stream(u_in),
+    )
+    build.check("rb_sweep_tiles", err)
+    rb_sweep_tiles.launches += 1
+
+
+rb_sweep_tiles.launches = 0
+
+
+def rb_resident_fits(h: int, w: int) -> bool:
+    """Whether K5 can hold an (h, w) level in one CTA's shared memory."""
+    return (h + 2) * (w + 2) * RB_RESIDENT_BYTES_PER_PX <= SMEM_PER_CTA
+
+
+def rb_sweep_resident(u, bh, bv, inv, mask_u8, om_dev, base: int, n: int) -> None:
+    """K5: iterations base .. base+n-1 of the (iters, 2) device omega table
+    ``om_dev`` on the level ``u``, in place."""
+    h, w = u.shape
+    _check("u", u, torch.float32, (h, w))
+    _check_planes(h, w, bh, bv, inv, mask_u8, om_dev, base, n)
+    if not rb_resident_fits(h, w):
+        raise ValueError(f"a {h}x{w} level does not fit one CTA's shared memory")
+    lib = build.load_library()
+    err = lib.rb_sweep_resident(
+        u.data_ptr(), bh.data_ptr(), bv.data_ptr(), inv.data_ptr(), mask_u8.data_ptr(),
+        om_dev.data_ptr(), h, w, base, n, _stream(u),
+    )
+    build.check("rb_sweep_resident", err)
+    rb_sweep_resident.launches += 1
+
+
+rb_sweep_resident.launches = 0
+
+
+def _tiles_chunk(u, bh, bv, inv, m8, om_dev, base, n, k, tile=(RB_TILE_H, RB_TILE_W)):
+    """Iterations base .. base+n-1 in ceil(n/k) K4 launches; u ping-pongs
+    between the given buffer and a new one. Returns the one that holds the
+    result."""
+    us = [u, torch.empty_like(u)]
+    n_blocks = -(-n // k)
+    for blk in range(n_blocks):
+        b = base + blk * k
+        rb_sweep_tiles(us[blk % 2], us[1 - blk % 2], bh, bv, inv, m8, om_dev, b,
+                       min(k, base + n - b), k, tile)
+    return us[n_blocks % 2]
+
+
+def chunks_cuda(depth: torch.Tensor, mask: torch.Tensor, wts, om: np.ndarray,
+                k: int = RB_TILE_ITERS):
+    """``chunks_plain`` on the card: a chunk is one K5 launch when the level
+    fits one CTA's shared memory, else ceil(n/k) K4 launches."""
+    u = depth.to(torch.float32).contiguous().clone()
+    om_dev = torch.from_numpy(np.ascontiguousarray(om, np.float32)).to(u.device)
+    planes = (wts.wr.contiguous(), wts.wd.contiguous(), wts.inv_count.contiguous(),
+              mask.to(torch.uint8).contiguous())
+
+    if rb_resident_fits(*u.shape):
+        def run(u, base, n):
+            rb_sweep_resident(u, *planes, om_dev, base, n)
+            return u
+    else:
+        def run(u, base, n):
+            return _tiles_chunk(u, *planes, om_dev, base, n, k)
+
+    return u, run, _same
+
+
+def solve_level_rb_cuda(depth: torch.Tensor, mask: torch.Tensor, wts, om: np.ndarray,
+                        k: int = RB_TILE_ITERS) -> torch.Tensor:
+    """Every iteration of the (iters, 2) omega table on the card: one K5
+    launch when the level fits one CTA's shared memory, else ceil(iters/k)
+    launches of K4."""
+    if om.shape[0] == 0:
+        return depth.to(torch.float32).contiguous().clone()
+    u, run, _ = chunks_cuda(depth, mask, wts, om, k)
+    return run(u, 0, om.shape[0])

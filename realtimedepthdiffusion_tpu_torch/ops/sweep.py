@@ -11,6 +11,11 @@ Counterpart of ``realtimedepthdiffusion_tpu/ops/pallas_sweep.py``:
   on the card they are what the kernels are held to, bit for bit.
 - ``solve_level_cuda`` routes a level to K1 or K2, in the part of
   ``solve_level_pallas``.
+- ``chunks_plain`` / ``chunks_cuda`` run a level's sweeps in chunks that
+  carry (u, prev) from one to the next, for the residual early exit
+  (``core/solver.py:_chunked_early_exit``); they are the counterpart of
+  ``solve_level_strips_early_exit``. As there, every level of the early
+  exit goes through K1, since K2 keeps no ``prev`` between launches.
 
 Each kernel wrapper counts its launches in ``<wrapper>.launches``.
 """
@@ -35,8 +40,10 @@ SMEM_PER_CTA = 232448
 RESIDENT_BYTES_PER_PX = 21
 
 
-def sweep_plain(u, prev, wl, bh, wu, bv, inv, mask, a, b, c):
-    """One Jacobi-Chebyshev sweep in the kernels' op order; returns (u', u)."""
+def relax_plain(u, wl, bh, wu, bv, inv):
+    """The weighted 4-neighbour average, clip((wl*ul + bh*ur + wu*uu +
+    bv*ud) * inv, 0, 255), summed left to right; a neighbour outside the
+    image reads as 0."""
     ul = F.pad(u[:, :-1], (1, 0))
     ur = F.pad(u[:, 1:], (0, 1))
     uu = F.pad(u[:-1, :], (0, 0, 1, 0))
@@ -45,22 +52,43 @@ def sweep_plain(u, prev, wl, bh, wu, bv, inv, mask, a, b, c):
     s = s + bh * ur
     s = s + wu * uu
     s = s + bv * ud
-    r = torch.clamp(s * inv, 0.0, 255.0)
+    return torch.clamp(s * inv, 0.0, 255.0)
+
+
+def sweep_plain(u, prev, wl, bh, wu, bv, inv, mask, a, b, c):
+    """One Jacobi-Chebyshev sweep in the kernels' op order; returns (u', u)."""
+    r = relax_plain(u, wl, bh, wu, bv, inv)
     out = a * r
     out = out + b * u
     out = out + c * prev
     return torch.where(mask, u, out), u
 
 
+def _first(state):
+    return state[0]
+
+
+def chunks_plain(depth: torch.Tensor, mask: torch.Tensor, wts, abc: np.ndarray):
+    """A level's sweeps in plain torch, as ``(state, run, u_of)``:
+    ``run(state, base, n)`` runs sweeps base .. base+n-1 of the (iters, 3)
+    schedule ``abc`` on the (u, prev) state, and ``u_of(state)`` is u."""
+    mask = mask.to(torch.bool)
+
+    def run(state, base, n):
+        u, prev = state
+        for a, b, c in abc[base:base + n].tolist():
+            u, prev = sweep_plain(u, prev, wts.wl, wts.wr, wts.wu, wts.wd,
+                                  wts.inv_count, mask, a, b, c)
+        return u, prev
+
+    u = depth.to(torch.float32)
+    return (u, torch.zeros_like(u)), run, _first
+
+
 def solve_level_plain(depth: torch.Tensor, mask: torch.Tensor, wts, abc: np.ndarray) -> torch.Tensor:
     """All sweeps of one level (``abc``: the (iters, 3) schedule), plain torch."""
-    u = depth.to(torch.float32)
-    prev = torch.zeros_like(u)
-    mask = mask.to(torch.bool)
-    for a, b, c in abc.tolist():
-        u, prev = sweep_plain(u, prev, wts.wl, wts.wr, wts.wu, wts.wd,
-                              wts.inv_count, mask, a, b, c)
-    return u
+    state, run, u_of = chunks_plain(depth, mask, wts, abc)
+    return u_of(run(state, 0, abc.shape[0]))
 
 
 def _check(name, t, dtype, shape):
@@ -160,15 +188,35 @@ def solve_level_cuda(depth: torch.Tensor, mask: torch.Tensor, wts, abc: np.ndarr
 
 
 def _solve_tiles(u, bh, bv, inv, m8, abc_dev, k):
-    """ceil(iters/k) K1 launches; (u, prev) ping-pong between two buffer
-    pairs, and the last launch runs the remaining iters - base sweeps."""
-    iters = abc_dev.shape[0]
+    """Every sweep of the table with K1, from a zero Chebyshev history."""
+    return _tiles_chunk(u, torch.zeros_like(u), bh, bv, inv, m8, abc_dev, 0,
+                        abc_dev.shape[0], k)[0]
+
+
+def _tiles_chunk(u, prev, bh, bv, inv, m8, abc_dev, base, n, k):
+    """Sweeps base .. base+n-1 in ceil(n/k) K1 launches; (u, prev)
+    ping-pong between the given pair and a new one, and the last launch runs
+    the remaining sweeps. Returns the pair that holds the result."""
     us = [u, torch.empty_like(u)]
-    ps = [torch.zeros_like(u), torch.empty_like(u)]
-    n_blocks = -(-iters // k)
+    ps = [prev, torch.empty_like(u)]
+    n_blocks = -(-n // k)
     for blk in range(n_blocks):
         src, dst = blk % 2, 1 - blk % 2
-        base = blk * k
+        b = base + blk * k
         jc_sweep_tiles(us[src], ps[src], us[dst], ps[dst], bh, bv, inv, m8, abc_dev,
-                       base, min(k, iters - base), k)
-    return us[n_blocks % 2]
+                       b, min(k, base + n - b), k)
+    return us[n_blocks % 2], ps[n_blocks % 2]
+
+
+def chunks_cuda(depth: torch.Tensor, mask: torch.Tensor, wts, abc: np.ndarray,
+                k: int = TILE_SWEEPS):
+    """``chunks_plain`` on the card: each chunk is ceil(n/k) launches of K1."""
+    u = depth.to(torch.float32).contiguous().clone()
+    abc_dev = torch.from_numpy(np.ascontiguousarray(abc, np.float32)).to(u.device)
+    planes = (wts.wr.contiguous(), wts.wd.contiguous(), wts.inv_count.contiguous(),
+              mask.to(torch.uint8).contiguous())
+
+    def run(state, base, n):
+        return _tiles_chunk(*state, *planes, abc_dev, base, n, k)
+
+    return (u, torch.zeros_like(u)), run, _first

@@ -5,7 +5,8 @@ PyTorch runs eagerly, so there is nothing to compile ahead and nothing to
 hide: the reference's staged cold start, AOT executables and background
 compiles have no counterpart here. Every tensor lives on the pipeline's
 ``device``; on a CUDA device the sweeps and the defocus run the port's
-kernels, on the CPU their plain versions.
+kernels, on the CPU their plain versions. Every solver of
+``cfg.solver`` runs, with or without the residual early exit.
 """
 
 from __future__ import annotations
@@ -19,7 +20,10 @@ import torch
 from .config import DiffusionConfig
 from .core import effects as fx
 from .core.color import rgb_to_gray
-from .core.multigrid import build_gray_pyramid, initial_depth_state, solve_cascade
+from .core.multigrid import (build_annotation_pyramids, build_gray_pyramid,
+                             initial_depth_state, solve_cascade)
+from .core.solver import residual_norm, residual_rms
+from .core.weights import edge_weights
 from .ops import dispatch
 
 
@@ -28,7 +32,9 @@ class DepthPipeline:
     the caller names: nothing here picks the CPU or a card by itself.
 
     Callers carry the depth-state pyramid from solve to solve; it
-    warm-starts the next solve.
+    warm-starts the next solve. ``depth_u8`` and ``depth_u16`` read a depth
+    out as integers, and ``residuals`` shows how far each level of a depth
+    state is from converged.
     """
 
     def __init__(self, rows: int, cols: int, cfg: DiffusionConfig = DiffusionConfig(), *,
@@ -49,14 +55,17 @@ class DepthPipeline:
         return initial_depth_state(self.rows, self.cols, self.cfg, self.device)
 
     def solve(self, gray_pyr: Sequence[torch.Tensor], mask0: torch.Tensor,
-              value0: torch.Tensor, depth_state: Sequence[torch.Tensor]):
-        """Full cascadic solve; returns (depth0_f32, new_depth_state)."""
-        return solve_cascade(gray_pyr, mask0, value0, depth_state, self.cfg)
+              value0: torch.Tensor, depth_state: Sequence[torch.Tensor], exit_log=None):
+        """Full cascadic solve; returns (depth0_f32, new_depth_state). Under
+        the early exit, a list given as ``exit_log`` receives each level's
+        iterations and probes (``core/solver.py:_chunked_early_exit``)."""
+        return solve_cascade(gray_pyr, mask0, value0, depth_state, self.cfg, exit_log)
 
-    def solve_and_effect(self, effect: int, gray_pyr, rgb, mask0, value0, depth_state):
+    def solve_and_effect(self, effect: int, gray_pyr, rgb, mask0, value0, depth_state,
+                         exit_log=None):
         """Solve, then the effect on the clipped depth; returns
         (depth0, new_state, effect_rgb_u8)."""
-        depth0, state = self.solve(gray_pyr, mask0, value0, depth_state)
+        depth0, state = self.solve(gray_pyr, mask0, value0, depth_state, exit_log)
         # The unclamped Chebyshev update can overshoot [0, 255] slightly.
         out = self.effect(effect, rgb, gray_pyr[0], torch.clamp(depth0, 0.0, 255.0))
         return depth0, state, out
@@ -67,6 +76,26 @@ class DepthPipeline:
     def depth_u8(self, depth0: torch.Tensor) -> torch.Tensor:
         """float32 depth -> uint8 (round half to even, like ``jnp.rint``)."""
         return torch.clamp(torch.round(depth0), 0, 255).to(torch.uint8)
+
+    def depth_u16(self, depth0: torch.Tensor) -> torch.Tensor:
+        """float32 depth -> uint16, clip(rint(d * 257), 0, 65535). uint16
+        has few ops in torch, so the clip is in float32 and the cast goes
+        through int32."""
+        u16 = torch.clamp(torch.round(depth0 * 257.0), 0, 65535)
+        return u16.to(torch.int32).to(torch.uint16)
+
+    def residuals(self, gray_pyr, mask0, value0, depth_state) -> torch.Tensor:
+        """Per-level residuals of a depth state, a (2, levels) float32
+        tensor: the max norm in row 0 and the rms in row 1 (the one
+        ``residual_metric='rms'`` gates on)."""
+        masks, _ = build_annotation_pyramids(mask0, value0, self.cfg)
+        L = len(gray_pyr) - 1
+        res = []
+        for l in range(len(gray_pyr)):
+            wts = edge_weights(gray_pyr[l], depth_state[l], l, L, self.cfg)
+            res.append(torch.stack([residual_norm(depth_state[l], masks[l], wts),
+                                    residual_rms(depth_state[l], masks[l], wts)]))
+        return torch.stack(res, dim=1)
 
 
 @functools.lru_cache(maxsize=8)

@@ -1,7 +1,8 @@
 """The port's CUDA kernels against their plain versions on the card, at
 shapes the 1080p run does not reach: single rows, levels smaller than one
-tile, ragged tiles, every ring width k, and large apertures. Every
-comparison is exact.
+tile, ragged tiles, every ring width k, tiles that start on a black cell,
+chunks that start past iteration 0, and large apertures. Every comparison
+is exact.
 
 Needs a CUDA device and nvcc; skips without them. This file imports no JAX,
 so it runs on a machine without it:
@@ -16,9 +17,9 @@ import torch
 from realtimedepthdiffusion_tpu_torch import ops
 from realtimedepthdiffusion_tpu_torch.config import DiffusionConfig
 from realtimedepthdiffusion_tpu_torch.core.annotation import seed_depth
-from realtimedepthdiffusion_tpu_torch.core.solver import abc_schedule
+from realtimedepthdiffusion_tpu_torch.core.solver import abc_schedule, rb_omegas
 from realtimedepthdiffusion_tpu_torch.core.weights import edge_weights
-from realtimedepthdiffusion_tpu_torch.ops import defocus, sweep
+from realtimedepthdiffusion_tpu_torch.ops import defocus, rb_sweep, sweep
 
 pytestmark = pytest.mark.cuda
 
@@ -84,6 +85,73 @@ def test_defocus_kernel_equals_plain(dev, h, w, aperture, quality):
     assert got.dtype == torch.uint8 and torch.equal(got, want)
 
 
+def _rb_planes(wts, mask):
+    return (wts.wr.contiguous(), wts.wd.contiguous(), wts.inv_count.contiguous(),
+            mask.to(torch.uint8))
+
+
+# Tiles of 7x9 put tile origins on both colours of the checkerboard (the
+# default 32x64 tiles all start on red).
+@pytest.mark.parametrize("h,w", [(1, 70), (5, 3), (33, 65), (70, 130), (135, 240)])
+@pytest.mark.parametrize("k", [1, 3, 8, 16])
+@pytest.mark.parametrize("iters", [1, 7, 20])
+@pytest.mark.parametrize("tile", [(32, 64), (7, 9)])
+def test_rb_tiles_kernel_equals_plain(dev, h, w, k, iters, tile):
+    depth, mask, wts, _ = _level(dev, h, w, iters, seed=h * w + k)
+    om = rb_omegas(iters, DiffusionConfig())
+    before = rb_sweep.rb_sweep_tiles.launches
+    got = rb_sweep._tiles_chunk(depth.clone(), *_rb_planes(wts, mask),
+                                torch.from_numpy(om).to(dev), 0, iters, k, tile)
+    want = rb_sweep.solve_level_rb_plain(depth, mask, wts, om)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert rb_sweep.rb_sweep_tiles.launches - before == -(-iters // k)
+
+
+@pytest.mark.parametrize("h,w", [(1, 1), (5, 7), (67, 120)])
+@pytest.mark.parametrize("split", [(1, 0), (3, 4), (10, 27)])
+def test_rb_resident_kernel_equals_plain(dev, h, w, split):
+    """K5 in two launches, the second from base > 0, as an early exit runs it."""
+    first, rest = split
+    iters = first + rest
+    depth, mask, wts, _ = _level(dev, h, w, iters, seed=h + w + iters, level=0)
+    assert rb_sweep.rb_resident_fits(h, w)
+    om = rb_omegas(iters, DiffusionConfig())
+    before = rb_sweep.rb_sweep_resident.launches
+    u, run, _ = rb_sweep.chunks_cuda(depth, mask, wts, om)
+    u = run(u, 0, first)
+    if rest:
+        u = run(u, first, rest)
+    want = rb_sweep.solve_level_rb_plain(depth, mask, wts, om)
+    torch.cuda.synchronize()
+    assert torch.equal(u, want)
+    assert rb_sweep.rb_sweep_resident.launches == before + 1 + (rest > 0)
+
+
+@pytest.mark.parametrize("h,w", [(40, 56), (135, 240)])
+@pytest.mark.parametrize("solver", ["red_black", "jacobi", "jacobi_chebyshev"])
+def test_early_exit_on_card_equals_plain(dev, h, w, solver):
+    """A level under the early exit: the same probes and the same bits on
+    the kernels as on the plain versions, both on the card."""
+    from realtimedepthdiffusion_tpu_torch.core import solver as tsolver
+
+    depth, mask, wts, _ = _level(dev, h, w, 1, seed=h + 3)
+    gray = torch.from_numpy(np.random.default_rng(h).integers(0, 256, (h, w),
+                                                              dtype=np.uint8)).to(dev)
+    cfg = DiffusionConfig(solver=solver, early_exit=True, tolerance=2e-3,
+                          residual_check_every=5)
+    log = []
+    got = tsolver.solve_level(depth, mask, gray, 1, 2, 60, cfg, log)
+    w2 = edge_weights(gray, depth, 1, 2, cfg)
+    table = tsolver._SCHEDULES[solver](60, cfg)
+    state, run, u_of = (rb_sweep if solver == "red_black" else sweep).chunks_plain(
+        depth, mask, w2, table)
+    want = u_of(tsolver._chunked_early_exit(state, run, u_of, mask, w2, 60, cfg, log))
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert log[0]["probes"] == log[1]["probes"]
+
+
 def test_wrappers_reject_bad_arguments(dev):
     f = torch.zeros((8, 9), device=dev)
     m = torch.zeros((8, 9), dtype=torch.uint8, device=dev)
@@ -96,6 +164,16 @@ def test_wrappers_reject_bad_arguments(dev):
         sweep.jc_sweep_tiles(f, f, f, f, f, f, f, m, abc, 2, 4)
     with pytest.raises(ValueError, match="rgb"):
         defocus.defocus_box(m, f)
+    om = torch.zeros((4, 2), device=dev)
+    with pytest.raises(ValueError, match="do not fit"):
+        rb_sweep.rb_sweep_tiles(f, f, f, f, f, m, om, 3, 2)
+    with pytest.raises(ValueError, match="om"):
+        rb_sweep.rb_sweep_resident(f, f, f, f, m, abc, 0, 1)
+    with pytest.raises(ValueError, match="shared memory"):
+        rb_sweep.rb_sweep_resident(torch.zeros((200, 300), device=dev), *[
+            torch.zeros((200, 300), device=dev)] * 3, torch.zeros((200, 300),
+            dtype=torch.uint8, device=dev), om, 0, 1)
     ops.reset_launch_counts()
     assert ops.launch_counts() == {"jc_sweep_tiles": 0, "jc_sweep_resident": 0,
-                                   "defocus_box": 0}
+                                   "defocus_box": 0, "rb_sweep_tiles": 0,
+                                   "rb_sweep_resident": 0}

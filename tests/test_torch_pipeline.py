@@ -7,6 +7,7 @@ Depth bar: RMSE <= 1e-3 on [0, 1] (tests/test_golden.py). The port takes
 the (a,b,c) form of the Chebyshev update and the JAX xla backend its
 omega form, so the two agree to rounding, not bit for bit."""
 
+import argparse
 import subprocess
 import sys
 import textwrap
@@ -25,6 +26,7 @@ from realtimedepthdiffusion_tpu_torch.core import effects as tfx
 from tests.conftest import synthetic_pair
 
 H, W = 181, 243  # 3 levels, odd sizes at every level
+FAST_HW = (200, 260)  # 3 levels; see fast_run
 
 
 def _rmse(a, b):
@@ -73,7 +75,8 @@ def test_slice_matches_jax(jax_run):
     assert out.dtype == torch.uint8 and tuple(out.shape) == (H, W, 3)
     assert len(state) == 3 and all(s.dtype == torch.float32 for s in state)
     assert ops.launch_counts() == {"jc_sweep_tiles": 0, "jc_sweep_resident": 0,
-                                   "defocus_box": 0}
+                                   "defocus_box": 0, "rb_sweep_tiles": 0,
+                                   "rb_sweep_resident": 0}
 
 
 def test_jax_state_carried_into_port(jax_run):
@@ -127,7 +130,8 @@ def test_depth_u8_rounds_half_to_even():
 
 
 def test_port_imports_without_jax_pil_cv2():
-    """The port and a small solve run with jax, PIL and cv2 unimportable."""
+    """The port, a small solve and a fast-profile solve run with jax, PIL
+    and cv2 unimportable."""
     code = textwrap.dedent("""
         import sys
         for name in ("jax", "jaxlib", "PIL", "cv2", "realtimedepthdiffusion_tpu"):
@@ -145,6 +149,15 @@ def test_port_imports_without_jax_pil_cv2():
         d, s, out = pipe.solve_and_effect(fx.EFFECT_DEFOCUS, g, rgb_d, torch.from_numpy(mask),
                                           torch.from_numpy(value), pipe.initial_state())
         assert bool(torch.isfinite(d).all()) and bool((d[torch.from_numpy(mask)] == 64).all())
+        from argparse import Namespace
+        from realtimedepthdiffusion_tpu_torch import flags
+        kw = flags.resolve_solver_flags(Namespace(
+            backend="auto", solver=None, tolerance=None, residual_metric=None, rb_rho=None,
+            rb_plain=False, defocus_quality=None, defocus_stride=None, profile="fast"), None)
+        fast = rt.DepthPipeline(h, w, rt.DiffusionConfig(**kw), device="cpu")
+        d, s = fast.solve(g, torch.from_numpy(mask), torch.from_numpy(value),
+                          fast.initial_state())
+        assert bool((d[torch.from_numpy(mask)] == 64).all()) and float(d.max()) <= 255.0
         assert not any(m.startswith(("jax", "PIL", "cv2")) for m, v in sys.modules.items()
                        if v is not None)
         print("ok")
@@ -153,3 +166,90 @@ def test_port_imports_without_jax_pil_cv2():
                           timeout=120)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip().endswith("ok")
+
+
+def _profile_args(**over):
+    """A parsed-args namespace as every CLI surface builds it."""
+    a = dict(backend="xla", solver=None, tolerance=None, residual_metric=None, rb_rho=None,
+             rb_plain=False, defocus_quality=None, defocus_stride=None, profile="fast")
+    a.update(over)
+    return argparse.Namespace(**a)
+
+
+@pytest.mark.parametrize("over", [{}, {"solver": "jacobi"}, {"tolerance": 1e-4},
+                                  {"profile": None, "rb_plain": True}])
+def test_fast_profile_flags_match_jax(over):
+    from realtimedepthdiffusion_tpu import flags as jflags
+    from realtimedepthdiffusion_tpu_torch import flags
+
+    def fail(msg):
+        raise ValueError(msg)
+
+    got = flags.resolve_solver_flags(_profile_args(**over), fail)
+    assert got == jflags.resolve_solver_flags(_profile_args(**over), fail)
+    if not over:
+        assert got == {"backend": "xla", "solver": "red_black", "tolerance": 1e-3,
+                       "residual_metric": "rms", "early_exit": True}
+    DiffusionConfig(**got)
+
+
+@pytest.fixture(scope="module")
+def fast_run():
+    """One fast-profile cascade by the JAX package and by the port on the
+    CPU, at a size whose residual probes all sit > 20 % from the threshold."""
+    from realtimedepthdiffusion_tpu_torch import flags
+
+    kw = flags.resolve_solver_flags(_profile_args(), None)
+    rgb, mask, value = synthetic_pair(*FAST_HW)
+    jpipe = JPipeline(*FAST_HW, JConfig(**kw, fast_start=False))
+    _, jg = jpipe.prepare_image(rgb)
+    jd, js = jpipe.solve(jg, jnp.asarray(mask), jnp.asarray(value), jpipe.initial_state())
+    jres = np.asarray(jpipe.residuals(jg, jnp.asarray(mask), jnp.asarray(value), js))
+    pipe = DepthPipeline(*FAST_HW, DiffusionConfig(**kw), device="cpu")
+    _, g = pipe.prepare_image(rgb)
+    m, v = interop.annotation_from_numpy(mask, value, "cpu")
+    log = []
+    d, s = pipe.solve(g, m, v, pipe.initial_state(), log)
+    return {"mask": mask, "value": value, "jd": np.asarray(jd), "jres": jres, "d": d,
+            "jstate": tuple(np.asarray(x) for x in js), "pipe": pipe, "gpyr": g, "m": m,
+            "v": v, "log": log}
+
+
+def test_fast_profile_cascade_matches_jax(fast_run):
+    """The port's red-black + RMS early exit cascade is within RMSE 1e-3 of
+    the JAX package's, with every residual probe more than 5 % away from
+    the threshold (so both exit after the same chunk)."""
+    d = fast_run["d"].numpy()
+    assert _rmse(d, fast_run["jd"]) <= 1e-3
+    mask, value = fast_run["mask"], fast_run["value"]
+    assert np.array_equal(d[mask], value[mask].astype(np.float32))
+    log = fast_run["log"]
+    assert [e["shape"] for e in log] == [(50, 65), (100, 130), (200, 260)]
+    assert all(e["iters"] < it for e, it in zip(log, (1000, 500, 250)))
+    for e in log:
+        assert all(abs(p - e["tol"]) > 0.05 * e["tol"] for p in e["probes"])
+
+
+def test_residuals_match_jax(fast_run):
+    """The residuals of the JAX depth state, by the port and by JAX."""
+    pipe = fast_run["pipe"]
+    state = interop.state_from_numpy(fast_run["jstate"], "cpu")
+    res = pipe.residuals(fast_run["gpyr"], fast_run["m"], fast_run["v"], state)
+    assert res.dtype == torch.float32 and tuple(res.shape) == (2, pipe.levels)
+    np.testing.assert_allclose(res.numpy(), fast_run["jres"], rtol=1e-5, atol=0)
+    assert bool((res[1] <= res[0]).all())
+
+
+def test_depth_u16_matches_jax():
+    """At and around the .5 boundaries of d*257, and outside [0, 255]."""
+    base = np.array([0.0, 1.0, 127.5, 254.99, 255.0, -1.0, 300.0, 1e-3], np.float32)
+    halves = (np.arange(0, 65536, 997, dtype=np.float32) + np.float32(0.5)) / np.float32(257)
+    d = np.concatenate([base, halves, np.nextafter(halves, np.float32(0)),
+                        np.nextafter(halves, np.float32(300))]).astype(np.float32)
+    d = d.reshape(1, -1)
+    jpipe = JPipeline(1, d.shape[1], JConfig(backend="xla", fast_start=False))
+    want = np.asarray(jpipe.depth_u16(jnp.asarray(d)))
+    got = get_pipeline(1, d.shape[1], DiffusionConfig(), device="cpu").depth_u16(
+        torch.from_numpy(d))
+    assert got.dtype == torch.uint16
+    assert want.dtype == np.uint16 and np.array_equal(got.numpy(), want)
