@@ -25,9 +25,18 @@ Phases, each printed on its own lines; any failure raises and exits non-zero:
    level, a kernel frame against the plain frame, and a small solve against
    the CPU's. Then one ``solver="jacobi"`` frame and one Jacobi-Chebyshev
    early-exit frame, each exact against the plain frame.
+6. Drives the 4K path at 2160x3840: K6 against its plain version (and K1)
+   at L0 and at the L1 shape, at k = 8, 12 and 1, with K6, K1 and plain
+   times; three ``solve_and_effect(EFFECT_DEFOCUS, ...)`` frames that must
+   launch exactly K2, K1, K6 and K3, with the ``auto`` defocus resolved to
+   approx; a kernel frame and a Jacobi-Chebyshev early-exit frame against
+   the plain frames; K3 at DCI 4K (2160x4096), where the summed-area
+   table's largest entry passes 2^31 - 1; and the TPU-only variants the
+   port maps onto K1 and K3 (state prefetch, stacked and coldiff defocus),
+   each equal to the default output.
 
-The line before the last is a JSON object of the kernels; the last line is
-``{"ok": true, "device": {...}}``.
+Each phase prints its seconds. The line before the last is a JSON object
+of the kernels; the last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -37,10 +46,12 @@ import json
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 
 H, W = 1080, 1920
+H4, W4 = 2160, 3840  # 4K UHD
 SEED = 0
 # What argparse gives every CLI surface for ``--profile fast``.
 FAST_ARGS = argparse.Namespace(backend="auto", solver=None, tolerance=None,
@@ -58,15 +69,22 @@ def seeded_image(rng, h, w):
     return np.clip(img, 0, 255).astype(np.uint8)
 
 
-def bench_scribbles(h, w):
-    """The scribble layout of bench.py: five 40x60 blocks at depths 0..254."""
+def bench_scribbles(h, w, scale=1):
+    """The scribble layout of bench.py: five 40x60 blocks at depths 0..254,
+    coordinates and sizes times ``scale``."""
     mask = np.zeros((h, w), bool)
     value = np.zeros((h, w), np.uint8)
     for i, d in enumerate((0, 64, 128, 192, 254)):
-        y, x = 120 + 180 * i, 200 + 320 * i
-        mask[y : y + 40, x : x + 60] = True
-        value[y : y + 40, x : x + 60] = d
+        y, x = scale * (120 + 180 * i), scale * (200 + 320 * i)
+        mask[y : y + 40 * scale, x : x + 60 * scale] = True
+        value[y : y + 40 * scale, x : x + 60 * scale] = d
     return mask, value
+
+
+def add_scribble(mask, value, scale=1):
+    """The scribble added before the second frame."""
+    mask[900 * scale : 940 * scale, 1500 * scale : 1560 * scale] = True
+    value[900 * scale : 940 * scale, 1500 * scale : 1560 * scale] = 96
 
 
 def time_ms(torch, fn, reps):
@@ -112,7 +130,15 @@ def main() -> None:
     from realtimedepthdiffusion_tpu_torch.core import solver
     from realtimedepthdiffusion_tpu_torch.core.solver import abc_schedule, rb_omegas
     from realtimedepthdiffusion_tpu_torch.core.weights import edge_weights
-    from realtimedepthdiffusion_tpu_torch.ops import build, defocus, rb_sweep, sweep
+    from realtimedepthdiffusion_tpu_torch.ops import (build, defocus, dispatch, fused_sweep,
+                                                      rb_sweep, sweep)
+
+    mark = [time.perf_counter()]
+
+    def phase_done(name):
+        now = time.perf_counter()
+        print(f"phase {name}: {now - mark[0]:.2f} s")
+        mark[0] = now
 
     # -- 1. the card ---------------------------------------------------------
     smi = subprocess.run(
@@ -123,6 +149,7 @@ def main() -> None:
     dev = torch.device("cuda", 0)
     kind = torch.cuda.get_device_name(0)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} device {kind}")
+    phase_done("1 (the card)")
 
     # -- 2. build --------------------------------------------------------------
     t0 = time.perf_counter()
@@ -132,6 +159,7 @@ def main() -> None:
     for line in build.build_log.splitlines():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             print("ptxas:", line.strip())
+    phase_done("2 (build)")
 
     # -- 3. kernels against their plain versions --------------------------------
     cfg = DiffusionConfig()
@@ -141,8 +169,8 @@ def main() -> None:
     n_levels = len(gray_pyr)
     L = n_levels - 1
 
-    def level_case(level):
-        h, w = gray_pyr[level].shape
+    def level_case(gp, level):
+        h, w = gp[level].shape
         field = rng.random((h // 8 + 2, w // 8 + 2)) * 255.0
         depth = np.kron(field, np.ones((8, 8)))[:h, :w].astype(np.float32)
         mask = rng.random((h, w)) < 0.02
@@ -150,12 +178,12 @@ def main() -> None:
         depth_t = seed_depth(torch.from_numpy(depth).to(dev), torch.from_numpy(mask).to(dev),
                              torch.from_numpy(value).to(dev))
         mask_t = torch.from_numpy(mask).to(dev)
-        wts = edge_weights(gray_pyr[level], depth_t, level, L, cfg)
-        abc = abc_schedule(cfg.level_iterations(n_levels, level), cfg)
+        wts = edge_weights(gp[level], depth_t, level, len(gp) - 1, cfg)
+        abc = abc_schedule(cfg.level_iterations(len(gp), level), cfg)
         return depth_t, mask_t, wts, abc
 
     def check_level(name, level, kernel_name, timed=False):
-        depth_t, mask_t, wts, abc = level_case(level)
+        depth_t, mask_t, wts, abc = level_case(gray_pyr, level)
         before = ops.launch_counts()[kernel_name]
         got = sweep.solve_level_cuda(depth_t, mask_t, wts, abc)
         if ops.launch_counts()[kernel_name] == before:
@@ -176,7 +204,7 @@ def main() -> None:
     k1_l1 = check_level("K1 L1", 1, "jc_sweep_tiles", timed=True)
     # Jacobi gives the same result whatever the blocking: k=1 against the
     # default k checks the halo logic.
-    depth_t, mask_t, wts, abc = level_case(1)
+    depth_t, mask_t, wts, abc = level_case(gray_pyr, 1)
     one = sweep.solve_level_cuda(depth_t, mask_t, wts, abc, k=1)
     dflt = sweep.solve_level_cuda(depth_t, mask_t, wts, abc)
     torch.cuda.synchronize()
@@ -191,7 +219,7 @@ def main() -> None:
     fast_cfg = DiffusionConfig(**flags.resolve_solver_flags(FAST_ARGS, None))
 
     def check_rb_level(name, level, kernel_name):
-        depth_t, mask_t, wts, _ = level_case(level)
+        depth_t, mask_t, wts, _ = level_case(gray_pyr, level)
         om = rb_omegas(fast_cfg.level_iterations(n_levels, level), fast_cfg)
         before = ops.launch_counts()[kernel_name]
         got = rb_sweep.solve_level_rb_cuda(depth_t, mask_t, wts, om)
@@ -237,6 +265,7 @@ def main() -> None:
             "plain_ms": time_ms(torch, lambda: defocus.defocus_sat(rgb_t, depth_fx, qcfg), 5),
         }
         print(f"K3 {quality} {H}x{W} max_half {max_half}: {json.dumps(k3[quality])}")
+    phase_done("3 (kernels against plain)")
 
     # -- 4. the main path ------------------------------------------------------
     pipe = DepthPipeline(H, W, cfg, device="cuda")
@@ -249,8 +278,7 @@ def main() -> None:
     t0 = time.perf_counter()
     for i in range(3):
         if i == 1:
-            mask_np[900:940, 1500:1560] = True
-            value_np[900:940, 1500:1560] = 96
+            add_scribble(mask_np, value_np)
         mask_d = torch.from_numpy(mask_np).to(dev)
         value_d = torch.from_numpy(value_np).to(dev)
         depth0, state, out = pipe.solve_and_effect(fx.EFFECT_DEFOCUS, gpyr, rgb_d, mask_d,
@@ -263,6 +291,8 @@ def main() -> None:
     for name in ("jc_sweep_tiles", "jc_sweep_resident", "defocus_box"):
         if launches[name] == 0:
             raise AssertionError(f"main path never launched {name}")
+    if launches["jc_sweep_fused"]:
+        raise AssertionError("the 1080p main path launched K6")
     for i, (depth0, out, mask_d, value_d) in enumerate(frames):
         if not bool(torch.isfinite(depth0).all()):
             raise AssertionError(f"frame {i}: depth is not finite")
@@ -275,52 +305,60 @@ def main() -> None:
               f"u8 mean {float(u8.float().mean()):.4f} effect mean {float(out.float().mean()):.4f}")
 
     # The same update by the plain versions on the card must equal the
-    # kernel path's bit for bit: same glue, kernels equal to their twins.
-    _, _, mask_d, value_d = frames[2]
-
-    def plain_level(c, depth, mask, wts, iters):
+    # kernel path's bit for bit: same glue and routes, kernels equal to
+    # their twins.
+    def plain_level(c, depth, mask, gray, level, max_level, iters):
         table = solver._SCHEDULES[c.solver](iters, c)
-        chunks = rb_sweep.chunks_plain if c.solver == "red_black" else sweep.chunks_plain
-        st, run, u_of = chunks(depth, mask, wts, table)
+        wts = edge_weights(gray, depth, level, max_level, c)
+        if dispatch.fused_level(depth, c.solver):
+            st, run, u_of = fused_sweep.fused_chunks_plain(depth, mask, gray, table, level,
+                                                           max_level, c)
+        else:
+            chunks = rb_sweep.chunks_plain if c.solver == "red_black" else sweep.chunks_plain
+            st, run, u_of = chunks(depth, mask, wts, table)
         if c.early_exit:
             return u_of(solver._chunked_early_exit(st, run, u_of, mask, wts, iters, c))
         return u_of(run(st, 0, iters))
 
-    def plain_frame(c, gp, st):
-        masks, values = build_annotation_pyramids(mask_d, value_d, c)
+    def plain_frame(c, gp, st, scene):
+        _, rgb_dev, mask, value = scene
+        top = len(gp) - 1
+        masks, values = build_annotation_pyramids(mask, value, c)
         st = list(st)
-        st[L] = seed_depth(st[L], masks[L], values[L])
-        for level in range(L, -1, -1):
-            wts = edge_weights(gp[level], st[level], level, L, c)
-            st[level] = plain_level(c, st[level], masks[level], wts,
-                                    c.level_iterations(n_levels, level))
+        st[top] = seed_depth(st[top], masks[top], values[top])
+        for level in range(top, -1, -1):
+            st[level] = plain_level(c, st[level], masks[level], gp[level], level, top,
+                                    c.level_iterations(len(gp), level))
             if level > 0:
                 up = pyr_up(st[level], tuple(gp[level - 1].shape))
                 st[level - 1] = seed_depth(up, masks[level - 1], values[level - 1])
-        out = defocus.defocus_sat(rgb_d, torch.clamp(st[0], 0.0, 255.0), c)
+        out = defocus.defocus_sat(rgb_dev, torch.clamp(st[0], 0.0, 255.0), c)
         return st[0], tuple(st), out
 
-    def compare_frames(name, p, st, timed):
+    def compare_frames(name, p, st, scene, timed, exit_log=None):
         """A kernel frame of pipeline ``p`` against the plain frame, from
-        the depth state ``st``; with ``timed``, both times."""
-        _, gp = p.prepare_image(rgb_np)
+        the depth state ``st`` on ``scene`` (rgb as numpy and on the card,
+        mask, value); with ``timed``, both times."""
+        rgb_host, rgb_dev, mask, value = scene
+        _, gp = p.prepare_image(rgb_host)
         ops.reset_launch_counts()
-        k_depth, _, k_out = p.solve_and_effect(fx.EFFECT_DEFOCUS, gp, rgb_d, mask_d, value_d, st)
+        k_depth, _, k_out = p.solve_and_effect(fx.EFFECT_DEFOCUS, gp, rgb_dev, mask, value, st,
+                                               exit_log)
         counts = ops.launch_counts()
-        p_depth, _, p_out = plain_frame(p.cfg, gp, st)
+        p_depth, _, p_out = plain_frame(p.cfg, gp, st, scene)
         torch.cuda.synchronize()
         err = max(require_equal(torch, f"{name} frame depth", k_depth, p_depth),
                   require_equal(torch, f"{name} frame effect", k_out, p_out))
         line = {"max_abs_err": err, "launches": {k: v for k, v in counts.items() if v}}
         if timed:
             line["ms"] = time_ms(torch, lambda: p.solve_and_effect(
-                fx.EFFECT_DEFOCUS, gp, rgb_d, mask_d, value_d, st), 10)
-            line["plain_ms"] = time_ms(torch, lambda: plain_frame(p.cfg, gp, st), 3)
-        print(f"{name} frame {H}x{W} solve+defocus, kernels against plain on the card "
-              f"(CUDA events, median): {json.dumps(line)}")
+                fx.EFFECT_DEFOCUS, gp, rgb_dev, mask, value, st), 10)
+            line["plain_ms"] = time_ms(torch, lambda: plain_frame(p.cfg, gp, st, scene), 3)
+        print(f"{name} frame {p.rows}x{p.cols} solve+defocus, kernels against plain on the "
+              f"card (CUDA events, median): {json.dumps(line)}")
         return line
 
-    frame = compare_frames("default", pipe, state, timed=True)
+    frame = compare_frames("default", pipe, state, (rgb_np, rgb_d, *frames[2][2:]), timed=True)
 
     # A small solve on the card against the CPU's plain path, which the CPU
     # tests hold against the JAX package. exp differs between the two
@@ -347,6 +385,7 @@ def main() -> None:
             raise AssertionError(f"{name} small solve: card vs CPU RMSE {rmse} > 1e-3")
 
     small_solve(cfg, "default")
+    phase_done("4 (the default path)")
 
     # -- 5. the --profile fast path ----------------------------------------------
     print(f"fast profile: {json.dumps(flags.resolve_solver_flags(FAST_ARGS, None))}")
@@ -360,8 +399,7 @@ def main() -> None:
     fast_frames = []
     for i in range(3):
         if i == 1:
-            fmask[900:940, 1500:1560] = True
-            fvalue[900:940, 1500:1560] = 96
+            add_scribble(fmask, fvalue)
         m_d = torch.from_numpy(fmask).to(dev)
         v_d = torch.from_numpy(fvalue).to(dev)
         log = []
@@ -375,6 +413,8 @@ def main() -> None:
     for name in ("rb_sweep_tiles", "rb_sweep_resident", "defocus_box"):
         if fast_launches[name] == 0:
             raise AssertionError(f"fast path never launched {name}")
+    if fast_launches["jc_sweep_fused"] or fast_launches["jc_sweep_tiles"]:
+        raise AssertionError("the fast path launched a Jacobi kernel")
     for i, (depth0, out, m_d, v_d, log) in enumerate(fast_frames):
         if not bool(torch.isfinite(depth0).all()):
             raise AssertionError(f"fast frame {i}: depth is not finite")
@@ -398,22 +438,173 @@ def main() -> None:
     if u16.dtype != torch.uint16 or tuple(u16.shape) != (H, W):
         raise AssertionError(f"depth_u16: {u16.dtype} {tuple(u16.shape)}")
 
-    mask_d, value_d = fast_frames[2][2], fast_frames[2][3]
-    fast_frame = compare_frames("fast", fpipe, fstate, timed=True)
+    fast_scene = (rgb_np, rgb_d, *fast_frames[2][2:4])
+    fast_frame = compare_frames("fast", fpipe, fstate, fast_scene, timed=True)
     small_solve(fast_cfg, "fast")
     for name, c in (("jacobi", DiffusionConfig(solver="jacobi")),
                     ("jacobi_chebyshev early exit",
                      DiffusionConfig(early_exit=True, tolerance=1e-3))):
-        line = compare_frames(name, DepthPipeline(H, W, c, device="cuda"), fstate, timed=False)
+        line = compare_frames(name, DepthPipeline(H, W, c, device="cuda"), fstate, fast_scene,
+                              timed=False)
         want = {"jc_sweep_tiles", "defocus_box"} | ({"jc_sweep_resident"}
                                                     if not c.early_exit else set())
         if set(line["launches"]) != want:
             raise AssertionError(f"{name} frame launched {line['launches']}, not {want}")
+    phase_done("5 (the fast path)")
+
+    # -- 6. the 4K path ------------------------------------------------------------
+    rgb4_np = seeded_image(rng, H4, W4)
+    gray4 = build_gray_pyramid(rgb_to_gray(torch.from_numpy(rgb4_np).to(dev)), cfg)
+    top4 = len(gray4) - 1
+    l2 = dispatch.l2_bytes(dev)
+    routes = [sweep.strip_route(*g.shape, l2) for g in gray4]
+    print(f"4K routes by level (L2 {l2} bytes): {routes}")
+    if routes != ["K6", "K1", "K1", "K1", "K1", "K2"]:
+        raise AssertionError(f"4K routes {routes}")
+
+    def check_fused(name, level, ks, timed):
+        """K6 at each k of ``ks`` against its plain version and against K1
+        on the same level; with ``timed``, K6, K1 and plain ms."""
+        depth_t, mask_t, wts, abc = level_case(gray4, level)
+        g = gray4[level]
+        want = fused_sweep.solve_level_fused_plain(depth_t, mask_t, g, abc, level, top4, cfg)
+        k1 = sweep.solve_level_cuda(depth_t, mask_t, wts, abc)
+        line = {"shape": list(depth_t.shape), "sweeps": len(abc), "max_abs_err": 0.0}
+        for k in ks:
+            before = fused_sweep.jc_sweep_fused.launches
+            got = fused_sweep.solve_level_fused_cuda(depth_t, mask_t, g, abc, level, top4, cfg, k)
+            if fused_sweep.jc_sweep_fused.launches - before != -(-len(abc) // k):
+                raise AssertionError(f"{name} k={k}: K6 launched "
+                                     f"{fused_sweep.jc_sweep_fused.launches - before} times")
+            torch.cuda.synchronize()
+            line["max_abs_err"] = max(line["max_abs_err"],
+                                      require_equal(torch, f"{name} k={k}", got, want),
+                                      require_equal(torch, f"{name} k={k} vs K1", got, k1))
+            if timed and k > 1:
+                line[f"ms_k{k}"] = time_ms(torch, lambda: fused_sweep.solve_level_fused_cuda(
+                    depth_t, mask_t, g, abc, level, top4, cfg, k), 10)
+        if timed:
+            line["k1_ms"] = time_ms(torch, lambda: sweep.solve_level_cuda(
+                depth_t, mask_t, wts, abc), 10)
+            line["k1_with_weights_ms"] = time_ms(torch, lambda: sweep.solve_level_cuda(
+                depth_t, mask_t, edge_weights(g, depth_t, level, top4, cfg), abc), 10)
+            line["plain_ms"] = time_ms(torch, lambda: fused_sweep.solve_level_fused_plain(
+                depth_t, mask_t, g, abc, level, top4, cfg), 3)
+        print(f"{name}: {json.dumps(line)}")
+        return line
+
+    fused_ks = sorted({8, 12, fused_sweep.FUSED_SWEEPS, 1})
+    k6_l0 = check_fused("K6 4K L0", 0, fused_ks, timed=True)
+    k6_l1 = check_fused("K6 4K L1 shape", 1, fused_ks, timed=True)
+    k6_ms = k6_l0[f"ms_k{fused_sweep.FUSED_SWEEPS}"]
+    print(f"4K L0 ({H4}x{W4}, 31 sweeps): K6 {k6_ms:.3f} ms, K1 {k6_l0['k1_ms']:.3f} ms "
+          f"(planes given) / {k6_l0['k1_with_weights_ms']:.3f} ms (with edge_weights), "
+          f"plain {k6_l0['plain_ms']:.3f} ms on {smi.stdout.strip().splitlines()[0]}")
+
+    pipe4 = DepthPipeline(H4, W4, cfg, device="cuda")
+    mask4, value4 = bench_scribbles(H4, W4, scale=2)
+    rgb4_d, gpyr4 = pipe4.prepare_image(rgb4_np)
+    state4 = pipe4.initial_state()
+    frames4 = []
+    ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        for i in range(3):
+            if i == 1:
+                add_scribble(mask4, value4, scale=2)
+            m_d = torch.from_numpy(mask4).to(dev)
+            v_d = torch.from_numpy(value4).to(dev)
+            depth0, state4, out = pipe4.solve_and_effect(fx.EFFECT_DEFOCUS, gpyr4, rgb4_d, m_d,
+                                                         v_d, state4)
+            frames4.append((depth0, out, m_d, v_d))
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches4 = ops.launch_counts()
+    print(f"4K path: 3 frames in {wall:.3f} s, launches {json.dumps(launches4)}")
+    want4 = {"jc_sweep_resident", "jc_sweep_tiles", "jc_sweep_fused", "defocus_box"}
+    if {k for k, v in launches4.items() if v} != want4:
+        raise AssertionError(f"4K path launched {launches4}, not exactly {sorted(want4)}")
+    max_half4 = cfg.defocus_kernel_size(H4, W4) // 2
+    approx = [w for w in caught if issubclass(w.category, RuntimeWarning)
+              and f"max_half {max_half4}" in str(w.message) and "approx" in str(w.message)]
+    if not approx:
+        raise AssertionError(f"4K defocus 'auto' did not resolve to approx with its warning: "
+                             f"{[str(w.message) for w in caught]}")
+    print(f"4K defocus: max_half {max_half4}, 'auto' resolved to approx: {approx[0].message}")
+    for i, (depth0, out, m_d, v_d) in enumerate(frames4):
+        if not bool(torch.isfinite(depth0).all()):
+            raise AssertionError(f"4K frame {i}: depth is not finite")
+        if not torch.equal(depth0[m_d], v_d[m_d].to(torch.float32)):
+            raise AssertionError(f"4K frame {i}: scribble pixels are not pinned")
+        if tuple(out.shape) != (H4, W4, 3) or out.dtype != torch.uint8:
+            raise AssertionError(f"4K frame {i}: effect is {tuple(out.shape)} {out.dtype}")
+        print(f"4K frame {i}: depth [{float(depth0.min()):.4f}, {float(depth0.max()):.4f}] "
+              f"effect mean {float(out.float().mean()):.4f}")
+
+    scene4 = (rgb4_np, rgb4_d, *frames4[2][2:4])
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", RuntimeWarning)
+        frame4 = compare_frames("4K default", pipe4, state4, scene4, timed=True)
+        log4 = []
+        ee_cfg = DiffusionConfig(early_exit=True, tolerance=1e-3)
+        ee4 = compare_frames("4K jacobi_chebyshev early exit",
+                             DepthPipeline(H4, W4, ee_cfg, device="cuda"), state4, scene4,
+                             timed=False, exit_log=log4)
+    if set(ee4["launches"]) != {"jc_sweep_tiles", "jc_sweep_fused", "defocus_box"}:
+        raise AssertionError(f"4K early-exit frame launched {ee4['launches']}")
+    print(f"4K early-exit frame: tol {log4[0]['tol']:.6f}; " + json.dumps(
+        [{"shape": list(e["shape"]), "iterations": e["iters"],
+          "probes": [round(p, 6) for p in e["probes"]]} for e in log4]))
+
+    # K3 at DCI 4K, where 255*h*w passes 2^31 - 1.
+    hd, wd = 2160, 4096
+    depth_d = torch.from_numpy(np.clip(
+        np.linspace(0.0, 255.0, wd, dtype=np.float32)[None, :].repeat(hd, 0)
+        + rng.normal(0.0, 6.0, (hd, wd)).astype(np.float32), 0.0, 255.0)).to(dev)
+    k3_dci = 0.0
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", RuntimeWarning)
+        for label, img in (("seeded", seeded_image(rng, hd, wd)),
+                           ("all-255", np.full((hd, wd, 3), 255, np.uint8))):
+            img_d = torch.from_numpy(img).to(dev)
+            got = defocus.defocus_box(img_d, depth_d, cfg)
+            want = defocus.defocus_sat(img_d, depth_d, cfg)
+            torch.cuda.synchronize()
+            k3_dci = max(k3_dci, require_equal(torch, f"K3 {hd}x{wd} {label}", got, want))
+            if label == "all-255" and not bool((got == 255).all()):
+                raise AssertionError("K3 at DCI 4K: an all-255 image did not stay 255")
+            print(f"K3 {hd}x{wd} {label}: max_abs_err {k3_dci}")
+
+    # TPU kernels that are config variants of one output: the port runs K1
+    # and K3 under their config values and must give the default output.
+    depth_t, mask_t, _, abc = level_case(gray_pyr, 1)
+    variant = {}
+    for name, c in (("default", cfg), ("pallas_state_prefetch", DiffusionConfig(
+            pallas_state_prefetch=True))):
+        before = sweep.jc_sweep_tiles.launches
+        variant[name] = solver.solve_level(depth_t, mask_t, gray_pyr[1], 1, L, len(abc), c)
+        if sweep.jc_sweep_tiles.launches == before:
+            raise AssertionError(f"{name} level did not run K1")
+    torch.cuda.synchronize()
+    require_equal(torch, "K1 under pallas_state_prefetch", variant["pallas_state_prefetch"],
+                  variant["default"])
+    d_out = defocus.defocus_box(rgb_t, depth_fx, cfg)
+    for name, c in (("stacked", DiffusionConfig(pallas_defocus_variant="stacked")),
+                    ("coldiff", DiffusionConfig(pallas_defocus_variant="coldiff",
+                                                backend="pallas_interpret"))):
+        require_equal(torch, f"K3 under {name}", defocus.defocus_box(rgb_t, depth_fx, c), d_out)
+    print("config variants equal to the default output: K1 under pallas_state_prefetch, "
+          "K3 under stacked and under coldiff")
+    phase_done("6 (the 4K path)")
 
     kernels = [
         {"name": "jc_sweep_tiles", "route": "cuda",
          "source": "realtimedepthdiffusion_tpu_torch/csrc/sweep.cu",
-         "replaces": f"{TPU_SWEEP}:298", "launches": launches["jc_sweep_tiles"],
+         "replaces": f"{TPU_SWEEP}:298",
+         "also_replaces": [f"{TPU_SWEEP}:546", f"{TPU_SWEEP}:210"],
+         "launches": launches["jc_sweep_tiles"],
          "max_abs_err": max(k1_l0["max_abs_err"], k1_l1["max_abs_err"], k1_k),
          "ms": k1_l0["ms"], "plain_ms": k1_l0["plain_ms"]},
         {"name": "jc_sweep_resident", "route": "cuda",
@@ -422,8 +613,10 @@ def main() -> None:
          "max_abs_err": k2["max_abs_err"], "ms": k2["ms"], "plain_ms": k2["plain_ms"]},
         {"name": "defocus_box", "route": "cuda",
          "source": "realtimedepthdiffusion_tpu_torch/csrc/defocus.cu",
-         "replaces": f"{TPU_DEFOCUS}:234", "launches": launches["defocus_box"],
-         "max_abs_err": max(v["max_abs_err"] for v in k3.values()),
+         "replaces": f"{TPU_DEFOCUS}:234",
+         "also_replaces": [f"{TPU_DEFOCUS}:126", f"{TPU_DEFOCUS}:49"],
+         "launches": launches["defocus_box"],
+         "max_abs_err": max(k3_dci, *(v["max_abs_err"] for v in k3.values())),
          "ms": k3["exact"]["ms"], "plain_ms": k3["exact"]["plain_ms"]},
         {"name": "rb_sweep_tiles", "route": "cuda",
          "source": "realtimedepthdiffusion_tpu_torch/csrc/rb_sweep.cu",
@@ -434,9 +627,15 @@ def main() -> None:
          "source": "realtimedepthdiffusion_tpu_torch/csrc/rb_sweep.cu",
          "replaces": f"{TPU_SWEEP}:1209", "launches": fast_launches["rb_sweep_resident"],
          "max_abs_err": k5["max_abs_err"], "ms": k5["ms"], "plain_ms": k5["plain_ms"]},
+        {"name": "jc_sweep_fused", "route": "cuda",
+         "source": "realtimedepthdiffusion_tpu_torch/csrc/fused_sweep.cu",
+         "replaces": f"{TPU_SWEEP}:394", "launches": launches4["jc_sweep_fused"],
+         "max_abs_err": max(k6_l0["max_abs_err"], k6_l1["max_abs_err"]),
+         "ms": k6_ms, "plain_ms": k6_l0["plain_ms"]},
     ]
     print(f"frames: default {frame['ms']:.3f} ms (plain {frame['plain_ms']:.3f}), "
-          f"fast {fast_frame['ms']:.3f} ms (plain {fast_frame['plain_ms']:.3f}) "
+          f"fast {fast_frame['ms']:.3f} ms (plain {fast_frame['plain_ms']:.3f}), "
+          f"4K {frame4['ms']:.3f} ms (plain {frame4['plain_ms']:.3f}) "
           f"on {smi.stdout.strip().splitlines()[0]}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

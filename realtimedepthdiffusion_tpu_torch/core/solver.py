@@ -168,13 +168,22 @@ def solve_level(
 ) -> torch.Tensor:
     """Weights from the incoming (seeded) depth, then ``iters`` iterations
     of ``cfg.solver`` on the device the tensors live on, or fewer under the
-    early exit, which reports to ``exit_log`` (``_chunked_early_exit``)."""
+    early exit, which reports to ``exit_log`` (``_chunked_early_exit``).
+    On a ``dispatch.fused_level`` level the sweeps derive the weights
+    themselves (K6), and the f32 planes are built only for the early exit's
+    probe."""
     dispatch.check_supported(cfg)
     if iters <= 0:
         return depth.to(torch.float32)
-    wts = edge_weights(gray, depth, level, max_level, cfg)
     table = _SCHEDULES[cfg.solver](iters, cfg)
+    fused = dispatch.fused_level(depth, cfg.solver)
+    if fused and not cfg.early_exit:
+        return dispatch.run_fused(depth, mask, gray, table, level, max_level, cfg)
+    wts = edge_weights(gray, depth, level, max_level, cfg)
     if not cfg.early_exit:
         return dispatch.run_sweeps(depth, mask, wts, table, cfg.solver)
-    state, run, u_of = dispatch.level_chunks(depth, mask, wts, table, cfg.solver)
+    if fused:
+        state, run, u_of = dispatch.fused_chunks(depth, mask, gray, table, level, max_level, cfg)
+    else:
+        state, run, u_of = dispatch.level_chunks(depth, mask, wts, table, cfg.solver)
     return u_of(_chunked_early_exit(state, run, u_of, mask, wts, iters, cfg, exit_log))

@@ -40,6 +40,35 @@ def _pad_edge_pairs(bh: torch.Tensor, bv: torch.Tensor) -> EdgeWeights:
     return EdgeWeights(wl, wr, wu, wd, inv_count)
 
 
+def level_d8(depth: torch.Tensor) -> torch.Tensor:
+    """The depth the threshold rule compares: clip to [0, 255], then
+    truncate to uint8. It is taken once per level, from the incoming depth."""
+    return torch.clamp(depth, 0.0, 255.0).to(torch.uint8)
+
+
+def depth_threshold(level: int, max_level: int, cfg: DiffusionConfig) -> int | None:
+    """The threshold of a level's depth rule: 0 at level 0,
+    ``cfg.depth_edge_threshold`` above it, None (no rule) at the coarsest."""
+    if level == max_level:
+        return None
+    return 0 if level == 0 else int(cfg.depth_edge_threshold)
+
+
+def weights_from_base(base_h: torch.Tensor, base_v: torch.Tensor, d8: torch.Tensor | None,
+                      level: int, max_level: int, cfg: DiffusionConfig) -> EdgeWeights:
+    """The level's weights from the gray base weights of each horizontal
+    and vertical pair: 1.0 where the level has a depth rule and the ``d8``
+    of the pair differ by at most its threshold."""
+    thr = depth_threshold(level, max_level, cfg)
+    if thr is None:
+        return _pad_edge_pairs(base_h, base_v)
+    d = d8.to(torch.int32)
+    one = torch.ones((), dtype=torch.float32, device=base_h.device)
+    bh = torch.where((d[:, 1:] - d[:, :-1]).abs() > thr, base_h, one)
+    bv = torch.where((d[1:, :] - d[:-1, :]).abs() > thr, base_v, one)
+    return _pad_edge_pairs(bh, bv)
+
+
 def edge_weights(
     gray: torch.Tensor,
     depth: torch.Tensor | None,
@@ -62,15 +91,5 @@ def edge_weights(
     zero = torch.zeros((), dtype=torch.float32, device=g.device)
     base_h = torch.where(base_h >= _TINY, base_h, zero)
     base_v = torch.where(base_v >= _TINY, base_v, zero)
-
-    if level == max_level:
-        return _pad_edge_pairs(base_h, base_v)
-
-    thr = 0 if level == 0 else cfg.depth_edge_threshold
-    d8 = torch.clamp(depth, 0.0, 255.0).to(torch.uint8).to(torch.int32)
-    dsad_h = (d8[:, 1:] - d8[:, :-1]).abs()
-    dsad_v = (d8[1:, :] - d8[:-1, :]).abs()
-    one = torch.ones((), dtype=torch.float32, device=g.device)
-    bh = torch.where(dsad_h > thr, base_h, one)
-    bv = torch.where(dsad_v > thr, base_v, one)
-    return _pad_edge_pairs(bh, bv)
+    d8 = None if level == max_level else level_d8(depth)
+    return weights_from_base(base_h, base_v, d8, level, max_level, cfg)

@@ -23,11 +23,17 @@
 //      trunc(__fdiv_rn(__fmul_rn(k, max(d, 0)), 255)); left to itself the
 //      compiler may reorder k*d/255, and a half-width would then flip
 //      between this kernel and the plain version.
-//   2. sat_rows_kernel + sat_cols_kernel: the int32 SAT of each channel,
+//   2. sat_rows_kernel + sat_cols_kernel: the 32-bit SAT of each channel,
 //      a warp-shuffle scan along each row, then a running sum down each
-//      column. The largest sum at 1080p is 255*1080*1920 = 528 M < 2^31.
+//      column. The largest entry is 255*h*w: 2,115,072,000 at 2160x3840,
+//      2,256,076,800 at DCI 4K (2160x4096), which passes 2^31 - 1. So the
+//      SAT is unsigned, which wraps modulo 2^32 by definition (signed
+//      overflow is undefined behaviour in C++).
 //   3. defocus_gather_kernel: four corners, the clipped count, one
-//      correctly rounded f32 divide, truncation to u8.
+//      correctly rounded f32 divide, truncation to u8. The corner
+//      difference is taken modulo 2^32 too: it equals the true box sum,
+//      which is below 2^24 for any half up to 128, so wrapped entries
+//      give the exact box.
 
 #include <cuda_runtime.h>
 
@@ -47,19 +53,19 @@ __global__ void defocus_half_kernel(const float* __restrict__ depth,
 }
 
 __global__ void sat_rows_kernel(const unsigned char* __restrict__ rgb,
-                                int* __restrict__ sat, int h, int w) {
+                                unsigned* __restrict__ sat, int h, int w) {
   const int y = blockIdx.x;
   const int c = blockIdx.y;
   const int lane = threadIdx.x;
   const unsigned char* row = rgb + (size_t)y * w * 3 + c;
-  int* srow = sat + ((size_t)c * (h + 1) + y + 1) * (w + 1);
+  unsigned* srow = sat + ((size_t)c * (h + 1) + y + 1) * (w + 1);
   if (lane == 0) srow[0] = 0;
-  int carry = 0;
+  unsigned carry = 0;
   for (int x0 = 0; x0 < w; x0 += 32) {
     const int x = x0 + lane;
-    int v = x < w ? (int)row[(size_t)x * 3] : 0;
+    unsigned v = x < w ? row[(size_t)x * 3] : 0u;
     for (int o = 1; o < 32; o <<= 1) {
-      const int up = __shfl_up_sync(0xffffffffu, v, o);
+      const unsigned up = __shfl_up_sync(0xffffffffu, v, o);
       if (lane >= o) v += up;
     }
     v += carry;
@@ -68,13 +74,13 @@ __global__ void sat_rows_kernel(const unsigned char* __restrict__ rgb,
   }
 }
 
-__global__ void sat_cols_kernel(int* __restrict__ sat, int h, int w) {
+__global__ void sat_cols_kernel(unsigned* __restrict__ sat, int h, int w) {
   const int x = blockIdx.x * blockDim.x + threadIdx.x;
   const int c = blockIdx.y;
   if (x > w) return;
-  int* col = sat + (size_t)c * (h + 1) * (w + 1) + x;
+  unsigned* col = sat + (size_t)c * (h + 1) * (w + 1) + x;
   col[0] = 0;
-  int acc = 0;
+  unsigned acc = 0;
   for (int y = 1; y <= h; ++y) {
     acc += col[(size_t)y * (w + 1)];
     col[(size_t)y * (w + 1)] = acc;
@@ -83,7 +89,7 @@ __global__ void sat_cols_kernel(int* __restrict__ sat, int h, int w) {
 
 __global__ void defocus_gather_kernel(const unsigned char* __restrict__ rgb,
                                       const unsigned char* __restrict__ half,
-                                      const int* __restrict__ sat,
+                                      const unsigned* __restrict__ sat,
                                       unsigned char* __restrict__ out, int h, int w) {
   const int x = blockIdx.x * blockDim.x + threadIdx.x;
   const int y = blockIdx.y;
@@ -105,8 +111,8 @@ __global__ void defocus_gather_kernel(const unsigned char* __restrict__ rgb,
   const size_t ra = (size_t)ya * (w + 1);
   const size_t rb = (size_t)yb * (w + 1);
   for (int c = 0; c < 3; ++c) {
-    const int* S = sat + c * plane;
-    const int box = S[rb + xb] - S[ra + xb] - S[rb + xa] + S[ra + xa];
+    const unsigned* S = sat + c * plane;
+    const int box = (int)(S[rb + xb] - S[ra + xb] - S[rb + xa] + S[ra + xa]);
     // Rounds to nearest like the reference's int32 -> f32 convert; exact
     // while box < 2^24 (any half up to 128).
     out[3 * p + c] = (unsigned char)(int)__fdiv_rn((float)box, cnt);
@@ -114,7 +120,7 @@ __global__ void defocus_gather_kernel(const unsigned char* __restrict__ rgb,
 }
 
 extern "C" int defocus_box(const unsigned char* rgb, const float* depth,
-                           unsigned char* half, int* sat, unsigned char* out, int h,
+                           unsigned char* half, unsigned* sat, unsigned char* out, int h,
                            int w, int k, int max_half, int approx, int exact_upto,
                            int stride, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;

@@ -1,10 +1,11 @@
 """Build and load the port's CUDA kernels.
 
-At first use, nvcc compiles every source under ``csrc/`` into one shared
-library with a plain C interface, which ctypes loads. The library lands in
-``realtimedepthdiffusion_tpu_torch/build/``, named by a hash of the sources
-and flags, so an edit to a kernel rebuilds it and an unchanged tree reuses
-it. Importing this module runs nothing: a machine without nvcc can import
+At first use, nvcc compiles every ``.cu`` source under ``csrc/``, one
+process per source, all started together, and links the objects into one
+shared library with a plain C interface, which ctypes loads. The library
+lands in ``realtimedepthdiffusion_tpu_torch/build/``, named by a hash of the
+sources and flags, so an edit to a kernel rebuilds it and an unchanged tree
+reuses it. Importing this module runs nothing: a machine without nvcc can import
 the package and run the plain versions.
 
 No ``--use_fast_math``: it implies flush-to-zero and the approximate divide,
@@ -28,7 +29,7 @@ BUILD_DIR = PKG_DIR / "build"
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
     # ptxas reports each kernel's registers, shared memory and spills.
     "-Xptxas", "-v",
 )
@@ -49,6 +50,9 @@ SIGNATURES = {
     "rb_sweep_tiles": (P, P, P, P, P, P, P, I, I, I, I, I, I, I, P),
     # u (in/out), bh, bv, inv, mask, om, h, w, base, n, stream
     "rb_sweep_resident": (P, P, P, P, P, P, I, I, I, I, P),
+    # u_in, p_in, u_out, p_out, gray, mask, d8, abc, etab, h, w, base,
+    # n_active, k, thr, use_depth_rule, stream
+    "jc_sweep_fused": (P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, P),
     # rgb, depth, half (out), sat (scratch), out, h, w, k, max_half,
     # approx, exact_upto, stride, stream
     "defocus_box": (P, P, P, P, P, I, I, I, I, I, I, I, P),
@@ -86,21 +90,36 @@ def library_path() -> Path:
     return BUILD_DIR / f"librtdd_kernels_{h.hexdigest()[:16]}.so"
 
 
+def _run_all(cmds) -> str:
+    """Run the commands side by side, wait for every one, and raise with
+    the stderr of the first that failed; returns their stderr."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for c in cmds]
+    errs = [p.communicate()[1] for p in procs]
+    for cmd, proc, err in zip(cmds, procs, errs):
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{err}")
+    return "".join(errs)
+
+
 def _compile(out: Path) -> None:
     global build_seconds, build_log
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    stem = f"{out.stem}.{os.getpid()}"
+    objs = {src: BUILD_DIR / f"{stem}.{src.stem}.o" for src in sorted(CSRC_DIR.glob("*.cu"))}
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *[str(s) for s in sorted(CSRC_DIR.glob("*.cu"))]]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stderr}"
-        )
+    try:
+        log = _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(s)]
+                        for s, o in objs.items()])
+        log += _run_all([[nvcc, "-shared", "-o", str(tmp), *map(str, objs.values())]])
+    finally:
+        for o in objs.values():
+            o.unlink(missing_ok=True)
     os.replace(tmp, out)
     build_seconds = time.perf_counter() - t0
-    build_log = proc.stderr
+    build_log = log
 
 
 def load_library() -> ctypes.CDLL:

@@ -2,9 +2,11 @@
 
 Counterpart of ``realtimedepthdiffusion_tpu/ops/pallas_defocus.py`` and of
 the defocus half of ``core/effects.py``. ``defocus_box`` (K3) replaces
-``_defocus_kernel``; ``defocus_sat`` is the plain twin of ``defocus_xla``
-(an int32 summed-area table, four corners per pixel, one f32 divide), which
-the CPU runs and K3 is held to on the card, bit for bit.
+``_defocus_kernel`` and, as the same output, ``_defocus_kernel_stacked``
+and ``_defocus_kernel_coldiff``: ``pallas_defocus_variant`` changes
+nothing here. ``defocus_sat`` is the plain twin of ``defocus_xla`` (a
+summed-area table, four corners per pixel, one f32 divide), which the CPU
+runs and K3 is held to on the card, bit for bit.
 """
 
 from __future__ import annotations
@@ -91,8 +93,10 @@ def defocus_sat(rgb: torch.Tensor, depth: torch.Tensor,
     h, w = depth.shape
     dev = depth.device
     half = defocus_half_widths(depth, h, w, cfg).to(torch.int64)
-    chw = rgb[..., :3].permute(2, 0, 1).to(torch.int32)
-    sat = torch.cumsum(torch.cumsum(chw, dim=1, dtype=torch.int32), dim=2, dtype=torch.int32)
+    chw = rgb[..., :3].permute(2, 0, 1)
+    # int64: the largest entry, 255*h*w, passes 2^31 - 1 at DCI 4K
+    # (2160x4096). K3 keeps 32 bits and wraps; both give the same boxes.
+    sat = torch.cumsum(torch.cumsum(chw, dim=1, dtype=torch.int64), dim=2, dtype=torch.int64)
     sat = torch.nn.functional.pad(sat, (1, 0, 1, 0)).reshape(3, -1)  # (3, (h+1)*(w+1))
     yy = torch.arange(h, device=dev)[:, None]
     xx = torch.arange(w, device=dev)[None, :]
@@ -130,6 +134,7 @@ def defocus_box(rgb: torch.Tensor, depth: torch.Tensor,
     snap = _snap_params(cfg, max_half)
     t, q = snap if snap is not None else (0, 0)
     half = torch.empty((h, w), dtype=torch.uint8, device=depth.device)
+    # Scratch for K3's SAT, which it reads and writes as unsigned 32-bit.
     sat = torch.empty((3, h + 1, w + 1), dtype=torch.int32, device=depth.device)
     out = torch.empty((h, w, 3), dtype=torch.uint8, device=depth.device)
     lib = build.load_library()

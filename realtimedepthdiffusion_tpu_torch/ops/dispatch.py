@@ -4,9 +4,10 @@ The device of the tensors decides: a CPU tensor runs the plain torch
 versions, a CUDA tensor runs the hand-written kernels. There is no
 fallback between the two. The solver decides the kernels: the Jacobi
 sweeps (``jacobi_chebyshev`` and ``jacobi``) run K1 and K2
-(``ops/sweep.py``), red-black runs K4 and K5 (``ops/rb_sweep.py``). What
-the port does not implement yet raises, naming the ROADMAP item that will
-bring it.
+(``ops/sweep.py``), and K6 (``ops/fused_sweep.py``) on levels whose weight
+planes outgrow the card's L2 cache (``fused_level``); red-black runs K4 and
+K5 (``ops/rb_sweep.py``). What the port does not implement yet raises,
+naming the ROADMAP item that will bring it.
 """
 
 from __future__ import annotations
@@ -15,7 +16,7 @@ import numpy as np
 import torch
 
 from ..config import DiffusionConfig
-from . import rb_sweep, sweep
+from . import fused_sweep, rb_sweep, sweep
 
 VALID_BACKENDS = ("auto", "xla", "pallas", "pallas_interpret")
 VALID_SOLVERS = ("jacobi", "jacobi_chebyshev", "red_black")
@@ -32,6 +33,12 @@ _CHUNKS = {
 }
 _FIXED["jacobi"] = _FIXED["jacobi_chebyshev"]
 _CHUNKS["jacobi"] = _CHUNKS["jacobi_chebyshev"]
+# The Jacobi sweeps with the weights derived in the kernel (K6).
+_FUSED = (fused_sweep.solve_level_fused_plain, fused_sweep.solve_level_fused_cuda)
+_FUSED_CHUNKS = (fused_sweep.fused_chunks_plain, fused_sweep.fused_chunks_cuda)
+# The L2 cache the CPU routes by: the H100's, so that the plain versions
+# take the routes the card takes.
+H100_L2_BYTES = 50 * 1024 * 1024
 
 
 def check_supported(cfg: DiffusionConfig) -> None:
@@ -59,6 +66,23 @@ def _pick(pair, depth: torch.Tensor):
     raise ValueError(f"unsupported device {depth.device}")
 
 
+def l2_bytes(device: torch.device) -> int:
+    """The L2 cache of the card ``device`` names; the H100's for the CPU."""
+    if device.type == "cuda":
+        return torch.cuda.get_device_properties(device).L2_cache_size
+    return H100_L2_BYTES
+
+
+def fused_level(depth: torch.Tensor, solver: str) -> bool:
+    """Whether a level runs K6 (its plain version on the CPU): a Jacobi
+    solver on a level that ``sweep.strip_route`` sends to K6. Red-black
+    keeps K4/K5."""
+    if solver == "red_black":
+        return False
+    h, w = depth.shape
+    return sweep.strip_route(h, w, l2_bytes(depth.device)) == "K6"
+
+
 def run_sweeps(depth: torch.Tensor, mask: torch.Tensor, wts, table: np.ndarray,
                solver: str = "jacobi_chebyshev") -> torch.Tensor:
     """Every iteration of one level's table (``core/solver.py:_SCHEDULES``):
@@ -71,3 +95,18 @@ def level_chunks(depth: torch.Tensor, mask: torch.Tensor, wts, table: np.ndarray
     """``(state, run, u_of)`` of one level for the residual early exit, on
     the kernels or the plain version as ``run_sweeps`` routes."""
     return _pick(_CHUNKS[solver], depth)(depth, mask, wts, table)
+
+
+def run_fused(depth: torch.Tensor, mask: torch.Tensor, gray: torch.Tensor, table: np.ndarray,
+              level: int, max_level: int, cfg: DiffusionConfig) -> torch.Tensor:
+    """Every iteration of a ``fused_level`` level: K6 for a CUDA tensor, the
+    plain version for a CPU tensor. The weights come from ``gray`` and the
+    incoming depth, inside the kernel."""
+    return _pick(_FUSED, depth)(depth, mask, gray, table, level, max_level, cfg)
+
+
+def fused_chunks(depth: torch.Tensor, mask: torch.Tensor, gray: torch.Tensor,
+                 table: np.ndarray, level: int, max_level: int, cfg: DiffusionConfig):
+    """``(state, run, u_of)`` of a ``fused_level`` level for the residual
+    early exit, routed as ``run_fused``."""
+    return _pick(_FUSED_CHUNKS, depth)(depth, mask, gray, table, level, max_level, cfg)

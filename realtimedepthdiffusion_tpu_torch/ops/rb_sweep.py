@@ -29,7 +29,7 @@ import numpy as np
 import torch
 
 from . import build
-from .sweep import SMEM_PER_CTA, _check, _stream, relax_plain
+from .sweep import SMEM_PER_CTA, _check, _check_table, _stream, relax_plain
 
 # Iterations per K4 launch. One iteration is two half-sweeps, each of which
 # widens the dependency cone by a pixel, so a tile carries a ring of 2k.
@@ -92,9 +92,7 @@ def _check_planes(h, w, bh, bv, inv, mask_u8, om_dev, base, n):
     for name, t in (("bh", bh), ("bv", bv), ("inv", inv)):
         _check(name, t, torch.float32, (h, w))
     _check("mask", mask_u8, torch.uint8, (h, w))
-    if om_dev.dim() != 2 or om_dev.shape[1] != 2:
-        raise ValueError(f"om: expected shape (iters, 2), got {tuple(om_dev.shape)}")
-    _check("om", om_dev, torch.float32, om_dev.shape)
+    _check_table("om", om_dev, 2)
     if n < 1 or base < 0 or base + n > om_dev.shape[0]:
         raise ValueError(
             f"iterations {base}..{base + n - 1} do not fit a table of {om_dev.shape[0]}"

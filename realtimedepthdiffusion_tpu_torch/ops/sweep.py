@@ -10,7 +10,9 @@ Counterpart of ``realtimedepthdiffusion_tpu/ops/pallas_sweep.py``:
   ops, one rounding per op in the kernels' order. The CPU runs them, and
   on the card they are what the kernels are held to, bit for bit.
 - ``solve_level_cuda`` routes a level to K1 or K2, in the part of
-  ``solve_level_pallas``.
+  ``solve_level_pallas``. ``strip_route`` adds K6 (``ops/fused_sweep.py``),
+  which derives the weights in the kernel, for levels whose weight planes
+  outgrow the card's L2 cache; ``ops/dispatch.py`` applies it.
 - ``chunks_plain`` / ``chunks_cuda`` run a level's sweeps in chunks that
   carry (u, prev) from one to the next, for the residual early exit
   (``core/solver.py:_chunked_early_exit``); they are the counterpart of
@@ -38,6 +40,9 @@ MAX_TILE_SWEEPS = 32
 # mask (u8).
 SMEM_PER_CTA = 232448
 RESIDENT_BYTES_PER_PX = 21
+# What K1 reads of a level's weights on every launch: bh, bv, inv (f32) and
+# mask (u8).
+WEIGHT_PLANE_BYTES_PER_PX = 13
 
 
 def relax_plain(u, wl, bh, wu, bv, inv):
@@ -102,6 +107,12 @@ def _check(name, t, dtype, shape):
         raise ValueError(f"{name}: expected a contiguous tensor")
 
 
+def _check_table(name, t, cols):
+    if t.dim() != 2 or t.shape[1] != cols:
+        raise ValueError(f"{name}: expected shape (iters, {cols}), got {tuple(t.shape)}")
+    _check(name, t, torch.float32, t.shape)
+
+
 def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
@@ -115,9 +126,7 @@ def jc_sweep_tiles(u_in, p_in, u_out, p_out, bh, bv, inv, mask_u8, abc_dev,
                     ("p_out", p_out), ("bh", bh), ("bv", bv), ("inv", inv)):
         _check(name, t, torch.float32, (h, w))
     _check("mask", mask_u8, torch.uint8, (h, w))
-    if abc_dev.dim() != 2 or abc_dev.shape[1] != 3:
-        raise ValueError(f"abc: expected shape (iters, 3), got {tuple(abc_dev.shape)}")
-    _check("abc", abc_dev, torch.float32, abc_dev.shape)
+    _check_table("abc", abc_dev, 3)
     if not 1 <= k <= MAX_TILE_SWEEPS:
         raise ValueError(f"k must be in 1..{MAX_TILE_SWEEPS}, got {k}")
     if not 1 <= n_active <= k or base < 0 or base + n_active > abc_dev.shape[0]:
@@ -143,6 +152,20 @@ def resident_fits(h: int, w: int) -> bool:
     return (h + 2) * (w + 2) * RESIDENT_BYTES_PER_PX <= SMEM_PER_CTA
 
 
+def strip_route(h: int, w: int, l2_bytes: int) -> str:
+    """The kernel of an (h, w) Jacobi level on a card with an L2 cache of
+    ``l2_bytes``: "K2" when the level fits one CTA's shared memory; else
+    "K6" when K1's weight planes would not stay in L2, so that K6 derives
+    the weights in the kernel instead; else "K1". It is the Hopper reading
+    of the reference's arena/uarena choice (``_plan_strips``,
+    ``pallas_sweep.py:902-917``), with L2 in place of VMEM."""
+    if resident_fits(h, w):
+        return "K2"
+    if WEIGHT_PLANE_BYTES_PER_PX * h * w > l2_bytes:
+        return "K6"
+    return "K1"
+
+
 def jc_sweep_resident(u, bh, bv, inv, mask_u8, abc_dev) -> None:
     """K2: every sweep of the (iters, 3) device table ``abc_dev`` on the
     level ``u``, in place, starting from a zero Chebyshev history."""
@@ -150,9 +173,7 @@ def jc_sweep_resident(u, bh, bv, inv, mask_u8, abc_dev) -> None:
     for name, t in (("u", u), ("bh", bh), ("bv", bv), ("inv", inv)):
         _check(name, t, torch.float32, (h, w))
     _check("mask", mask_u8, torch.uint8, (h, w))
-    if abc_dev.dim() != 2 or abc_dev.shape[1] != 3:
-        raise ValueError(f"abc: expected shape (iters, 3), got {tuple(abc_dev.shape)}")
-    _check("abc", abc_dev, torch.float32, abc_dev.shape)
+    _check_table("abc", abc_dev, 3)
     if not resident_fits(h, w):
         raise ValueError(f"a {h}x{w} level does not fit one CTA's shared memory")
     lib = build.load_library()
@@ -193,8 +214,9 @@ def _solve_tiles(u, bh, bv, inv, m8, abc_dev, k):
                         abc_dev.shape[0], k)[0]
 
 
-def _tiles_chunk(u, prev, bh, bv, inv, m8, abc_dev, base, n, k):
-    """Sweeps base .. base+n-1 in ceil(n/k) K1 launches; (u, prev)
+def ping_pong(u, prev, launch, base, n, k):
+    """Sweeps base .. base+n-1 in ceil(n/k) calls of ``launch(u_in, p_in,
+    u_out, p_out, b, n_active)``, a kernel of up to k sweeps; (u, prev)
     ping-pong between the given pair and a new one, and the last launch runs
     the remaining sweeps. Returns the pair that holds the result."""
     us = [u, torch.empty_like(u)]
@@ -203,9 +225,16 @@ def _tiles_chunk(u, prev, bh, bv, inv, m8, abc_dev, base, n, k):
     for blk in range(n_blocks):
         src, dst = blk % 2, 1 - blk % 2
         b = base + blk * k
-        jc_sweep_tiles(us[src], ps[src], us[dst], ps[dst], bh, bv, inv, m8, abc_dev,
-                       b, min(k, base + n - b), k)
+        launch(us[src], ps[src], us[dst], ps[dst], b, min(k, base + n - b))
     return us[n_blocks % 2], ps[n_blocks % 2]
+
+
+def _tiles_chunk(u, prev, bh, bv, inv, m8, abc_dev, base, n, k):
+    """Sweeps base .. base+n-1 on K1 (``ping_pong``)."""
+    def launch(u_in, p_in, u_out, p_out, b, n_active):
+        jc_sweep_tiles(u_in, p_in, u_out, p_out, bh, bv, inv, m8, abc_dev, b, n_active, k)
+
+    return ping_pong(u, prev, launch, base, n, k)
 
 
 def chunks_cuda(depth: torch.Tensor, mask: torch.Tensor, wts, abc: np.ndarray,

@@ -1,8 +1,8 @@
 """The port's CUDA kernels against their plain versions on the card, at
 shapes the 1080p run does not reach: single rows, levels smaller than one
 tile, ragged tiles, every ring width k, tiles that start on a black cell,
-chunks that start past iteration 0, and large apertures. Every comparison
-is exact.
+chunks that start past iteration 0, large apertures, K6 at every level rule
+and the 4K routes and SAT sums. Every comparison is exact.
 
 Needs a CUDA device and nvcc; skips without them. This file imports no JAX,
 so it runs on a machine without it:
@@ -19,7 +19,7 @@ from realtimedepthdiffusion_tpu_torch.config import DiffusionConfig
 from realtimedepthdiffusion_tpu_torch.core.annotation import seed_depth
 from realtimedepthdiffusion_tpu_torch.core.solver import abc_schedule, rb_omegas
 from realtimedepthdiffusion_tpu_torch.core.weights import edge_weights
-from realtimedepthdiffusion_tpu_torch.ops import defocus, rb_sweep, sweep
+from realtimedepthdiffusion_tpu_torch.ops import defocus, dispatch, fused_sweep, rb_sweep, sweep
 
 pytestmark = pytest.mark.cuda
 
@@ -176,4 +176,104 @@ def test_wrappers_reject_bad_arguments(dev):
     ops.reset_launch_counts()
     assert ops.launch_counts() == {"jc_sweep_tiles": 0, "jc_sweep_resident": 0,
                                    "defocus_box": 0, "rb_sweep_tiles": 0,
-                                   "rb_sweep_resident": 0}
+                                   "rb_sweep_resident": 0, "jc_sweep_fused": 0}
+
+
+def _fused_case(dev, h, w, seed):
+    """A level with non-integral depth, so the u8 truncation of d8 matters."""
+    r = np.random.default_rng(seed)
+    gray = torch.from_numpy(r.integers(0, 256, (h, w), dtype=np.uint8)).to(dev)
+    mask = torch.from_numpy(r.random((h, w)) < 0.05).to(dev)
+    value = torch.from_numpy(r.integers(0, 255, (h, w), dtype=np.uint8)).to(dev)
+    field = np.kron(r.random((h // 4 + 1, w // 4 + 1)) * 255, np.ones((4, 4)))[:h, :w]
+    depth = torch.from_numpy((field + r.random((h, w)) * 0.9).astype(np.float32)).to(dev)
+    return seed_depth(depth, mask, value), mask, gray
+
+
+@pytest.mark.parametrize("h,w", [(37, 53), (100, 203), (257, 515)])
+@pytest.mark.parametrize("k", [1, 3, 8, 12])
+@pytest.mark.parametrize("level,max_level", [(0, 3), (1, 3), (3, 3)])
+def test_fused_kernel_equals_plain(dev, h, w, k, level, max_level):
+    depth, mask, gray = _fused_case(dev, h, w, seed=h + w + k + level)
+    abc = abc_schedule(17, DiffusionConfig())
+    before = fused_sweep.jc_sweep_fused.launches
+    got = fused_sweep.solve_level_fused_cuda(depth, mask, gray, abc, level, max_level, k=k)
+    want = fused_sweep.solve_level_fused_plain(depth, mask, gray, abc, level, max_level)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert fused_sweep.jc_sweep_fused.launches - before == -(-17 // k)
+    # The derived weights are edge_weights': K6 equals K1 on the same level.
+    wts = edge_weights(gray, depth, level, max_level)
+    k1 = sweep._solve_tiles(depth.clone(), wts.wr.contiguous(), wts.wd.contiguous(),
+                            wts.inv_count, mask.to(torch.uint8), torch.from_numpy(abc).to(dev), k)
+    torch.cuda.synchronize()
+    assert torch.equal(got, k1)
+
+
+@pytest.mark.parametrize("split", [(5, 12), (12, 13), (7, 1)])
+def test_fused_chunks_from_base_equal_plain(dev, split):
+    """K6 in two chunks, the second from base > 0, as the early exit runs it."""
+    first, rest = split
+    depth, mask, gray = _fused_case(dev, 70, 130, seed=first)
+    abc = abc_schedule(first + rest, DiffusionConfig())
+    state, run, u_of = fused_sweep.fused_chunks_cuda(depth, mask, gray, abc, 1, 3)
+    pstate, prun, _ = fused_sweep.fused_chunks_plain(depth, mask, gray, abc, 1, 3)
+    state, pstate = run(state, 0, first), prun(pstate, 0, first)
+    state, pstate = run(state, first, rest), prun(pstate, first, rest)
+    torch.cuda.synchronize()
+    assert torch.equal(state[0], pstate[0]) and torch.equal(state[1], pstate[1])
+
+
+def test_4k_route_launches_fused_kernel(dev):
+    """A 2160x3840 level outgrows the card's L2 and runs on K6."""
+    from realtimedepthdiffusion_tpu_torch.core import solver as tsolver
+
+    depth, mask, gray = _fused_case(dev, 2160, 3840, seed=4)
+    assert dispatch.fused_level(depth, "jacobi_chebyshev")
+    assert not dispatch.fused_level(depth, "red_black")
+    ops.reset_launch_counts()
+    got = tsolver.solve_level(depth, mask, gray, 0, 5, 3, DiffusionConfig())
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["jc_sweep_fused"] == 1
+    assert ops.launch_counts()["jc_sweep_tiles"] == 0
+    want = fused_sweep.solve_level_fused_plain(depth, mask, gray, abc_schedule(3), 0, 5)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("fill", [None, 255])
+def test_defocus_dci_4k_equals_plain(dev, fill):
+    """At 2160x4096 the SAT's largest entry passes 2^31 - 1."""
+    r = np.random.default_rng(7)
+    h, w = 2160, 4096
+    rgb = r.integers(0, 256, (h, w, 3), dtype=np.uint8) if fill is None else \
+        np.full((h, w, 3), fill, np.uint8)
+    rgb = torch.from_numpy(rgb).to(dev)
+    depth = torch.from_numpy((r.random((h, w)) * 300 - 20).astype(np.float32)).to(dev)
+    got = defocus.defocus_box(rgb, depth)
+    want = defocus.defocus_sat(rgb, depth)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    if fill is not None:
+        assert bool((got == fill).all())
+
+
+def test_fused_wrapper_rejects_bad_arguments(dev):
+    f = torch.zeros((8, 9), device=dev)
+    m = torch.zeros((8, 9), dtype=torch.uint8, device=dev)
+    abc = torch.zeros((4, 3), device=dev)
+    etab = torch.zeros(256, device=dev)
+    with pytest.raises(ValueError, match="CUDA"):
+        fused_sweep.jc_sweep_fused(f.cpu(), f, f, f, m, m, m, abc, etab, 0, 4, 0, True)
+    with pytest.raises(ValueError, match="CUDA"):
+        fused_sweep.jc_sweep_fused(f, f, f, f, m.cpu(), m, m, abc, etab, 0, 4, 0, True)
+    with pytest.raises(ValueError, match="uint8"):
+        fused_sweep.jc_sweep_fused(f, f, f, f, f, m, m, abc, etab, 0, 4, 0, True)
+    with pytest.raises(ValueError, match="float32"):
+        fused_sweep.jc_sweep_fused(f, f, f, f, m, m, m, abc, etab.double(), 0, 4, 0, True)
+    with pytest.raises(ValueError, match="d8: expected shape"):
+        fused_sweep.jc_sweep_fused(f, f, f, f, m, m, m[:, :8].contiguous(), abc, etab, 0, 4,
+                                   0, True)
+    with pytest.raises(ValueError, match="do not fit"):
+        fused_sweep.jc_sweep_fused(f, f, f, f, m, m, m, abc, etab, 2, 4, 0, True)
+    with pytest.raises(ValueError, match="shared memory"):
+        fused_sweep.jc_sweep_fused(f, f, f, f, m, m, m, abc, etab, 0, 1, 0, True, k=40)
