@@ -34,15 +34,35 @@ Phases, each printed on its own lines; any failure raises and exits non-zero:
    table's largest entry passes 2^31 - 1; and the TPU-only variants the
    port maps onto K1 and K3 (state prefetch, stacked and coldiff defocus),
    each equal to the default output.
+7. Drives the multi-device step (``parallel/``) on a slot mesh whose slots
+   all live on the card: K1 on a halo block, K4 with parity 0 and 1, and K3
+   on blocks with an origin, at the 1080p blocks' shapes, each exact against
+   its plain version with both times; three ``batched_step(make_mesh(8),
+   1080, 1920, ..., EFFECT_DEFOCUS)`` steps on a batch of 4 (mesh (2, 2, 2)),
+   which must launch exactly 3,904 K1 and 16 K3-block per step and give the
+   single-device depth and defocus per image bit for bit; one sharded
+   ``--profile fast`` step on mesh (1, 2, 2) within RMSE 1e-3 of the
+   single-device fast solve; a 270x480 step equal to the same step on the
+   plain versions; and ``dryrun_multichip(8)``. The last 1080p step runs
+   once more under ``torch.profiler``: its device time by kernel, over the
+   same step's unprofiled time, is the step's device busy share.
 
 Each phase prints its seconds. The line before the last is a JSON object
-of the kernels; the last line is ``{"ok": true, "device": {...}}``.
+of the kernels, each with its launches on its main path, its largest
+difference from its plain version, its time, its plain version's time,
+its bound (the least time the card could take for the same work, from
+the bytes it must move and the operations it must do, at the card's
+published peaks) and the time of a PyTorch call computing the same
+function (null: none exists). The last line is ``{"ok": true, "device":
+{...}}``.
 """
 
 from __future__ import annotations
 
 import argparse
+import collections
 import json
+import re
 import subprocess
 import sys
 import time
@@ -59,6 +79,27 @@ FAST_ARGS = argparse.Namespace(backend="auto", solver=None, tolerance=None,
                                defocus_quality=None, defocus_stride=None, profile="fast")
 TPU_SWEEP = "realtimedepthdiffusion_tpu/ops/pallas_sweep.py"
 TPU_DEFOCUS = "realtimedepthdiffusion_tpu/ops/pallas_defocus.py"
+# One H100 SXM's published peaks at 700 W: device memory 3.35 TB/s; the
+# SMs issue 132 x 128 lanes x 1.98 GHz = 33.5 T instructions/s, which the
+# FP32 pipes can take in full (the 67 TFLOP/s of the data sheet counts an
+# FMA as two, and the kernels use none, to keep the plain version's
+# roundings); the INT32 pipes take half of that.
+PEAK_BYTES_S = 3.35e12
+FP32_OPS_S = 33.5e12
+INT32_OPS_S = 16.75e12
+# Operations per pixel and sweep or iteration, counted from the sources:
+# jc_point 8 multiplies, 5 adds, 2 min/max, 1 select (csrc/jc_sweep.cuh);
+# rb_point 6 multiplies, 5 adds or subtracts, 4 min/max (csrc/rb_sweep.cuh);
+# K6 derives each pixel's weights once per level for ~20 more.
+JC_OPS, RB_OPS, K6_DERIVE_OPS = 16, 15, 20
+# K3's (floating-point, integer) operations, counted from csrc/defocus.cu:
+# per pixel, the half-width (a max, a multiply, a divide and a convert; a
+# halving and a min), which defocus_block is handed instead; per pixel of
+# the image the SAT is taken over, a row and a column add per channel; per
+# output pixel, the window (4 adds, 4 clips), the count (4 adds, 4 clips, 2
+# subtracts, a multiply, a convert), and per channel 3 adds, 2 converts and
+# a divide.
+K3_HALF, K3_SAT, K3_GATHER = (4, 2), (0, 6), (10, 28)
 
 
 def seeded_image(rng, h, w):
@@ -100,6 +141,22 @@ def time_ms(torch, fn, reps):
         end.synchronize()
         times.append(start.elapsed_time(end))
     return float(np.median(times))
+
+
+def bound(n_bytes, n_ops, n_int=0):
+    """(ms, resource): the least time of a kernel that must move
+    ``n_bytes`` (each input read once, each output written once) and issue
+    ``n_ops`` operations, ``n_int`` of them on the INT32 pipes."""
+    t_bytes = n_bytes / PEAK_BYTES_S * 1e3
+    t_ops = max(n_ops / FP32_OPS_S, n_int / INT32_OPS_S) * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def k3_ops(px_sat, px_out, with_half):
+    """(all, integer) operations of K3 over a SAT of ``px_sat`` pixels with
+    ``px_out`` outputs, and their half-widths if ``with_half``."""
+    parts = [(K3_SAT, px_sat), (K3_GATHER, px_out)] + [(K3_HALF, px_out)] * with_half
+    return sum((f + i) * n for (f, i), n in parts), sum(i * n for (_, i), n in parts)
 
 
 def max_abs(torch, a, b):
@@ -599,44 +656,282 @@ def main() -> None:
           "K3 under stacked and under coldiff")
     phase_done("6 (the 4K path)")
 
+    # -- 7. the multi-device step -----------------------------------------------------
+    from realtimedepthdiffusion_tpu_torch.parallel import dryrun, sharded
+    from realtimedepthdiffusion_tpu_torch.parallel import mesh as pmesh
+
+    card = smi.stdout.strip().splitlines()[0]
+    halo = sharded.DEFAULT_HALO
+    hb, wb = H // 2, W // 2  # the L0 blocks of mesh (2, 2, 2)
+
+    def extended(plane, oy, ox, ring):
+        """The block of ``plane`` (..., H, W) at (oy, ox), hb x wb, with the
+        ring the halo exchange gives it: neighbours, zeros past the image."""
+        padded = torch.nn.functional.pad(plane, (ring, ring, ring, ring))
+        return padded[..., oy:oy + hb + 2 * ring, ox:ox + wb + 2 * ring].contiguous()
+
+    def check_block(name, run, plain, crop, whole, n_bytes, n_ops, n_int=0):
+        """A block route against its plain version (every output), its
+        cropped interior against the same pixels of the whole-image route,
+        and the times of both with the bound of the block's work."""
+        got, want = run(), plain()
+        torch.cuda.synchronize()
+        got, want = (got, want) if isinstance(got, tuple) else ((got,), (want,))
+        err = max(require_equal(torch, name, g, w) for g, w in zip(got, want))
+        require_equal(torch, f"{name} interior vs the whole image", crop(got[0]), whole)
+        t_bound, by = bound(n_bytes, n_ops, n_int)
+        line = {"block": list(got[0].shape), "max_abs_err": err,
+                "ms": time_ms(torch, run, 20), "plain_ms": time_ms(torch, plain, 3),
+                "bound_ms": t_bound, "bound_by": by}
+        print(f"{name}: {json.dumps(line)}")
+        return line
+
+    depth_t, mask_t, wts, abc = level_case(gray_pyr, 0)
+    prev_t = torch.from_numpy(rng.random((H, W)).astype(np.float32) * 255.0).to(dev)
+    m8 = mask_t.to(torch.uint8)
+    planes = (wts.wr.contiguous(), wts.wd.contiguous(), wts.inv_count.contiguous(), m8)
+    abc_k = abc[:halo]
+    abc_k_d = torch.from_numpy(abc_k).to(dev)
+    whole_u = sweep._tiles_chunk(depth_t.clone(), prev_t, *planes, abc_k_d, 0, halo, halo)[0]
+    oy, ox = hb, wb
+    blk = [extended(t, oy, ox, halo) for t in (depth_t, prev_t, *planes)]
+    px_e = (hb + 2 * halo) * (wb + 2 * halo)
+    b_k1 = check_block(
+        f"K1 halo block ({oy}, {ox}), k={halo}", lambda: sweep.halo_block_sweeps(*blk, abc_k_d),
+        lambda: sweep.halo_block_sweeps_plain(*blk, abc_k),
+        lambda u: u[halo:-halo, halo:-halo], whole_u[oy:oy + hb, ox:ox + wb],
+        px_e * 29, px_e * halo * JC_OPS)
+
+    om_k = rb_omegas(fast_cfg.level_iterations(n_levels, 0), fast_cfg)[:halo]
+    om_k_d = torch.from_numpy(om_k).to(dev)
+    ew_rb = sharded.exchange_width("red_black", halo)
+    whole_rb = rb_sweep._tiles_chunk(depth_t.clone(), *planes, om_k_d, 0, halo, halo)
+    b_k4 = {}
+    for oy, ox in ((hb, wb), (hb - 1, wb)):
+        par = (oy + ox) & 1
+        blk = [extended(t, oy, ox, ew_rb) for t in (depth_t, *planes)]
+        px_e = (hb + 2 * ew_rb) * (wb + 2 * ew_rb)
+        b_k4[par] = check_block(
+            f"K4 halo block ({oy}, {ox}), parity {par}, k={halo}",
+            lambda: rb_sweep.halo_block_rb_sweeps(*blk, par, om_k_d),
+            lambda: rb_sweep.halo_block_rb_sweeps_plain(*blk, par, om_k),
+            lambda u: u[ew_rb:-ew_rb, ew_rb:-ew_rb], whole_rb[oy:oy + hb, ox:ox + wb],
+            px_e * 21, px_e * halo * RB_OPS)
+
+    ew = defocus.block_ring(H, W, cfg)
+    half_fx = defocus.defocus_half_widths(depth_fx, H, W, cfg)
+    whole_fx = defocus.defocus_box(rgb_t, depth_fx, cfg)
+    chw_t = rgb_t.permute(2, 0, 1)
+    b_k3 = {}
+    for oy, ox in ((hb, wb), (0, 0)):
+        chw_e = extended(chw_t, oy, ox, ew)
+        half_b = half_fx[oy:oy + hb, ox:ox + wb].contiguous()
+        b_k3[(oy, ox)] = check_block(
+            f"K3 block ({oy}, {ox}) of {H}x{W}, k={cfg.defocus_kernel_size(H, W)}, ring {ew}",
+            lambda: defocus.defocus_block(chw_e, half_b, oy, ox, H, W, cfg),
+            lambda: defocus.defocus_block_sat(chw_e, half_b, oy, ox, H, W, cfg),
+            lambda o: o, whole_fx[oy:oy + hb, ox:ox + wb],
+            3 * chw_e[0].numel() + hb * wb * 4, *k3_ops(chw_e[0].numel(), hb * wb, False))
+
+    # The step at full width: the README's --multichip --batch 4 --effect b
+    # on the 8-slot mesh (2, 2, 2), every slot on this card.
+    mesh8 = pmesh.make_mesh(8, device="cuda")
+    lv_routes = [(list(g.shape), sharded.level_is_sharded(mesh8, *g.shape, cfg.solver))
+                 for g in gray_pyr]
+    print(f"mesh {mesh8}; levels (shape, sharded): {json.dumps(lv_routes)}")
+    if not all(r for _, r in lv_routes):
+        raise AssertionError(f"a 1080p level runs replicated on {mesh8.shape}")
+    n_img = 4
+    want_k1 = n_img // mesh8.shape["batch"] * len(mesh8.slots) * sum(
+        -(-cfg.level_iterations(n_levels, lv) // halo) for lv in range(n_levels))
+    want_step = {"jc_sweep_tiles": want_k1, "defocus_block": n_img * mesh8.shape["dy"]
+                 * mesh8.shape["dx"]}
+    imgs = [seeded_image(rng, H, W) for _ in range(n_img)]
+    gps = [pipe.prepare_image(img)[1] for img in imgs]
+    rgb_b = torch.from_numpy(np.stack(imgs)).to(dev)
+    step_fn, _ = sharded.batched_step(mesh8, H, W, cfg, fx.EFFECT_DEFOCUS)
+    smask, svalue = bench_scribbles(H, W)
+    st = tuple(torch.stack([s] * n_img) for s in pipe.initial_state())
+    step_ms, step_launches = [], {}
+    for i in range(3):
+        if i == 1:
+            add_scribble(smask, svalue)
+        m_b = torch.from_numpy(np.stack([smask] * n_img)).to(dev)
+        v_b = torch.from_numpy(np.stack([svalue] * n_img)).to(dev)
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        depth_b, new_st, out_b = step_fn(rgb_b, m_b, v_b, st)
+        end.record()
+        end.synchronize()
+        counts = {k: v for k, v in ops.launch_counts().items() if v}
+        step_ms.append(start.elapsed_time(end))
+        if counts != want_step:
+            raise AssertionError(f"sharded step {i} launched {counts}, not {want_step}")
+        for k, v in counts.items():
+            step_launches[k] = step_launches.get(k, 0) + v
+        for n in range(n_img):
+            d1, _ = pipe.solve(gps[n], m_b[n], v_b[n], tuple(s[n] for s in st))
+            o1 = defocus.defocus_box(rgb_b[n], torch.clamp(d1, 0.0, 255.0), cfg)
+            torch.cuda.synchronize()
+            require_equal(torch, f"sharded step {i} image {n} depth vs single device",
+                          depth_b[n], d1)
+            require_equal(torch, f"sharded step {i} image {n} defocus vs K3", out_b[n], o1)
+        if not torch.equal(depth_b[m_b], v_b[m_b].to(torch.float32)):
+            raise AssertionError(f"sharded step {i}: scribble pixels are not pinned")
+        print(f"sharded step {i}: {step_ms[-1]:.3f} ms (CUDA events), launches {json.dumps(counts)}, "
+              f"depth and defocus of {n_img} images equal to the single-device frame")
+        last_in, st = (rgb_b, m_b, v_b, st), new_st
+    print(f"sharded 1080p step, batch {n_img} on mesh {mesh8.shape}: "
+          f"{json.dumps([round(t, 3) for t in step_ms])} ms on {card}")
+    # The busy share: the last step again, on the same inputs (the same
+    # work), under the profiler; its device time over that step's
+    # unprofiled time. The slots share one stream, so kernels never overlap.
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        step_fn(*last_in)
+        torch.cuda.synchronize()
+    by_kernel = collections.Counter()  # by the kernel's bare name, templates merged
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            bare = re.split(r"[<(]", e.name.replace("(anonymous namespace)::", ""))[0]
+            by_kernel[bare.split("::")[-1].removeprefix("void ").strip()] += e.time_range.elapsed_us() / 1e3
+    device_ms = sum(by_kernel.values())
+    if device_ms <= 0:
+        raise AssertionError("the profiler saw no device time in the traced step")
+    print(f"sharded step {len(step_ms) - 1} traced again: {device_ms:.3f} ms of device time over "
+          f"{step_ms[-1]:.3f} ms unprofiled, busy share {device_ms / step_ms[-1]:.4f}; device ms "
+          f"by kernel {json.dumps({k: round(v, 3) for k, v in by_kernel.most_common(8)})}")
+
+    # The fast profile, sharded: red-black with the rms early exit on (1, 2, 2),
+    # one image, so that the exit's gate is that image's residual. A probe
+    # within a hair of the threshold may fall either way when the sum is
+    # taken in another order, so the image is the first seeded one whose
+    # single-device probes all sit more than 1 % from the threshold.
+    mesh4 = pmesh.make_mesh(4, device="cuda")
+    fstep, _ = sharded.batched_step(mesh4, H, W, fast_cfg, fx.EFFECT_DEFOCUS)
+    fm_d, fv_d = torch.from_numpy(smask).to(dev), torch.from_numpy(svalue).to(dev)
+    fst = fpipe.initial_state()
+    for attempt in range(12):
+        img = imgs[attempt] if attempt < n_img else seeded_image(rng, H, W)
+        _, fgp = fpipe.prepare_image(img)
+        slog = []
+        f1, _ = fpipe.solve(fgp, fm_d, fv_d, fst, slog)
+        margin = min(abs(q - e["tol"]) / e["tol"] for e in slog for q in e["probes"])
+        if margin > 0.01:
+            break
+    else:
+        raise AssertionError("no seeded image has its fast probes > 1 % from the threshold")
+    ops.reset_launch_counts()
+    flog = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fdepth, _, fout = fstep(torch.from_numpy(img)[None].to(dev), fm_d[None], fv_d[None],
+                            tuple(t[None] for t in fst), flog)
+    torch.cuda.synchronize()
+    fast_step_s = time.perf_counter() - t0
+    fast_halo = {k: v for k, v in ops.launch_counts().items() if v}
+    if set(fast_halo) != {"rb_sweep_tiles", "defocus_block"}:
+        raise AssertionError(f"the sharded fast step launched {fast_halo}")
+    rmse = float(torch.sqrt(torch.mean(((fdepth[0] - f1) / 255.0) ** 2)))
+    levels = [{"shape": list(e["shape"]), "iterations": e["iters"], "single_device": se["iters"],
+               "probes": [round(q, 6) for q in e["probes"]]} for e, se in zip(flog, slog)]
+    print(f"sharded fast step, seeded image {attempt} (probes >= {margin:.2%} from the threshold) "
+          f"on mesh {mesh4.shape}: {fast_step_s * 1e3:.3f} ms (host clock), launches "
+          f"{json.dumps(fast_halo)}; RMSE {rmse:.3e} against the single-device fast solve "
+          f"(bar 1e-3); tol {flog[0]['tol']:.6f}; {json.dumps(levels)}")
+    if not rmse <= 1e-3:
+        raise AssertionError(f"sharded fast step: RMSE {rmse} > 1e-3")
+
+    # The whole step on the kernels against the same step on the plain versions.
+    h3, w3 = 270, 480
+    k_fn, args3 = sharded.batched_step(mesh8, h3, w3, cfg, fx.EFFECT_DEFOCUS)
+    p_fn, _ = sharded.batched_step(mesh8, h3, w3, cfg, fx.EFFECT_DEFOCUS, plain=True)
+    args3 = args3(2)
+    runs = {}
+    for name, fn in (("kernels", k_fn), ("plain", p_fn)):
+        ops.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        d3, _, o3 = fn(*args3)
+        torch.cuda.synchronize()
+        runs[name] = (d3, o3, time.perf_counter() - t0, dict(ops.launch_counts()))
+    if any(runs["plain"][3].values()):
+        raise AssertionError(f"the plain step launched kernels: {runs['plain'][3]}")
+    step_err = max(require_equal(torch, "270x480 step depth", runs["kernels"][0], runs["plain"][0]),
+                   require_equal(torch, "270x480 step defocus", runs["kernels"][1],
+                                 runs["plain"][1]))
+    print(f"sharded {h3}x{w3} step, batch 2 on mesh {mesh8.shape}: kernels "
+          f"{runs['kernels'][2] * 1e3:.3f} ms, plain {runs['plain'][2] * 1e3:.3f} ms (host clock), "
+          f"max_abs_err {step_err}")
+
+    print(f"dryrun_multichip(8): {json.dumps(dryrun.dryrun_multichip(8, device='cuda'))}")
+    phase_done("7 (the multi-device step)")
+
+    px0, px4, px4k = H * W, int(gray_pyr[L].numel()), H4 * W4
+
+    def bounded(entry, n_bytes, n_ops, n_int=0):
+        entry["bound_ms"], entry["bound_by"] = bound(n_bytes, n_ops, n_int)
+        entry["library_ms"] = None  # no PyTorch call computes a per-pixel-weight stencil
+        return entry
+
     kernels = [
-        {"name": "jc_sweep_tiles", "route": "cuda",
-         "source": "realtimedepthdiffusion_tpu_torch/csrc/sweep.cu",
-         "replaces": f"{TPU_SWEEP}:298",
-         "also_replaces": [f"{TPU_SWEEP}:546", f"{TPU_SWEEP}:210"],
-         "launches": launches["jc_sweep_tiles"],
-         "max_abs_err": max(k1_l0["max_abs_err"], k1_l1["max_abs_err"], k1_k),
-         "ms": k1_l0["ms"], "plain_ms": k1_l0["plain_ms"]},
-        {"name": "jc_sweep_resident", "route": "cuda",
-         "source": "realtimedepthdiffusion_tpu_torch/csrc/sweep.cu",
-         "replaces": f"{TPU_SWEEP}:111", "launches": launches["jc_sweep_resident"],
-         "max_abs_err": k2["max_abs_err"], "ms": k2["ms"], "plain_ms": k2["plain_ms"]},
-        {"name": "defocus_box", "route": "cuda",
-         "source": "realtimedepthdiffusion_tpu_torch/csrc/defocus.cu",
-         "replaces": f"{TPU_DEFOCUS}:234",
-         "also_replaces": [f"{TPU_DEFOCUS}:126", f"{TPU_DEFOCUS}:49"],
-         "launches": launches["defocus_box"],
-         "max_abs_err": max(k3_dci, *(v["max_abs_err"] for v in k3.values())),
-         "ms": k3["exact"]["ms"], "plain_ms": k3["exact"]["plain_ms"]},
-        {"name": "rb_sweep_tiles", "route": "cuda",
-         "source": "realtimedepthdiffusion_tpu_torch/csrc/rb_sweep.cu",
-         "replaces": f"{TPU_SWEEP}:1327", "launches": fast_launches["rb_sweep_tiles"],
-         "max_abs_err": max(k4_l0["max_abs_err"], k4_l1["max_abs_err"]),
-         "ms": k4_l0["ms"], "plain_ms": k4_l0["plain_ms"]},
-        {"name": "rb_sweep_resident", "route": "cuda",
-         "source": "realtimedepthdiffusion_tpu_torch/csrc/rb_sweep.cu",
-         "replaces": f"{TPU_SWEEP}:1209", "launches": fast_launches["rb_sweep_resident"],
-         "max_abs_err": k5["max_abs_err"], "ms": k5["ms"], "plain_ms": k5["plain_ms"]},
-        {"name": "jc_sweep_fused", "route": "cuda",
-         "source": "realtimedepthdiffusion_tpu_torch/csrc/fused_sweep.cu",
-         "replaces": f"{TPU_SWEEP}:394", "launches": launches4["jc_sweep_fused"],
-         "max_abs_err": max(k6_l0["max_abs_err"], k6_l1["max_abs_err"]),
-         "ms": k6_ms, "plain_ms": k6_l0["plain_ms"]},
+        bounded({"name": "jc_sweep_tiles", "route": "cuda",
+                 "source": "realtimedepthdiffusion_tpu_torch/csrc/sweep.cu",
+                 "replaces": f"{TPU_SWEEP}:298",
+                 "also_replaces": [f"{TPU_SWEEP}:546", f"{TPU_SWEEP}:210", f"{TPU_SWEEP}:1936"],
+                 "launches": launches["jc_sweep_tiles"],
+                 "max_abs_err": max(k1_l0["max_abs_err"], k1_l1["max_abs_err"], k1_k),
+                 "ms": k1_l0["ms"], "plain_ms": k1_l0["plain_ms"],
+                 "halo_launches": step_launches["jc_sweep_tiles"],
+                 "halo_max_abs_err": max(b_k1["max_abs_err"], step_err),
+                 "halo_ms": b_k1["ms"], "halo_plain_ms": b_k1["plain_ms"]},
+                px0 * 25, px0 * k1_l0["sweeps"] * JC_OPS),
+        bounded({"name": "jc_sweep_resident", "route": "cuda",
+                 "source": "realtimedepthdiffusion_tpu_torch/csrc/sweep.cu",
+                 "replaces": f"{TPU_SWEEP}:111", "launches": launches["jc_sweep_resident"],
+                 "max_abs_err": k2["max_abs_err"], "ms": k2["ms"], "plain_ms": k2["plain_ms"]},
+                px4 * 21, px4 * k2["sweeps"] * JC_OPS),
+        bounded({"name": "defocus_box", "route": "cuda",
+                 "source": "realtimedepthdiffusion_tpu_torch/csrc/defocus.cu",
+                 "replaces": f"{TPU_DEFOCUS}:234",
+                 "also_replaces": [f"{TPU_DEFOCUS}:126", f"{TPU_DEFOCUS}:49",
+                                   f"{TPU_DEFOCUS}:569"],
+                 "launches": launches["defocus_box"],
+                 "max_abs_err": max(k3_dci, *(v["max_abs_err"] for v in k3.values())),
+                 "ms": k3["exact"]["ms"], "plain_ms": k3["exact"]["plain_ms"],
+                 "halo_launches": step_launches["defocus_block"],
+                 "halo_max_abs_err": max(step_err, *(b["max_abs_err"] for b in b_k3.values())),
+                 "halo_ms": b_k3[(hb, wb)]["ms"], "halo_plain_ms": b_k3[(hb, wb)]["plain_ms"]},
+                px0 * 10, *k3_ops(px0, px0, True)),
+        bounded({"name": "rb_sweep_tiles", "route": "cuda",
+                 "source": "realtimedepthdiffusion_tpu_torch/csrc/rb_sweep.cu",
+                 "replaces": f"{TPU_SWEEP}:1327",
+                 "also_replaces": [f"{TPU_SWEEP}:1256", f"{TPU_SWEEP}:1491", f"{TPU_SWEEP}:1957"],
+                 "launches": fast_launches["rb_sweep_tiles"],
+                 "max_abs_err": max(k4_l0["max_abs_err"], k4_l1["max_abs_err"]),
+                 "ms": k4_l0["ms"], "plain_ms": k4_l0["plain_ms"],
+                 "halo_launches": fast_halo["rb_sweep_tiles"],
+                 "halo_max_abs_err": max(b["max_abs_err"] for b in b_k4.values()),
+                 "halo_ms": b_k4[1]["ms"], "halo_plain_ms": b_k4[1]["plain_ms"]},
+                px0 * 21, px0 * k4_l0["iterations"] * RB_OPS),
+        bounded({"name": "rb_sweep_resident", "route": "cuda",
+                 "source": "realtimedepthdiffusion_tpu_torch/csrc/rb_sweep.cu",
+                 "replaces": f"{TPU_SWEEP}:1209", "launches": fast_launches["rb_sweep_resident"],
+                 "max_abs_err": k5["max_abs_err"], "ms": k5["ms"], "plain_ms": k5["plain_ms"]},
+                px4 * 21, px4 * k5["iterations"] * RB_OPS),
+        bounded({"name": "jc_sweep_fused", "route": "cuda",
+                 "source": "realtimedepthdiffusion_tpu_torch/csrc/fused_sweep.cu",
+                 "replaces": f"{TPU_SWEEP}:394", "launches": launches4["jc_sweep_fused"],
+                 "max_abs_err": max(k6_l0["max_abs_err"], k6_l1["max_abs_err"]),
+                 "ms": k6_ms, "plain_ms": k6_l0["plain_ms"]},
+                px4k * 15, px4k * (k6_l0["sweeps"] * JC_OPS + K6_DERIVE_OPS)),
     ]
     print(f"frames: default {frame['ms']:.3f} ms (plain {frame['plain_ms']:.3f}), "
           f"fast {fast_frame['ms']:.3f} ms (plain {fast_frame['plain_ms']:.3f}), "
-          f"4K {frame4['ms']:.3f} ms (plain {frame4['plain_ms']:.3f}) "
-          f"on {smi.stdout.strip().splitlines()[0]}")
+          f"4K {frame4['ms']:.3f} ms (plain {frame4['plain_ms']:.3f}), "
+          f"sharded 1080p step of 4 {np.median(step_ms):.3f} ms on {card}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                               "count": torch.cuda.device_count()}}))

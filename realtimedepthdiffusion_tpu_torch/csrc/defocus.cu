@@ -6,6 +6,17 @@
 // uint8, equal bit for bit to core/effects.py:defocus_xla and to the plain
 // version ops/defocus.py:defocus_sat.
 //
+// The entry point defocus_block runs the same SAT and gather on one block
+// of a sharded image, in place of the TPU block kernel
+//   realtimedepthdiffusion_tpu/ops/pallas_defocus.py:defocus_block_pallas (:569).
+// Its input is the (3, hb + 2*ring, wb + 2*ring) channel-major block with a
+// ring of neighbour pixels (zeros past the image), its half-widths are given
+// (computed on the whole image), and its output is the (hb, wb, 3) interior.
+// The SAT is taken over the extended block and each pixel reads its four
+// corners there; the count clips the window against the whole image, at the
+// pixel's global position (oy + y, ox + x). A whole image is the case ring
+// 0, origin (0, 0) and full size (h, w), which is what defocus_box runs.
+//
 // Per pixel, half = min(trunc(k * max(d, 0) / 255) / 2, max_half), snapped
 // onto the approx candidate set when asked; the window is rows
 // [y-half, y+half-1] x cols [x-half, x+half-1] clipped to the image, and
@@ -52,18 +63,26 @@ __global__ void defocus_half_kernel(const float* __restrict__ depth,
   half[i] = (unsigned char)hv;
 }
 
-__global__ void sat_rows_kernel(const unsigned char* __restrict__ rgb,
-                                unsigned* __restrict__ sat, int h, int w) {
+// An 8-bit image with 3 channels, addressed by strides in bytes: (H, W, 3)
+// has (1, 3*W, 3), a channel-major (3, H, W) block (H*W, W, 1).
+struct U8Image {
+  const unsigned char* p;
+  long long cs, ys, xs;
+  __device__ __forceinline__ unsigned char at(int c, int y, int x) const {
+    return p[c * cs + y * ys + x * xs];
+  }
+};
+
+__global__ void sat_rows_kernel(U8Image img, unsigned* __restrict__ sat, int h, int w) {
   const int y = blockIdx.x;
   const int c = blockIdx.y;
   const int lane = threadIdx.x;
-  const unsigned char* row = rgb + (size_t)y * w * 3 + c;
   unsigned* srow = sat + ((size_t)c * (h + 1) + y + 1) * (w + 1);
   if (lane == 0) srow[0] = 0;
   unsigned carry = 0;
   for (int x0 = 0; x0 < w; x0 += 32) {
     const int x = x0 + lane;
-    unsigned v = x < w ? row[(size_t)x * 3] : 0u;
+    unsigned v = x < w ? img.at(c, y, x) : 0u;
     for (int o = 1; o < 32; o <<= 1) {
       const unsigned up = __shfl_up_sync(0xffffffffu, v, o);
       if (lane >= o) v += up;
@@ -87,29 +106,39 @@ __global__ void sat_cols_kernel(unsigned* __restrict__ sat, int h, int w) {
   }
 }
 
-__global__ void defocus_gather_kernel(const unsigned char* __restrict__ rgb,
-                                      const unsigned char* __restrict__ half,
+// Output pixel (y, x) of an hb x wb interior that sits at (ring, ring) in
+// the image the SAT was taken over, and at (oy, ox) in a full_h x full_w
+// image.
+__global__ void defocus_gather_kernel(U8Image img, const unsigned char* __restrict__ half,
                                       const unsigned* __restrict__ sat,
-                                      unsigned char* __restrict__ out, int h, int w) {
+                                      unsigned char* __restrict__ out, int hb, int wb,
+                                      int ring, int oy, int ox, int full_h, int full_w) {
   const int x = blockIdx.x * blockDim.x + threadIdx.x;
   const int y = blockIdx.y;
-  if (x >= w) return;
-  const size_t p = (size_t)y * w + x;
+  if (x >= wb) return;
+  const size_t p = (size_t)y * wb + x;
   const int hv = half[p];
+  const int ly = y + ring;
+  const int lx = x + ring;
   if (hv == 0) {
-    out[3 * p] = rgb[3 * p];
-    out[3 * p + 1] = rgb[3 * p + 1];
-    out[3 * p + 2] = rgb[3 * p + 2];
+    out[3 * p] = img.at(0, ly, lx);
+    out[3 * p + 1] = img.at(1, ly, lx);
+    out[3 * p + 2] = img.at(2, ly, lx);
     return;
   }
-  const int ya = max(y - hv, 0);
-  const int yb = min(y + hv, h);
-  const int xa = max(x - hv, 0);
-  const int xb = min(x + hv, w);
-  const float cnt = (float)((yb - ya) * (xb - xa));
-  const size_t plane = (size_t)(h + 1) * (w + 1);
-  const size_t ra = (size_t)ya * (w + 1);
-  const size_t rb = (size_t)yb * (w + 1);
+  const int he = hb + 2 * ring;
+  const int we = wb + 2 * ring;
+  const int ya = max(ly - hv, 0);
+  const int yb = min(ly + hv, he);
+  const int xa = max(lx - hv, 0);
+  const int xb = min(lx + hv, we);
+  const int gy = oy + y;
+  const int gx = ox + x;
+  const float cnt = (float)((min(gy + hv, full_h) - max(gy - hv, 0)) *
+                            (min(gx + hv, full_w) - max(gx - hv, 0)));
+  const size_t plane = (size_t)(he + 1) * (we + 1);
+  const size_t ra = (size_t)ya * (we + 1);
+  const size_t rb = (size_t)yb * (we + 1);
   for (int c = 0; c < 3; ++c) {
     const unsigned* S = sat + c * plane;
     const int box = (int)(S[rb + xb] - S[ra + xb] - S[rb + xa] + S[ra + xa]);
@@ -117,6 +146,23 @@ __global__ void defocus_gather_kernel(const unsigned char* __restrict__ rgb,
     // while box < 2^24 (any half up to 128).
     out[3 * p + c] = (unsigned char)(int)__fdiv_rn((float)box, cnt);
   }
+}
+
+// The SAT of the (hb + 2*ring) x (wb + 2*ring) image, then the gather of
+// its hb x wb interior.
+static int box_blur(U8Image img, const unsigned char* half, unsigned* sat,
+                    unsigned char* out, int hb, int wb, int ring, int oy, int ox,
+                    int full_h, int full_w, cudaStream_t s) {
+  const int he = hb + 2 * ring;
+  const int we = wb + 2 * ring;
+  cudaError_t err;
+  sat_rows_kernel<<<dim3(he, 3), 32, 0, s>>>(img, sat, he, we);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  sat_cols_kernel<<<dim3((we + 1 + 255) / 256, 3), 256, 0, s>>>(sat, he, we);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  defocus_gather_kernel<<<dim3((wb + 127) / 128, hb), 128, 0, s>>>(
+      img, half, sat, out, hb, wb, ring, oy, ox, full_h, full_w);
+  return (int)cudaGetLastError();
 }
 
 extern "C" int defocus_box(const unsigned char* rgb, const float* depth,
@@ -127,14 +173,19 @@ extern "C" int defocus_box(const unsigned char* rgb, const float* depth,
   const int n = h * w;
   const int t = approx ? exact_upto : 0;
   const int cmax = approx ? t + (max_half - t) / stride * stride : max_half;
-  cudaError_t err;
   defocus_half_kernel<<<(n + 255) / 256, 256, 0, s>>>(depth, half, n, k, max_half, approx,
                                                       t, stride, cmax);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  sat_rows_kernel<<<dim3(h, 3), 32, 0, s>>>(rgb, sat, h, w);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  sat_cols_kernel<<<dim3((w + 1 + 255) / 256, 3), 256, 0, s>>>(sat, h, w);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  defocus_gather_kernel<<<dim3((w + 127) / 128, h), 128, 0, s>>>(rgb, half, sat, out, h, w);
-  return (int)cudaGetLastError();
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const U8Image img = {rgb, 1, 3LL * w, 3};
+  return box_blur(img, half, sat, out, h, w, 0, 0, 0, h, w, s);
+}
+
+extern "C" int defocus_block(const unsigned char* chw_e, const unsigned char* half,
+                             unsigned* sat, unsigned char* out, int hb, int wb, int ring,
+                             int oy, int ox, int full_h, int full_w, void* stream) {
+  const long long we = wb + 2 * ring;
+  const U8Image img = {chw_e, (hb + 2LL * ring) * we, we, 1};
+  return box_blur(img, half, sat, out, hb, wb, ring, oy, ox, full_h, full_w,
+                  (cudaStream_t)stream);
 }

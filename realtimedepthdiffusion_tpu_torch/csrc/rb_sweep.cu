@@ -3,7 +3,10 @@
 // K4 rb_sweep_tiles replaces the TPU red-black strip kernels
 //   realtimedepthdiffusion_tpu/ops/pallas_sweep.py:_rb_strip_mega_kernel (:1327),
 //   the chunked _strip_rb_kernel (:1256) and the quadrant-compacted
-//   _rb_compact_mega_kernel (:1491), which all compute the same iterate.
+//   _rb_compact_mega_kernel (:1491), which all compute the same iterate,
+//   and, on a halo-extended block of the sharded step, the TPU halo-block
+//   kernel _halo_block_rb_kernel (:1957), which takes the checkerboard as a
+//   u8 plane where K4 takes one int, parity.
 // K5 rb_sweep_resident replaces the TPU resident red-black kernel
 //   realtimedepthdiffusion_tpu/ops/pallas_sweep.py:_resident_rb_kernel (:1209).
 //
@@ -15,9 +18,10 @@
 // float32 table of the red and the black half-sweep's omega per iteration
 // (core/solver.py:rb_omegas), in device memory; base indexes its rows.
 //
-// One iteration is two half-sweeps: every red pixel ((y + x) even in image
-// coordinates) from the current state, then every black pixel from the
-// half-updated state. A pixel of one colour reads only neighbours of the
+// One iteration is two half-sweeps: every red pixel ((y + x + parity) even
+// in image coordinates; parity is 0 for a whole image, and for a block of a
+// larger image the parity of its origin) from the current state, then
+// every black pixel from the half-updated state. A pixel of one colour reads only neighbours of the
 // other, so a half-sweep can update one buffer in place without a race;
 // a barrier separates the half-sweeps.
 //
@@ -59,7 +63,7 @@ rb_sweep_tiles_kernel(const float* __restrict__ u_in, float* __restrict__ u_out,
                       const float* __restrict__ inv,
                       const unsigned char* __restrict__ mask,
                       const float* __restrict__ om, int h, int w, int base,
-                      int n_active, int k, int tile_h, int tile_w) {
+                      int n_active, int k, int tile_h, int tile_w, int parity) {
   extern __shared__ float su[];
   const int ring = 2 * k;
   const int th = tile_h + 2 * ring;
@@ -90,9 +94,9 @@ rb_sweep_tiles_kernel(const float* __restrict__ u_in, float* __restrict__ u_out,
       const int ry = i / half;
       const int ly = lo + ry;
       const int gy = y0 + ly;
-      // The first column of this row whose global (gy + gx) has the
-      // colour's parity; & 1 reads the parity of negative sums right.
-      const int off = (colour ^ (gy + x0 + lo)) & 1;
+      // The first column of this row whose global (gy + gx + parity) has
+      // the colour's parity; & 1 reads the parity of negative sums right.
+      const int off = (colour ^ (gy + x0 + lo + parity)) & 1;
       const int lx = lo + off + 2 * (i - ry * half);
       if (lx >= lo + rw) continue;
       const int gx = x0 + lx;
@@ -182,13 +186,14 @@ extern "C" int rb_sweep_tiles(const float* u_in, float* u_out, const float* bh,
                               const float* bv, const float* inv,
                               const unsigned char* mask, const float* om, int h,
                               int w, int base, int n_active, int k, int tile_h,
-                              int tile_w, void* stream) {
+                              int tile_w, int parity, void* stream) {
   const size_t smem = sizeof(float) * (size_t)(tile_h + 4 * k) * (tile_w + 4 * k);
   int err = set_smem((const void*)rb_sweep_tiles_kernel, smem);
   if (err) return err;
   const dim3 grid((w + tile_w - 1) / tile_w, (h + tile_h - 1) / tile_h);
   rb_sweep_tiles_kernel<<<grid, RB_TILE_THREADS, smem, (cudaStream_t)stream>>>(
-      u_in, u_out, bh, bv, inv, mask, om, h, w, base, n_active, k, tile_h, tile_w);
+      u_in, u_out, bh, bv, inv, mask, om, h, w, base, n_active, k, tile_h, tile_w,
+      parity & 1);
   return (int)cudaGetLastError();
 }
 

@@ -1,12 +1,12 @@
 """The port's CUDA kernels, their plain versions, their build and routing."""
 
-from .defocus import defocus_box
+from .defocus import defocus_block, defocus_box
 from .fused_sweep import jc_sweep_fused
 from .rb_sweep import rb_sweep_resident, rb_sweep_tiles
 from .sweep import jc_sweep_resident, jc_sweep_tiles
 
 _KERNELS = (jc_sweep_tiles, jc_sweep_resident, defocus_box, rb_sweep_tiles,
-            rb_sweep_resident, jc_sweep_fused)
+            rb_sweep_resident, jc_sweep_fused, defocus_block)
 
 
 def launch_counts() -> dict:

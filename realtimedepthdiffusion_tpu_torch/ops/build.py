@@ -46,8 +46,8 @@ SIGNATURES = {
     # u (in/out), bh, bv, inv, mask, abc, h, w, iters, stream
     "jc_sweep_resident": (P, P, P, P, P, P, I, I, I, P),
     # u_in, u_out, bh, bv, inv, mask, om, h, w, base, n_active, k, tile_h,
-    # tile_w, stream
-    "rb_sweep_tiles": (P, P, P, P, P, P, P, I, I, I, I, I, I, I, P),
+    # tile_w, parity, stream
+    "rb_sweep_tiles": (P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, P),
     # u (in/out), bh, bv, inv, mask, om, h, w, base, n, stream
     "rb_sweep_resident": (P, P, P, P, P, P, I, I, I, I, P),
     # u_in, p_in, u_out, p_out, gray, mask, d8, abc, etab, h, w, base,
@@ -56,6 +56,9 @@ SIGNATURES = {
     # rgb, depth, half (out), sat (scratch), out, h, w, k, max_half,
     # approx, exact_upto, stride, stream
     "defocus_box": (P, P, P, P, P, I, I, I, I, I, I, I, P),
+    # chw_e, half, sat (scratch), out, hb, wb, ring, oy, ox, full_h, full_w,
+    # stream
+    "defocus_block": (P, P, P, P, I, I, I, I, I, I, I, P),
 }
 
 _lock = threading.Lock()

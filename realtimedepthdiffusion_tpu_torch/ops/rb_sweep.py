@@ -19,6 +19,11 @@ Counterpart of the red-black section of
 - ``chunks_plain`` / ``chunks_cuda`` run a level's iterations in chunks for
   the residual early exit (``core/solver.py:_chunked_early_exit``); on the
   card each chunk is one K5 launch or ceil(n/k) K4 launches.
+- ``halo_block_rb_sweeps`` runs the iterations between two halo exchanges
+  of the sharded step on one halo-extended block: one K4 launch whose
+  ``parity`` argument keeps the whole image's checkerboard, in place of the
+  TPU's ``_halo_block_rb_kernel`` and its u8 colour plane.
+  ``halo_block_rb_sweeps_plain`` is its plain version.
 
 Each kernel wrapper counts its launches in ``<wrapper>.launches``.
 """
@@ -29,7 +34,7 @@ import numpy as np
 import torch
 
 from . import build
-from .sweep import SMEM_PER_CTA, _check, _check_table, _stream, relax_plain
+from .sweep import SMEM_PER_CTA, _check, _check_table, _stream, left_up_weights, relax_plain
 
 # Iterations per K4 launch. One iteration is two half-sweeps, each of which
 # widens the dependency cone by a pixel, so a tile carries a ring of 2k.
@@ -42,11 +47,12 @@ RB_TILE_H, RB_TILE_W = 32, 64
 RB_RESIDENT_BYTES_PER_PX = 17
 
 
-def red_black_parity(h: int, w: int, device=None) -> torch.Tensor:
-    """Checkerboard mask: True at red cells ((y+x) even)."""
+def red_black_parity(h: int, w: int, device=None, parity: int = 0) -> torch.Tensor:
+    """Checkerboard mask: True at red cells ((y + x + parity) even). A block
+    of a larger image passes the parity of its origin there."""
     yy = torch.arange(h, device=device)[:, None]
     xx = torch.arange(w, device=device)[None, :]
-    return (yy + xx) % 2 == 0
+    return (yy + xx + parity) % 2 == 0
 
 
 def rb_iter_plain(u, wl, bh, wu, bv, inv, mask, red, om_r: float, om_b: float):
@@ -100,10 +106,10 @@ def _check_planes(h, w, bh, bv, inv, mask_u8, om_dev, base, n):
 
 
 def rb_sweep_tiles(u_in, u_out, bh, bv, inv, mask_u8, om_dev, base: int, n_active: int,
-                   k: int = RB_TILE_ITERS, tile=(RB_TILE_H, RB_TILE_W)) -> None:
+                   k: int = RB_TILE_ITERS, tile=(RB_TILE_H, RB_TILE_W), parity: int = 0) -> None:
     """K4: iterations base .. base+n_active-1 of the (iters, 2) device
     omega table ``om_dev``, reading ``u_in`` and writing ``u_out``, in
-    tiles of ``tile`` = (rows, cols)."""
+    tiles of ``tile`` = (rows, cols), with red at (y + x + parity) even."""
     h, w = u_in.shape
     _check("u_in", u_in, torch.float32, (h, w))
     _check("u_out", u_out, torch.float32, (h, w))
@@ -116,11 +122,13 @@ def rb_sweep_tiles(u_in, u_out, bh, bv, inv, mask_u8, om_dev, base: int, n_activ
     if min(tile) < 1 or (tile_h + 4 * k) * (tile_w + 4 * k) * 4 > SMEM_PER_CTA:
         raise ValueError(f"a {tile_h}x{tile_w} tile with k={k} does not fit shared memory")
     lib = build.load_library()
-    err = lib.rb_sweep_tiles(
-        u_in.data_ptr(), u_out.data_ptr(), bh.data_ptr(), bv.data_ptr(), inv.data_ptr(),
-        mask_u8.data_ptr(), om_dev.data_ptr(), h, w, base, n_active, k, tile_h, tile_w,
-        _stream(u_in),
-    )
+    # The launch goes to the current device: make it the tensors' one.
+    with torch.cuda.device(u_in.device):
+        err = lib.rb_sweep_tiles(
+            u_in.data_ptr(), u_out.data_ptr(), bh.data_ptr(), bv.data_ptr(), inv.data_ptr(),
+            mask_u8.data_ptr(), om_dev.data_ptr(), h, w, base, n_active, k, tile_h, tile_w,
+            parity, _stream(u_in),
+        )
     build.check("rb_sweep_tiles", err)
     rb_sweep_tiles.launches += 1
 
@@ -195,3 +203,33 @@ def solve_level_rb_cuda(depth: torch.Tensor, mask: torch.Tensor, wts, om: np.nda
         return depth.to(torch.float32).contiguous().clone()
     u, run, _ = chunks_cuda(depth, mask, wts, om, k)
     return run(u, 0, om.shape[0])
+
+
+def halo_block_rb_sweeps_plain(u_e, bh_e, bv_e, inv_e, m_e, parity: int, om):
+    """Plain version of ``halo_block_rb_sweeps``: ``rb_iter_plain`` once per
+    row of ``om``, on the block alone."""
+    wl, wu = left_up_weights(bh_e, bv_e)
+    mask = m_e.to(torch.bool)
+    red = red_black_parity(*u_e.shape, device=u_e.device, parity=parity)
+    u = u_e
+    for om_r, om_b in om.tolist():
+        u = rb_iter_plain(u, wl, bh_e, wu, bv_e, inv_e, mask, red, om_r, om_b)
+    return u
+
+
+def halo_block_rb_sweeps(u_e, bh_e, bv_e, inv_e, m_e, parity: int, om):
+    """The (n, 2) omegas ``om`` on one halo-extended (h, w) block of the
+    sharded step, red where (y + x + parity) is even in block coordinates:
+    parity is that of the block's global origin. Plain torch for CPU
+    tensors, one K4 launch with n_active = k = n for CUDA tensors. The
+    caller's halo is at least 2n wide (each iteration reads two rings) and
+    it crops them."""
+    if u_e.device.type == "cpu":
+        return halo_block_rb_sweeps_plain(u_e, bh_e, bv_e, inv_e, m_e, parity, om)
+    if not u_e.is_cuda:
+        raise ValueError(f"halo_block_rb_sweeps: unsupported device {u_e.device}")
+    n = om.shape[0]
+    u_out = torch.empty_like(u_e)
+    rb_sweep_tiles(u_e, u_out, bh_e, bv_e, inv_e, m_e.to(torch.uint8), om, 0,
+                   n, n, parity=parity)
+    return u_out

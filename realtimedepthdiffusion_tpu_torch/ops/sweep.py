@@ -18,6 +18,10 @@ Counterpart of ``realtimedepthdiffusion_tpu/ops/pallas_sweep.py``:
   (``core/solver.py:_chunked_early_exit``); they are the counterpart of
   ``solve_level_strips_early_exit``. As there, every level of the early
   exit goes through K1, since K2 keeps no ``prev`` between launches.
+- ``halo_block_sweeps`` runs the sweeps between two halo exchanges of the
+  sharded step (``parallel/sharded.py``) on one halo-extended block: one K1
+  launch over the block, in place of the TPU's ``_halo_block_kernel``.
+  ``halo_block_sweeps_plain`` is its plain version.
 
 Each kernel wrapper counts its launches in ``<wrapper>.launches``.
 """
@@ -67,6 +71,13 @@ def sweep_plain(u, prev, wl, bh, wu, bv, inv, mask, a, b, c):
     out = out + b * u
     out = out + c * prev
     return torch.where(mask, u, out), u
+
+
+def left_up_weights(bh, bv):
+    """(wl, wu) of a block from its pair weights: the weight toward the
+    left (upper) neighbour is the pair weight one pixel to the left (up),
+    and 0 in the first column (row), as the kernels read it."""
+    return F.pad(bh[..., :-1], (1, 0)), F.pad(bv[..., :-1, :], (0, 0, 1, 0))
 
 
 def _first(state):
@@ -135,11 +146,13 @@ def jc_sweep_tiles(u_in, p_in, u_out, p_out, bh, bv, inv, mask_u8, abc_dev,
             f"table of {abc_dev.shape[0]}"
         )
     lib = build.load_library()
-    err = lib.jc_sweep_tiles(
-        u_in.data_ptr(), p_in.data_ptr(), u_out.data_ptr(), p_out.data_ptr(),
-        bh.data_ptr(), bv.data_ptr(), inv.data_ptr(), mask_u8.data_ptr(),
-        abc_dev.data_ptr(), h, w, base, n_active, k, _stream(u_in),
-    )
+    # The launch goes to the current device: make it the tensors' one.
+    with torch.cuda.device(u_in.device):
+        err = lib.jc_sweep_tiles(
+            u_in.data_ptr(), p_in.data_ptr(), u_out.data_ptr(), p_out.data_ptr(),
+            bh.data_ptr(), bv.data_ptr(), inv.data_ptr(), mask_u8.data_ptr(),
+            abc_dev.data_ptr(), h, w, base, n_active, k, _stream(u_in),
+        )
     build.check("jc_sweep_tiles", err)
     jc_sweep_tiles.launches += 1
 
@@ -249,3 +262,33 @@ def chunks_cuda(depth: torch.Tensor, mask: torch.Tensor, wts, abc: np.ndarray,
         return _tiles_chunk(*state, *planes, abc_dev, base, n, k)
 
     return (u, torch.zeros_like(u)), run, _first
+
+
+def halo_block_sweeps_plain(u_e, p_e, bh_e, bv_e, inv_e, m_e, abc):
+    """Plain version of ``halo_block_sweeps``: ``sweep_plain`` once per row
+    of ``abc``, on the block alone."""
+    wl, wu = left_up_weights(bh_e, bv_e)
+    mask = m_e.to(torch.bool)
+    u, prev = u_e, p_e
+    for a, b, c in abc.tolist():
+        u, prev = sweep_plain(u, prev, wl, bh_e, wu, bv_e, inv_e, mask, a, b, c)
+    return u, prev
+
+
+def halo_block_sweeps(u_e, p_e, bh_e, bv_e, inv_e, m_e, abc):
+    """The (n, 3) schedule ``abc`` on one halo-extended (h, w) block of the
+    sharded step; returns (u, prev). Plain torch for CPU tensors, one K1
+    launch with n_active = k = n for CUDA tensors.
+
+    K1 reads zeros past the block where the TPU kernel's rolls wrap around;
+    either way only the outer n rings are wrong, and the caller, whose halo
+    is at least n wide, crops them."""
+    if u_e.device.type == "cpu":
+        return halo_block_sweeps_plain(u_e, p_e, bh_e, bv_e, inv_e, m_e, abc)
+    if not u_e.is_cuda:
+        raise ValueError(f"halo_block_sweeps: unsupported device {u_e.device}")
+    n = abc.shape[0]
+    u_out, p_out = torch.empty_like(u_e), torch.empty_like(u_e)
+    jc_sweep_tiles(u_e, p_e, u_out, p_out, bh_e, bv_e, inv_e, m_e.to(torch.uint8),
+                   abc, 0, n, n)
+    return u_out, p_out

@@ -1,0 +1,449 @@
+"""The spatially sharded multi-device step (port of ``realtimedepthdiffusion_tpu/parallel/sharded.py``).
+
+Each image is cut into a dy x dx grid of blocks, one per slot of a
+``SlotMesh`` (``parallel/mesh.py``). Every k sweeps the slots exchange a
+k-wide halo (``parallel/halo.py``) and run k sweeps on their extended
+blocks: one K1 launch per block for Jacobi-Chebyshev, one K4 launch with
+the block's checkerboard parity for red-black (2k-wide halo, since an
+iteration reads two rings), and one K3 launch per block for the defocus,
+behind a ring of max_half + 1. The 'batch' axis splits a batch of images
+over the slots; each slot runs its share image by image. Levels whose
+blocks would be thinner than the exchange run replicated, through the
+single-device ``core/solver.py:solve_level`` per image, on the home device.
+
+One process drives every slot, as one JAX program drives its mesh; the
+residual early exit is a host loop that reduces the slots' partial sums to
+one number per chunk, so every slot stops at the same iteration. The
+kernels and the plain versions compute the same bits as the single-device
+path, so a sharded level equals the single-device level exactly; only the
+early exit's residual is summed in another order.
+"""
+
+from __future__ import annotations
+
+import collections
+import math
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from ..config import DiffusionConfig
+from ..core import effects as fx
+from ..core.annotation import annotation_pyr_down, seed_depth
+from ..core.color import rgb_to_gray
+from ..core.multigrid import build_gray_pyramid, initial_depth_state
+from ..core.pyramid import pyr_up
+from ..core.solver import abc_schedule, rb_omegas, residual_metric_fn, solve_level
+from ..core.weights import edge_weights
+from ..ops.defocus import block_ring, defocus_block, defocus_block_sat, defocus_half_widths
+from ..ops.dispatch import check_supported
+from ..ops.rb_sweep import halo_block_rb_sweeps, halo_block_rb_sweeps_plain
+from ..ops.sweep import halo_block_sweeps, halo_block_sweeps_plain, left_up_weights, relax_plain
+from .halo import extend_with_halo
+from .mesh import SlotMesh
+
+# Halo width == sweeps between exchanges.
+DEFAULT_HALO = 8
+
+_SHARDED_SOLVERS = ("jacobi_chebyshev", "red_black")
+
+# Blocks run by each route since the last reset (one per block and image):
+# what shows, on the CPU, that the step went through the block functions.
+block_calls = collections.Counter()
+
+# The functions a sharded step runs on its blocks (and, for the defocus, on
+# whole images whose blocks are thinner than the ring): the kernels, which
+# take their plain versions on CPU tensors, or the plain versions on every
+# device, which ``batched_step(plain=True)`` runs to hold the kernels to them.
+_Blocks = collections.namedtuple("_Blocks", "plain jc rb defocus whole_defocus")
+_KERNELS = _Blocks(False, halo_block_sweeps, halo_block_rb_sweeps, defocus_block, fx.defocus)
+_PLAIN = _Blocks(True, halo_block_sweeps_plain, halo_block_rb_sweeps_plain, defocus_block_sat,
+                 fx.defocus_sat)
+
+
+def _pad_up(n: int, m: int) -> int:
+    return (n + m - 1) // m * m
+
+
+def _check_solver(cfg: DiffusionConfig) -> None:
+    check_supported(cfg)
+    if cfg.solver not in _SHARDED_SOLVERS:
+        raise NotImplementedError(
+            f"multi-chip path implements solvers {_SHARDED_SOLVERS}, got "
+            f"{cfg.solver!r}; use the single-chip pipeline for 'jacobi'"
+        )
+
+
+def _foreach_image(batched: bool, fn, *arrays):
+    """``fn`` over the leading image axis of batched arrays, stacked (a
+    tuple of stacks where ``fn`` returns a tuple); ``fn`` itself otherwise."""
+    if not batched:
+        return fn(*arrays)
+    outs = [fn(*parts) for parts in zip(*arrays)]
+    if isinstance(outs[0], tuple):
+        return tuple(torch.stack(p) for p in zip(*outs))
+    return torch.stack(outs)
+
+
+def exchange_width(solver: str, halo: int = DEFAULT_HALO) -> int:
+    """The halo a level's blocks exchange: k for Jacobi-Chebyshev, 2k for
+    red-black, whose iteration spoils two rings."""
+    return 2 * halo if solver == "red_black" else halo
+
+
+def level_is_sharded(mesh: SlotMesh, h: int, w: int, solver: str,
+                     halo: int = DEFAULT_HALO) -> bool:
+    """Whether an (h, w) level runs sharded: the mesh splits the image, and
+    every block is at least as tall and as wide as the exchange. (JAX asks
+    for ``halo`` on both solvers; a red-black block thinner than 2k cannot
+    take its exchange there either.)"""
+    dy, dx = mesh.shape["dy"], mesh.shape["dx"]
+    width = exchange_width(solver, halo)
+    return dy * dx > 1 and h // dy >= width and w // dx >= width
+
+
+def _residual_reduce(mesh: SlotMesh, d, m, cfg: DiffusionConfig) -> float:
+    """The one residual every slot agrees on, from each slot's per-pixel
+    |relax(u) - u| blocks ``d`` and its mask blocks ``m`` ((n, h, w) each),
+    read back to the host. max: the largest off-mask value over all slots.
+    rms: each image's sum of squares and off-mask count added over its
+    slots, then the largest per-image rms (the exit waits for every image
+    of the batch)."""
+    home = mesh.home
+    if cfg.residual_metric == "max":
+        per_slot = [torch.where(m[s], 0.0, d[s]).amax().to(home) for s in mesh.slots]
+        return torch.stack(per_slot).max().item()
+    sq, cnt = {}, {}
+    for s in mesh.slots:
+        sq[s] = torch.where(m[s], 0.0, d[s] * d[s]).sum(dim=(-2, -1)).to(home)
+        cnt[s] = torch.where(m[s], 0.0, 1.0).sum(dim=(-2, -1)).to(home)
+    rows = [[s for s in mesh.slots if s[0] == p] for p in range(mesh.shape["batch"])]
+    sq_img = torch.stack([torch.stack([sq[s] for s in row]).sum(0) for row in rows])
+    cnt_img = torch.stack([torch.stack([cnt[s] for s in row]).sum(0) for row in rows])
+    return torch.sqrt(sq_img / torch.clamp(cnt_img, min=1.0)).max().item()
+
+
+class _ShardedLevel:
+    """One level's padded planes scattered over the mesh and extended once
+    by the exchange width, the probe of the early exit, and the host loop
+    that runs chunks of iterations until the probe or the budget says stop.
+    The solvers below supply ``state``, ``run`` and ``u_of``."""
+
+    def __init__(self, mesh, u, planes, m, width, plain):
+        self.mesh, self.width, self.plain = mesh, width, plain
+        self.hb, self.wb = u.shape[-2] // mesh.shape["dy"], u.shape[-1] // mesh.shape["dx"]
+        self.m = {s: b.to(torch.bool) for s, b in mesh.scatter(m).items()}
+        self.bh_e, self.bv_e, self.inv_e, self.m_e = (
+            self.ext(mesh.scatter(p)) for p in (*planes, m))
+        self.u0 = mesh.scatter(u)
+        # The planes extended by one ring, for the probe.
+        c = width - 1
+        ring1 = (lambda a: a[..., c:-c, c:-c]) if c else (lambda a: a)  # noqa: E731
+        self.probe_planes = {
+            s: (*left_up_weights(ring1(self.bh_e[s]), ring1(self.bv_e[s])), ring1(self.bh_e[s]),
+                ring1(self.bv_e[s]), ring1(self.inv_e[s]))
+            for s in mesh.slots}
+
+    def ext(self, blocks, k=None):
+        return extend_with_halo(self.mesh, blocks, k or self.width)
+
+    def tables(self, table: np.ndarray):
+        """``table`` on each slot's device (on the CPU for the plain runs)."""
+        host = torch.from_numpy(np.ascontiguousarray(table, np.float32))
+        if self.plain:
+            return {s: host for s in self.mesh.slots}
+        on = {d: host.to(d) for d in set(self.mesh.devices.values())}
+        return {s: on[d] for s, d in self.mesh.devices.items()}
+
+    def residual(self, us, cfg) -> float:
+        u1 = self.ext(us, 1)
+        d = {}
+        for s in self.mesh.slots:
+            wl, wu, bh, bv, inv = self.probe_planes[s]
+            d[s] = torch.stack([
+                (relax_plain(u1[s][n], wl[n], bh[n], wu[n], bv[n], inv[n])[1:-1, 1:-1]
+                 - us[s][n]).abs()
+                for n in range(us[s].shape[0])])
+        return _residual_reduce(self.mesh, d, self.m, cfg)
+
+    def solve(self, state, run, u_of, iters, cfg, exit_log, shape):
+        """Fixed count, or the early exit under JAX's contract: full chunks
+        while they fit the budget and the last probe is >= tolerance*255,
+        then the truncated tail if the probe still says go. Returns (state,
+        iters_done, last probe); iters_done is ``iters`` when the tail ran."""
+        if not cfg.early_exit:
+            return run(state, 0, iters), iters, math.inf
+        tol = float(np.float32(cfg.tolerance) * np.float32(255.0))
+        chunk = max(int(cfg.residual_check_every), 1)
+        i, res, probes = 0, math.inf, []
+        while i + chunk <= iters and res >= tol:
+            state = run(state, i, chunk)
+            i += chunk
+            res = self.residual(u_of(state), cfg)
+            probes.append(res)
+        if res >= tol and i < iters:
+            state = run(state, i, iters - i)
+            i = iters
+        if exit_log is not None:
+            exit_log.append({"shape": shape, "iters": i, "probes": probes, "tol": tol})
+        return state, i, res
+
+    def blocks_of(self, k, fn, *blocks):
+        """``fn(slot, *image_blocks)`` on every image of every slot's
+        extended blocks, each result cropped by k and stacked back per slot;
+        a tuple of such dicts where ``fn`` returns a tuple."""
+        res = {s: [fn(s, *(b[s][n] for b in blocks)) for n in range(blocks[0][s].shape[0])]
+               for s in self.mesh.slots}
+        crop = lambda r: r[k:-k, k:-k]  # noqa: E731
+        if isinstance(res[self.mesh.home_slot][0], tuple):
+            parts = range(len(res[self.mesh.home_slot][0]))
+            return tuple({s: torch.stack([crop(r[t]) for r in rs]) for s, rs in res.items()}
+                         for t in parts)
+        return {s: torch.stack([crop(r) for r in rs]) for s, rs in res.items()}
+
+
+def _jc_level(mesh, u, planes, m, iters, cfg, k, blocks, exit_log, shape):
+    lv = _ShardedLevel(mesh, u, planes, m, k, blocks.plain)
+    tables = lv.tables(abc_schedule(iters, cfg))
+
+    def exchange(state, base, n):
+        """One halo exchange of (u, prev), then n <= k sweeps per block."""
+        u_e, p_e = lv.ext(state[0]), lv.ext(state[1])
+        block_calls["jacobi_chebyshev"] += sum(b.shape[0] for b in u_e.values())
+        return lv.blocks_of(k, lambda s, *b: blocks.jc(*b, tables[s][base:base + n]),
+                            u_e, p_e, lv.bh_e, lv.bv_e, lv.inv_e, lv.m_e)
+
+    def run(state, base, n):
+        for b0 in range(base, base + n, k):
+            state = exchange(state, b0, min(k, base + n - b0))
+        return state
+
+    state = (lv.u0, {s: torch.zeros_like(b) for s, b in lv.u0.items()})
+    state, done, res = lv.solve(state, run, lambda st: st[0], iters, cfg, exit_log, shape)
+    return state[0], done, res
+
+
+def _rb_level(mesh, u, planes, m, iters, cfg, k, blocks, exit_log, shape):
+    ew = exchange_width("red_black", k)
+    lv = _ShardedLevel(mesh, u, planes, m, ew, blocks.plain)
+    tables = lv.tables(rb_omegas(iters, cfg))
+    # The checkerboard parity of each block's global origin; the extended
+    # block's origin is ew rows up and ew columns left, which keeps it.
+    parity = {(p, i, j): (i * lv.hb + j * lv.wb) & 1 for p, i, j in mesh.slots}
+
+    def exchange(us, base, n):
+        """One 2k-halo exchange, then n <= k iterations per block."""
+        u_e = lv.ext(us)
+        block_calls["red_black"] += sum(b.shape[0] for b in u_e.values())
+        return lv.blocks_of(ew, lambda s, ue, bh, bv, inv, me: blocks.rb(
+            ue, bh, bv, inv, me, parity[s], tables[s][base:base + n]),
+            u_e, lv.bh_e, lv.bv_e, lv.inv_e, lv.m_e)
+
+    def run(us, base, n):
+        for b0 in range(base, base + n, k):
+            us = exchange(us, b0, min(k, base + n - b0))
+        return us
+
+    return lv.solve(lv.u0, run, lambda us: us, iters, cfg, exit_log, shape)
+
+
+def solve_level_sharded(depth, mask, gray, level: int, max_level: int, iters: int,
+                        mesh: SlotMesh, cfg: DiffusionConfig = DiffusionConfig(),
+                        halo: int = DEFAULT_HALO, return_info: bool = False, *,
+                        exit_log=None):
+    """The sharded ``core/solver.py:solve_level``: weights from the incoming
+    depth, globally; pad to the mesh grid (pad pixels are scribbled at 0 and
+    carry zero weights); iterate on the slots with halo exchanges; gather
+    and crop. Takes (H, W) arrays, which run on the mesh's batch row 0 (JAX
+    replicates them over the batch axis, to the same result), or (B, H, W)
+    batches, whose B divides by the batch axis.
+
+    ``return_info=True`` returns ``(out, iters_done, residual)``:
+    ``iters_done < iters`` exactly when the early exit fired, ``iters_done
+    == iters`` when the whole budget ran (the truncated tail included), and
+    ``residual`` is the last full chunk's probe (+inf with no probe). Under
+    the early exit, a list given as ``exit_log`` receives the level's
+    iterations and probes."""
+    return _level_sharded(depth, mask, gray, level, max_level, iters, mesh, cfg, halo,
+                          return_info, _KERNELS, exit_log)
+
+
+def _level_sharded(depth, mask, gray, level, max_level, iters, mesh, cfg, halo, return_info,
+                   blocks, exit_log):
+    _check_solver(cfg)
+    residual_metric_fn(cfg)  # refuse an unknown metric before any work
+    batched = depth.dim() == 3
+    if not batched:
+        depth, mask, gray = depth[None], mask[None], gray[None]
+        mesh = mesh.batch_row(0)
+    h, w = depth.shape[-2:]
+    if iters <= 0:
+        out = depth.to(torch.float32)
+        out = out if batched else out[0]
+        return (out, 0, math.inf) if return_info else out
+    dy, dx = mesh.shape["dy"], mesh.shape["dx"]
+    wts = [edge_weights(g, d, level, max_level, cfg) for g, d in zip(gray, depth)]
+    pad = (0, _pad_up(w, dx) - w, 0, _pad_up(h, dy) - h)
+    u = F.pad(depth.to(torch.float32), pad)
+    m = F.pad(mask.to(torch.uint8), pad, value=1)
+    # The packed symmetric planes: bh = the pair weight (x, x+1) = wr, bv = wd.
+    planes = [F.pad(torch.stack([getattr(wt, name) for wt in wts]), pad)
+              for name in ("wr", "wd", "inv_count")]
+    run = _rb_level if cfg.solver == "red_black" else _jc_level
+    us, done, res = run(mesh, u, planes, m, iters, cfg, halo, blocks, exit_log, (h, w))
+    out = mesh.gather(us)[..., :h, :w]
+    out = out if batched else out[0]
+    return (out, done, res) if return_info else out
+
+
+def solve_cascade_sharded(gray_pyr, mask0, value0, depth_state, mesh: SlotMesh,
+                          cfg: DiffusionConfig = DiffusionConfig(), halo: int = DEFAULT_HALO,
+                          *, exit_log=None):
+    """The coarse-to-fine solve with a shard-or-replicate choice per level
+    (``level_is_sharded``); single images or batches (a leading axis).
+    Replicated levels run ``solve_level`` per image on the home device, so
+    on a card they take K1, K2 or K6 as a single image would."""
+    return _cascade_sharded(gray_pyr, mask0, value0, depth_state, mesh, cfg, halo, _KERNELS,
+                            exit_log)
+
+
+def _cascade_sharded(gray_pyr, mask0, value0, depth_state, mesh, cfg, halo, blocks, exit_log):
+    if cfg.solver not in _SHARDED_SOLVERS or cfg.multigrid != "cascadic":
+        raise NotImplementedError(
+            f"solve_cascade_sharded implements solvers {_SHARDED_SOLVERS} "
+            f"with multigrid='cascadic', got ({cfg.solver!r}, "
+            f"{cfg.multigrid!r}); the V-cycle is not ported yet (ROADMAP A9), "
+            f"and 'jacobi' runs on the single-chip pipeline"
+        )
+    batched = mask0.dim() == 3
+    levels = len(gray_pyr)
+    L = levels - 1
+    sizes = [tuple(g.shape[-2:]) for g in gray_pyr]
+    masks, values = [mask0], [value0]
+    for lv in range(1, levels):
+        m, v = _foreach_image(batched, lambda mi, vi: annotation_pyr_down(mi, vi, sizes[lv]),
+                              masks[-1], values[-1])
+        masks.append(m)
+        values.append(v)
+
+    state = list(depth_state)
+    state[L] = seed_depth(state[L], masks[L], values[L])
+    for level in range(L, -1, -1):
+        iters = cfg.level_iterations(levels, level)
+        if level_is_sharded(mesh, *sizes[level], cfg.solver, halo):
+            state[level] = _level_sharded(
+                state[level], masks[level], gray_pyr[level], level, L, iters, mesh, cfg, halo,
+                False, blocks, exit_log)
+        elif blocks.plain:
+            raise ValueError(f"plain=True holds only sharded levels, and the {sizes[level]} level "
+                             f"runs replicated on mesh {mesh.shape}, on the kernels")
+        else:
+            state[level] = _foreach_image(
+                batched, lambda d, m, g: solve_level(d, m, g, level, L, iters, cfg, exit_log),
+                state[level], masks[level], gray_pyr[level])
+        if level > 0:
+            up = _foreach_image(batched, lambda d: pyr_up(d, sizes[level - 1]), state[level])
+            state[level - 1] = seed_depth(up, masks[level - 1], values[level - 1])
+    return state[0], tuple(state)
+
+
+def solve_vcycle_sharded(*args, **kwargs):
+    """The sharded V-cycle is not ported: the V-cycle itself is ROADMAP A9."""
+    raise NotImplementedError("the V-cycle is not ported yet (ROADMAP A9); "
+                              "the sharded step runs multigrid='cascadic'")
+
+
+def sharded_defocus(mesh: SlotMesh, full_h: int, full_w: int,
+                    cfg: DiffusionConfig = DiffusionConfig()):
+    """The sharded defocus: the rgb blocks exchange a ring of max_half + 1
+    (all a window can reach), then each block runs K3 with its global origin
+    and the whole image's size, so the count clips as on the whole image.
+    The half-widths come from the whole image's depth, before the split;
+    depth needs no exchange. Blocks thinner than the ring run K3 on each
+    whole image instead, JAX's route for them.
+
+    Returns apply(rgb (B, H, W, 3) uint8, depth (B, H, W) float32, clipped)
+    -> (B, H, W, 3) uint8."""
+    return _defocus_sharded(mesh, full_h, full_w, cfg, _KERNELS)
+
+
+def _defocus_sharded(mesh, full_h, full_w, cfg, blocks):
+    ew = block_ring(full_h, full_w, cfg)
+    dy, dx = mesh.shape["dy"], mesh.shape["dx"]
+
+    def apply(rgb, depth):
+        b, h, w = depth.shape
+        hp, wp = _pad_up(h, dy), _pad_up(w, dx)
+        if hp // dy < ew or wp // dx < ew:
+            return torch.stack([blocks.whole_defocus(r, d, cfg) for r, d in zip(rgb, depth)])
+        half = defocus_half_widths(depth, full_h, full_w, cfg)
+        pad = (0, wp - w, 0, hp - h)
+        chw_e = extend_with_halo(mesh, mesh.scatter(F.pad(rgb[..., :3].permute(0, 3, 1, 2), pad)),
+                                 ew)
+        halves = mesh.scatter(F.pad(half, pad))
+        hb, wb = hp // dy, wp // dx
+        out = {}
+        for s, c in chw_e.items():
+            _, i, j = s
+            block_calls["defocus"] += c.shape[0]
+            out[s] = torch.stack([blocks.defocus(c[n], halves[s][n], i * hb, j * wb, full_h,
+                                                 full_w, cfg) for n in range(c.shape[0])])
+        return mesh.gather(out, y_axis=-3)[:, :h, :w]
+
+    return apply
+
+
+def batched_step(mesh: SlotMesh, rows: int, cols: int, cfg: DiffusionConfig = DiffusionConfig(),
+                 effect: int = fx.EFFECT_HAZE, halo: int = DEFAULT_HALO, *, plain: bool = False):
+    """The full multi-device step: data parallel over a batch of images (the
+    'batch' axis), each image sharded over ('dy', 'dx').
+
+    Returns (fn, make_example_args): fn(rgb (B, H, W, 3) uint8, mask, value
+    (B, H, W), depth_state (a (B, h_l, w_l) tensor per level), exit_log=None)
+    -> (depth (B, H, W), new_state, effect (B, H, W, 3) uint8), with B a
+    multiple of the batch axis. The glue (gray pyramid, annotation
+    pyramids, pyrUp, the pointwise effects) runs per image on the home
+    device; the defocus runs sharded. ``plain=True`` runs the blocks' plain
+    versions even on a card, to hold the kernels to them; it raises where a
+    level would run replicated, which only the kernels' routes solve."""
+    _check_solver(cfg)
+    blocks = _PLAIN if plain else _KERNELS
+    if effect == fx.EFFECT_DEFOCUS:
+        defocus_apply = _defocus_sharded(mesh, rows, cols, cfg, blocks)
+        render = lambda rgb, gray0, depth0: defocus_apply(rgb, depth0)  # noqa: E731
+    else:
+        render = lambda rgb, gray0, depth0: torch.stack([  # noqa: E731
+            fx.apply_effect(effect, r, g, d, cfg) for r, g, d in zip(rgb, gray0, depth0)])
+
+    def step(rgb, mask, value, depth_state, exit_log=None):
+        b = rgb.shape[0]
+        if tuple(rgb.shape[1:3]) != (rows, cols):
+            raise ValueError(f"batched_step for {rows}x{cols} got images {tuple(rgb.shape)}")
+        if b % mesh.shape["batch"]:
+            raise ValueError(f"a batch of {b} does not split over the mesh's batch axis "
+                             f"of {mesh.shape['batch']}")
+        gray0 = rgb_to_gray(rgb)
+        gpyr = tuple(torch.stack(lv) for lv in zip(*(build_gray_pyramid(g, cfg) for g in gray0)))
+        depth0, new_state = _cascade_sharded(gpyr, mask, value, depth_state, mesh, cfg, halo,
+                                             blocks, exit_log)
+        out = render(rgb, gray0, torch.clamp(depth0, 0.0, 255.0))
+        return depth0, new_state, out
+
+    def make_example_args(batch: int | None = None):
+        """JAX's example inputs, on the home device: a seeded random image
+        and two scribbles per image."""
+        b = batch or mesh.shape["batch"]
+        rng = np.random.default_rng(0)
+        rgb = rng.integers(0, 256, (b, rows, cols, 3), dtype=np.uint8)
+        mask = np.zeros((b, rows, cols), bool)
+        value = np.zeros((b, rows, cols), np.uint8)
+        mask[:, rows // 4, cols // 4] = True
+        value[:, rows // 4, cols // 4] = 254
+        mask[:, 3 * rows // 4, 3 * cols // 4] = True
+        home = mesh.home
+        state = tuple(torch.stack([s] * b) for s in initial_depth_state(rows, cols, cfg, home))
+        return (torch.from_numpy(rgb).to(home), torch.from_numpy(mask).to(home),
+                torch.from_numpy(value).to(home), state)
+
+    return step, make_example_args

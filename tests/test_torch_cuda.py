@@ -176,7 +176,8 @@ def test_wrappers_reject_bad_arguments(dev):
     ops.reset_launch_counts()
     assert ops.launch_counts() == {"jc_sweep_tiles": 0, "jc_sweep_resident": 0,
                                    "defocus_box": 0, "rb_sweep_tiles": 0,
-                                   "rb_sweep_resident": 0, "jc_sweep_fused": 0}
+                                   "rb_sweep_resident": 0, "jc_sweep_fused": 0,
+                                   "defocus_block": 0}
 
 
 def _fused_case(dev, h, w, seed):
@@ -277,3 +278,133 @@ def test_fused_wrapper_rejects_bad_arguments(dev):
         fused_sweep.jc_sweep_fused(f, f, f, f, m, m, m, abc, etab, 2, 4, 0, True)
     with pytest.raises(ValueError, match="shared memory"):
         fused_sweep.jc_sweep_fused(f, f, f, f, m, m, m, abc, etab, 0, 1, 0, True, k=40)
+
+
+# -- the sharded step's block routes (K1, K4 with parity, K3 with an origin) --
+
+
+def _halo_block(dev, h, w, seed):
+    depth, mask, wts, _ = _level(dev, h, w, 1, seed=seed)
+    prev = torch.from_numpy(np.random.default_rng(seed).random((h, w)).astype(np.float32) * 255)
+    return depth, prev.to(dev), wts.wr.contiguous(), wts.wd.contiguous(), wts.inv_count, mask
+
+
+@pytest.mark.parametrize("h,w", [(37, 53), (100, 203)])
+@pytest.mark.parametrize("k", [1, 3, 8])
+def test_halo_block_sweeps_kernel_equals_plain(dev, h, w, k):
+    """One K1 launch over the whole block, zeros past it, as the plain version."""
+    u, p, bh, bv, inv, m = _halo_block(dev, h, w, seed=h + k)
+    abc = abc_schedule(k + 5, DiffusionConfig())[5:]
+    before = sweep.jc_sweep_tiles.launches
+    got = sweep.halo_block_sweeps(u, p, bh, bv, inv, m, torch.from_numpy(abc).to(dev))
+    want = sweep.halo_block_sweeps_plain(u, p, bh, bv, inv, m, abc)
+    torch.cuda.synchronize()
+    assert sweep.jc_sweep_tiles.launches == before + 1
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("h,w", [(37, 53), (100, 203)])
+@pytest.mark.parametrize("k", [1, 3, 8])
+@pytest.mark.parametrize("parity", [0, 1])
+def test_halo_block_rb_kernel_equals_plain(dev, h, w, k, parity):
+    u, _, bh, bv, inv, m = _halo_block(dev, h, w, seed=h + k + parity)
+    om = rb_omegas(k + 5, DiffusionConfig())[5:]
+    before = rb_sweep.rb_sweep_tiles.launches
+    got = rb_sweep.halo_block_rb_sweeps(u, bh, bv, inv, m, parity, torch.from_numpy(om).to(dev))
+    want = rb_sweep.halo_block_rb_sweeps_plain(u, bh, bv, inv, m, parity, om)
+    torch.cuda.synchronize()
+    assert rb_sweep.rb_sweep_tiles.launches == before + 1
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("hb,wb", [(37, 53), (100, 203)])
+@pytest.mark.parametrize("aperture", [0.025, 0.1])
+@pytest.mark.parametrize("at", [(0, 0), (1, 1), (2, 0)])
+def test_defocus_block_kernel_equals_plain(dev, hb, wb, aperture, at):
+    """K3 on a block at an odd origin inside a 3hb x 2wb image, or on its
+    border, with any ring content, against the plain version."""
+    r = np.random.default_rng(hb + int(aperture * 1000) + at[0])
+    full_h, full_w = 3 * hb, 2 * wb
+    oy, ox = at[0] * hb, at[1] * wb
+    cfg = DiffusionConfig(defocus_aperture=aperture)
+    ew = defocus.block_ring(full_h, full_w, cfg)
+    chw_e = torch.from_numpy(r.integers(0, 256, (3, hb + 2 * ew, wb + 2 * ew), dtype=np.uint8))
+    half = torch.from_numpy(r.integers(0, ew, (hb, wb), dtype=np.uint8))
+    before = defocus.defocus_block.launches
+    got = defocus.defocus_block(chw_e.to(dev), half.to(dev), oy, ox, full_h, full_w, cfg)
+    want = defocus.defocus_block_sat(chw_e, half, oy, ox, full_h, full_w, cfg)
+    torch.cuda.synchronize()
+    assert defocus.defocus_block.launches == before + 1
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("h,w", [(37, 53), (100, 203)])
+def test_defocus_whole_image_unchanged(dev, h, w):
+    """Single-image K3 equals its plain version and the block route run on
+    the whole image as one block behind a zero ring."""
+    r = np.random.default_rng(h)
+    rgb = torch.from_numpy(r.integers(0, 256, (h, w, 3), dtype=np.uint8)).to(dev)
+    depth = torch.from_numpy((r.random((h, w)) * 300 - 20).astype(np.float32)).to(dev)
+    cfg = DiffusionConfig(defocus_aperture=0.1)
+    got = defocus.defocus_box(rgb, depth, cfg)
+    ew = defocus.block_ring(h, w, cfg)
+    chw_e = torch.nn.functional.pad(rgb.permute(2, 0, 1), (ew, ew, ew, ew)).contiguous()
+    block = defocus.defocus_block(chw_e, defocus.defocus_half_widths(depth, h, w, cfg), 0, 0, h, w,
+                                  cfg)
+    torch.cuda.synchronize()
+    assert torch.equal(got, defocus.defocus_sat(rgb, depth, cfg)) and torch.equal(block, got)
+
+
+def test_sharded_step_on_card_equals_plain_and_single_device(dev):
+    """A 64x96 step on 8 slots of one card: the kernels' run equals the plain
+    blocks' run and the single-device pipeline per image."""
+    from realtimedepthdiffusion_tpu_torch import DepthPipeline
+    from realtimedepthdiffusion_tpu_torch.core import effects as fx
+    from realtimedepthdiffusion_tpu_torch.parallel import mesh, sharded
+
+    cfg = DiffusionConfig(max_iterations=40)
+    m = mesh.make_mesh(8, device="cuda")
+    fn, make_args = sharded.batched_step(m, 64, 96, cfg, fx.EFFECT_DEFOCUS)
+    args = make_args(2)
+    ops.reset_launch_counts()
+    depth, _, out = fn(*args)
+    counts = ops.launch_counts()
+    assert counts["jc_sweep_tiles"] == 5 * 8 and counts["defocus_block"] == 8
+    plain_fn, _ = sharded.batched_step(m, 64, 96, cfg, fx.EFFECT_DEFOCUS, plain=True)
+    p_depth, _, p_out = plain_fn(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(depth, p_depth) and torch.equal(out, p_out)
+    rgb, mask, value, state = args
+    pipe = DepthPipeline(64, 96, cfg, device="cuda")
+    for i in range(2):
+        rgb_d, gpyr = pipe.prepare_image(rgb[i])
+        d, _, o = pipe.solve_and_effect(fx.EFFECT_DEFOCUS, gpyr, rgb_d, mask[i], value[i],
+                                        tuple(s[i] for s in state))
+        assert torch.equal(depth[i], d) and torch.equal(out[i], o)
+
+
+@pytest.mark.parametrize("solver_name", ["jacobi_chebyshev", "red_black"])
+def test_sharded_step_across_cards_equals_one_card(dev, solver_name):
+    """Slots round-robin over every visible card, the halo strips crossing
+    as device-to-device copies: the step equals the same mesh on one card.
+    Skips with fewer than two cards."""
+    from realtimedepthdiffusion_tpu_torch.core import effects as fx
+    from realtimedepthdiffusion_tpu_torch.parallel import mesh, sharded
+
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two or more CUDA devices")
+    cfg = DiffusionConfig(max_iterations=100, solver=solver_name,
+                          early_exit=solver_name == "red_black", tolerance=1e-3,
+                          residual_check_every=8)
+    many = mesh.make_mesh(8, device="cuda")
+    assert len(set(many.devices.values())) == min(8, torch.cuda.device_count())
+    runs = []
+    for m in (many, mesh.make_mesh(8, device="cuda:0")):
+        fn, make_args = sharded.batched_step(m, 270, 480, cfg, fx.EFFECT_DEFOCUS)
+        log = []
+        depth, state, out = fn(*make_args(2), log)
+        torch.cuda.synchronize()
+        runs.append((depth, state, out, log))
+    assert torch.equal(runs[0][0], runs[1][0]) and torch.equal(runs[0][2], runs[1][2])
+    assert all(torch.equal(a, b) for a, b in zip(runs[0][1], runs[1][1]))
+    assert [e["iters"] for e in runs[0][3]] == [e["iters"] for e in runs[1][3]]

@@ -76,7 +76,8 @@ def test_slice_matches_jax(jax_run):
     assert len(state) == 3 and all(s.dtype == torch.float32 for s in state)
     assert ops.launch_counts() == {"jc_sweep_tiles": 0, "jc_sweep_resident": 0,
                                    "defocus_box": 0, "rb_sweep_tiles": 0,
-                                   "rb_sweep_resident": 0, "jc_sweep_fused": 0}
+                                   "rb_sweep_resident": 0, "jc_sweep_fused": 0,
+                                   "defocus_block": 0}
 
 
 def test_jax_state_carried_into_port(jax_run):
@@ -130,8 +131,8 @@ def test_depth_u8_rounds_half_to_even():
 
 
 def test_port_imports_without_jax_pil_cv2():
-    """The port, a small solve and a fast-profile solve run with jax, PIL
-    and cv2 unimportable."""
+    """The port, a small solve, a fast-profile solve and a sharded batched
+    step on a CPU slot mesh run with jax, PIL and cv2 unimportable."""
     code = textwrap.dedent("""
         import sys
         for name in ("jax", "jaxlib", "PIL", "cv2", "realtimedepthdiffusion_tpu"):
@@ -158,6 +159,13 @@ def test_port_imports_without_jax_pil_cv2():
         d, s = fast.solve(g, torch.from_numpy(mask), torch.from_numpy(value),
                           fast.initial_state())
         assert bool((d[torch.from_numpy(mask)] == 64).all()) and float(d.max()) <= 255.0
+        from realtimedepthdiffusion_tpu_torch.parallel import mesh as pmesh, sharded
+        fn, make_args = sharded.batched_step(pmesh.make_mesh(4, device="cpu"), 32, 48,
+                                             rt.DiffusionConfig(max_iterations=16),
+                                             fx.EFFECT_DEFOCUS)
+        d, s, out = fn(*make_args(2))
+        assert tuple(d.shape) == (2, 32, 48) and out.dtype == torch.uint8
+        assert sharded.block_calls["jacobi_chebyshev"] > 0 and sharded.block_calls["defocus"] > 0
         assert not any(m.startswith(("jax", "PIL", "cv2")) for m, v in sys.modules.items()
                        if v is not None)
         print("ok")
