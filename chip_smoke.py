@@ -7,16 +7,19 @@ Phases, each printed on its own lines; any failure raises and exits non-zero:
 
 1. Requires a CUDA device and prints the card's name and power limit.
 2. Builds the port's CUDA kernels from ``realtimedepthdiffusion_tpu_torch/csrc``.
-3. Holds each kernel against its plain torch version on the card, at the
-   shapes the 1080p main paths give it, with inputs from a numpy seed:
-   K1 on L0 and L1 and at k=1 against its default k, K2 on L4, K3 exact and
-   approx, K4 on L0 and L1 and K5 on L4 with the red-black omegas. Every
-   comparison must be exact (max abs difference 0).
+3. Prints the largest K2 cluster the card runs, then holds each kernel
+   against its plain torch version on the card, at the shapes the 1080p
+   main paths give it, with inputs from a numpy seed: K1 on L0 and L1 (and
+   timed there under four CTA shapes) and at k=1 against its default k; K2
+   on 1080p L4, L3 and L2 and 4K L3, each timed beside K1 on the same
+   level; K3 exact and approx; K4 on L0 and L1 and K5 on L4 with the
+   red-black omegas. Every comparison must be exact (max abs difference 0).
 4. Drives the default path: ``DepthPipeline(1080, 1920, device="cuda")`` and
    three ``solve_and_effect(EFFECT_DEFOCUS, ...)`` updates with a scribble
    added before the second. Checks finite depth, exact scribbles, the
-   output's shape and type, that every kernel of the path (K1, K2, K3)
-   launched, that a frame equals the same frame computed by the plain
+   output's shape and type, that the frames launched exactly what the
+   routes give (K2 once per level a cluster holds, ceil(iters/8) K1 per
+   other level: 3 and 24 a frame; K3 once), that a frame equals the same frame computed by the plain
    versions on the card, and that a small solve on the card agrees with the
    CPU's.
 5. Drives the ``--profile fast`` path (red-black SOR with the rms early
@@ -28,24 +31,26 @@ Phases, each printed on its own lines; any failure raises and exits non-zero:
 6. Drives the 4K path at 2160x3840: K6 against its plain version (and K1)
    at L0 and at the L1 shape, at k = 8, 12 and 1, with K6, K1 and plain
    times; three ``solve_and_effect(EFFECT_DEFOCUS, ...)`` frames that must
-   launch exactly K2, K1, K6 and K3, with the ``auto`` defocus resolved to
+   launch exactly K2 x3, K1 x24, K6 x4 and K3 each, with ``auto`` resolved to
    approx; a kernel frame and a Jacobi-Chebyshev early-exit frame against
    the plain frames; K3 at DCI 4K (2160x4096), where the summed-area
    table's largest entry passes 2^31 - 1; and the TPU-only variants the
    port maps onto K1 and K3 (state prefetch, stacked and coldiff defocus),
    each equal to the default output.
 7. Drives the multi-device step (``parallel/``) on a slot mesh whose slots
-   all live on the card: K1 on a halo block, K4 with parity 0 and 1, and K3
-   on blocks with an origin, at the 1080p blocks' shapes, each exact against
-   its plain version with both times; three ``batched_step(make_mesh(8),
-   1080, 1920, ..., EFFECT_DEFOCUS)`` steps on a batch of 4 (mesh (2, 2, 2)),
-   which must launch exactly 3,904 K1 and 16 K3-block per step and give the
+   all live on the card: K1 on a halo block and on a stack of 16, K4 with
+   parity 0 and 1, and K3 on blocks with an origin, at the 1080p blocks'
+   shapes, each exact against its plain version with both times; three
+   ``batched_step(make_mesh(8), 1080, 1920, ..., EFFECT_DEFOCUS)`` steps on
+   a batch of 4 (mesh (2, 2, 2)), which must launch exactly 244 K1 (one per
+   exchange over the card's 16 blocks) and 16 K3-block per step and give the
    single-device depth and defocus per image bit for bit; one sharded
    ``--profile fast`` step on mesh (1, 2, 2) within RMSE 1e-3 of the
    single-device fast solve; a 270x480 step equal to the same step on the
    plain versions; and ``dryrun_multichip(8)``. The last 1080p step runs
    once more under ``torch.profiler``: its device time by kernel, over the
-   same step's unprofiled time, is the step's device busy share.
+   same step's unprofiled time, is the step's device busy share; so do the
+   timed default, fast and 4K frames of phases 4-6.
 
 Each phase prints its seconds. The line before the last is a JSON object
 of the kernels, each with its launches on its main path, its largest
@@ -159,6 +164,31 @@ def k3_ops(px_sat, px_out, with_half):
     return sum((f + i) * n for (f, i), n in parts), sum(i * n for (_, i), n in parts)
 
 
+def traced(name, fn, unprofiled_ms):
+    """``fn`` run once more under ``torch.profiler``: prints its device ms
+    by kernel (templates merged under their bare names) and its device
+    time over ``unprofiled_ms``, the same work's time without the
+    profiler, as its busy share. Kernels run on one stream, so they never
+    overlap."""
+    import torch
+
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
+    by_kernel = collections.Counter()
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            bare = re.split(r"[<(]", e.name.replace("(anonymous namespace)::", ""))[0]
+            by_kernel[bare.split("::")[-1].removeprefix("void ").strip()] += e.time_range.elapsed_us() / 1e3
+    device_ms = sum(by_kernel.values())
+    if device_ms <= 0:
+        raise AssertionError(f"the profiler saw no device time in the traced {name}")
+    print(f"{name} traced again: {device_ms:.3f} ms of device time over {unprofiled_ms:.3f} ms "
+          f"unprofiled, busy share {device_ms / unprofiled_ms:.4f}; device ms by kernel "
+          f"{json.dumps({k: round(v, 3) for k, v in by_kernel.most_common(8)})}")
+
+
 def max_abs(torch, a, b):
     return float((a.to(torch.float64) - b.to(torch.float64)).abs().max().item())
 
@@ -239,8 +269,8 @@ def main() -> None:
         abc = abc_schedule(cfg.level_iterations(len(gp), level), cfg)
         return depth_t, mask_t, wts, abc
 
-    def check_level(name, level, kernel_name, timed=False):
-        depth_t, mask_t, wts, abc = level_case(gray_pyr, level)
+    def check_level(name, level, kernel_name, timed=False, gp=gray_pyr):
+        depth_t, mask_t, wts, abc = level_case(gp, level)
         before = ops.launch_counts()[kernel_name]
         got = sweep.solve_level_cuda(depth_t, mask_t, wts, abc)
         if ops.launch_counts()[kernel_name] == before:
@@ -255,10 +285,39 @@ def main() -> None:
             line["ms"] = time_ms(torch, lambda: sweep.solve_level_cuda(depth_t, mask_t, wts, abc), 10)
             line["plain_ms"] = time_ms(torch, lambda: sweep.solve_level_plain(depth_t, mask_t, wts, abc), 3)
         print(f"{name}: {json.dumps(line)}")
+        line["case"] = (depth_t, mask_t, wts, abc)
         return line
 
+    max_cluster = sweep.resident_max_cluster(dev)
+    print(f"K2 cluster: the card runs clusters of up to {max_cluster} CTAs of K2's largest band "
+          f"({sweep.RESIDENT_ROWS}x{sweep.RESIDENT_MAX_W}; cudaOccupancyMaxActiveClusters)")
     k1_l0 = check_level("K1 L0", 0, "jc_sweep_tiles", timed=True)
     k1_l1 = check_level("K1 L1", 1, "jc_sweep_tiles", timed=True)
+
+    def k1_tile_ms(level, tile):
+        """K1 over a level's sweeps with the CTA shape ``tile``, checked
+        against the default shape; its median ms."""
+        depth_t, mask_t, wts, abc = level_case(gray_pyr, level)
+        planes = (wts.wr.contiguous(), wts.wd.contiguous(), wts.inv_count.contiguous(),
+                  mask_t.to(torch.uint8))
+        abc_d = torch.from_numpy(abc).to(dev)
+        k = sweep.TILE_SWEEPS
+
+        def run():
+            def launch(u_in, p_in, u_out, p_out, b, n_active):
+                sweep.jc_sweep_tiles(u_in, p_in, u_out, p_out, *planes, abc_d, b, n_active, k,
+                                     tile)
+            return sweep.ping_pong(depth_t.clone(), torch.zeros_like(depth_t), launch, 0,
+                                   len(abc), k)[0]
+
+        require_equal(torch, f"K1 L{level} tile {tile}", run(),
+                      sweep.solve_level_cuda(depth_t, mask_t, wts, abc))
+        return time_ms(torch, run, 10)
+
+    # The CTA shape (threads across, down, rows per thread) of K1 at k = 8.
+    k1_tiles = {str(t): {f"L{lv}_ms": k1_tile_ms(lv, t) for lv in (0, 1)}
+                for t in (sweep.TILE_SHALLOW, (64, 8, 8), (128, 4, 8), (128, 8, 6), (64, 16, 6))}
+    print(f"K1 by CTA shape at k={sweep.TILE_SWEEPS}: {json.dumps(k1_tiles)}")
     # Jacobi gives the same result whatever the blocking: k=1 against the
     # default k checks the halo logic.
     depth_t, mask_t, wts, abc = level_case(gray_pyr, 1)
@@ -267,9 +326,41 @@ def main() -> None:
     torch.cuda.synchronize()
     k1_k = require_equal(torch, "K1 k=1 vs default k", one, dflt)
     print(f"K1 L1 k=1 vs k={sweep.TILE_SWEEPS}: max_abs_err {k1_k}")
-    if not sweep.resident_fits(*gray_pyr[L].shape):
-        raise AssertionError(f"L4 {tuple(gray_pyr[L].shape)} does not fit K2")
-    k2 = check_level("K2 L4", L, "jc_sweep_resident", timed=True)
+    # K2 on every level a cluster holds at 1080p (L4, L3, L2) and at 4K L3,
+    # each beside K1 on the same level.
+    rgb4_np = seeded_image(np.random.default_rng(SEED + 4), H4, W4)
+    gray4 = build_gray_pyramid(rgb_to_gray(torch.from_numpy(rgb4_np).to(dev)), cfg)
+    k2 = {}
+    for name, gp, level in (("L4", gray_pyr, L), ("L3", gray_pyr, L - 1), ("L2", gray_pyr, L - 2),
+                            ("4K L3", gray4, 3)):
+        cluster = sweep.resident_cluster(*gp[level].shape, max_cluster)
+        if cluster is None:
+            raise AssertionError(f"K2 {name} {tuple(gp[level].shape)}: no cluster holds it")
+        line = check_level(f"K2 {name} (cluster {cluster})", level, "jc_sweep_resident",
+                           timed=True, gp=gp)
+        depth_t, mask_t, wts, abc = line.pop("case")
+        planes = (wts.wr.contiguous(), wts.wd.contiguous(), wts.inv_count.contiguous(),
+                  mask_t.to(torch.uint8))
+        abc_d = torch.from_numpy(abc).to(dev)
+        k1_run = lambda: sweep._solve_tiles(depth_t.clone(), *planes, abc_d,  # noqa: E731
+                                            sweep.TILE_SWEEPS)
+        require_equal(torch, f"K1 on K2's {name}", k1_run(), sweep.solve_level_plain(
+            depth_t, mask_t, wts, abc))
+        px = int(gp[level].numel())
+        line.update(cluster=cluster, k1_ms=time_ms(torch, k1_run, 10),
+                    bound_ms=bound(px * 29, px * line["sweeps"] * JC_OPS)[0])
+        # K2 on every cluster the card runs that holds the level: why the
+        # route takes the largest.
+        line["by_cluster_ms"] = {}
+        for c in sweep.CLUSTER_SIZES:
+            if c > max_cluster or -(-depth_t.shape[0] // c) > sweep.RESIDENT_ROWS:
+                continue
+            state = (depth_t.clone(), torch.zeros_like(depth_t))
+            run_c = lambda: sweep.jc_sweep_resident(*state, *planes, abc_d, 0, len(abc), c)  # noqa: E731
+            line["by_cluster_ms"][c] = time_ms(torch, run_c, 5)
+        k2[name] = line
+        print(f"K2 {name} {tuple(gp[level].shape)}: {line['ms']:.3f} ms on a cluster of {cluster}, "
+              f"K1 {line['k1_ms']:.3f} ms; K2 by cluster size {json.dumps(line['by_cluster_ms'])}")
 
     # K4 and K5 at the same levels, with the fast profile's omegas (the fixed
     # count of each level, as when no probe fires).
@@ -345,11 +436,25 @@ def main() -> None:
     wall = time.perf_counter() - t0
     launches = ops.launch_counts()
     print(f"main path: 3 frames in {wall:.3f} s, launches {json.dumps(launches)}")
-    for name in ("jc_sweep_tiles", "jc_sweep_resident", "defocus_box"):
-        if launches[name] == 0:
-            raise AssertionError(f"main path never launched {name}")
-    if launches["jc_sweep_fused"]:
-        raise AssertionError("the 1080p main path launched K6")
+    def frame_launches(gp, c=cfg):
+        """The launches of one default frame by the routes: one K2 launch
+        per level a cluster holds, ceil(iters/k) of K1 or K6 per other
+        level, one K3."""
+        want = collections.Counter(defocus_box=1)
+        l2 = dispatch.l2_bytes(dev)
+        for level, g in enumerate(gp):
+            route = sweep.strip_route(*g.shape, l2, max_cluster)
+            blocks = -(-c.level_iterations(len(gp), level) // sweep.TILE_SWEEPS)
+            want.update({"K2": {"jc_sweep_resident": 1}, "K1": {"jc_sweep_tiles": blocks},
+                         "K6": {"jc_sweep_fused": blocks}}[route])
+        return want
+
+    want_frame = frame_launches(gray_pyr)
+    print(f"default frame: launches per frame {json.dumps(want_frame)}")
+    if {k: v for k, v in launches.items() if v} != {k: 3 * v for k, v in want_frame.items()}:
+        raise AssertionError(f"3 main-path frames launched {launches}, not 3 x {dict(want_frame)}")
+    if want_frame["jc_sweep_tiles"] > 24 or want_frame["jc_sweep_resident"] != 3:
+        raise AssertionError(f"a 1080p frame launches {dict(want_frame)}: not K2 x3 and K1 <= 24")
     for i, (depth0, out, mask_d, value_d) in enumerate(frames):
         if not bool(torch.isfinite(depth0).all()):
             raise AssertionError(f"frame {i}: depth is not finite")
@@ -413,6 +518,9 @@ def main() -> None:
             line["plain_ms"] = time_ms(torch, lambda: plain_frame(p.cfg, gp, st, scene), 3)
         print(f"{name} frame {p.rows}x{p.cols} solve+defocus, kernels against plain on the "
               f"card (CUDA events, median): {json.dumps(line)}")
+        if timed:
+            traced(f"{name} frame", lambda: p.solve_and_effect(
+                fx.EFFECT_DEFOCUS, gp, rgb_dev, mask, value, st), line["ms"])
         return line
 
     frame = compare_frames("default", pipe, state, (rgb_np, rgb_d, *frames[2][2:]), timed=True)
@@ -503,20 +611,17 @@ def main() -> None:
                      DiffusionConfig(early_exit=True, tolerance=1e-3))):
         line = compare_frames(name, DepthPipeline(H, W, c, device="cuda"), fstate, fast_scene,
                               timed=False)
-        want = {"jc_sweep_tiles", "defocus_box"} | ({"jc_sweep_resident"}
-                                                    if not c.early_exit else set())
+        want = {"jc_sweep_tiles", "jc_sweep_resident", "defocus_box"}
         if set(line["launches"]) != want:
             raise AssertionError(f"{name} frame launched {line['launches']}, not {want}")
     phase_done("5 (the fast path)")
 
     # -- 6. the 4K path ------------------------------------------------------------
-    rgb4_np = seeded_image(rng, H4, W4)
-    gray4 = build_gray_pyramid(rgb_to_gray(torch.from_numpy(rgb4_np).to(dev)), cfg)
     top4 = len(gray4) - 1
     l2 = dispatch.l2_bytes(dev)
-    routes = [sweep.strip_route(*g.shape, l2) for g in gray4]
-    print(f"4K routes by level (L2 {l2} bytes): {routes}")
-    if routes != ["K6", "K1", "K1", "K1", "K1", "K2"]:
+    routes = [sweep.strip_route(*g.shape, l2, max_cluster) for g in gray4]
+    print(f"4K routes by level (L2 {l2} bytes, clusters of up to {max_cluster}): {routes}")
+    if routes != ["K6", "K1", "K1", "K2", "K2", "K2"]:
         raise AssertionError(f"4K routes {routes}")
 
     def check_fused(name, level, ks, timed):
@@ -580,9 +685,13 @@ def main() -> None:
     wall = time.perf_counter() - t0
     launches4 = ops.launch_counts()
     print(f"4K path: 3 frames in {wall:.3f} s, launches {json.dumps(launches4)}")
-    want4 = {"jc_sweep_resident", "jc_sweep_tiles", "jc_sweep_fused", "defocus_box"}
-    if {k for k, v in launches4.items() if v} != want4:
-        raise AssertionError(f"4K path launched {launches4}, not exactly {sorted(want4)}")
+    want4 = frame_launches(gray4)
+    print(f"4K frame: launches per frame {json.dumps(want4)}")
+    if {k: v for k, v in launches4.items() if v} != {k: 3 * v for k, v in want4.items()}:
+        raise AssertionError(f"3 4K frames launched {launches4}, not 3 x {dict(want4)}")
+    if dict(want4) != {"jc_sweep_resident": 3, "jc_sweep_tiles": 24, "jc_sweep_fused": 4,
+                       "defocus_box": 1}:
+        raise AssertionError(f"a 4K frame launches {dict(want4)}")
     max_half4 = cfg.defocus_kernel_size(H4, W4) // 2
     approx = [w for w in caught if issubclass(w.category, RuntimeWarning)
               and f"max_half {max_half4}" in str(w.message) and "approx" in str(w.message)]
@@ -609,7 +718,8 @@ def main() -> None:
         ee4 = compare_frames("4K jacobi_chebyshev early exit",
                              DepthPipeline(H4, W4, ee_cfg, device="cuda"), state4, scene4,
                              timed=False, exit_log=log4)
-    if set(ee4["launches"]) != {"jc_sweep_tiles", "jc_sweep_fused", "defocus_box"}:
+    if set(ee4["launches"]) != {"jc_sweep_resident", "jc_sweep_tiles", "jc_sweep_fused",
+                                "defocus_box"}:
         raise AssertionError(f"4K early-exit frame launched {ee4['launches']}")
     print(f"4K early-exit frame: tol {log4[0]['tol']:.6f}; " + json.dumps(
         [{"shape": list(e["shape"]), "iterations": e["iters"],
@@ -701,6 +811,18 @@ def main() -> None:
         lambda: sweep.halo_block_sweeps_plain(*blk, abc_k),
         lambda u: u[halo:-halo, halo:-halo], whole_u[oy:oy + hb, ox:ox + wb],
         px_e * 29, px_e * halo * JC_OPS)
+    # The sharded step's launch: every block of the card in one stack (16
+    # blocks of this shape at L0 of a step of 4 on mesh (2, 2, 2)).
+    stk = [torch.stack([t] * 16) for t in blk]
+    got_stk, one = sweep.halo_block_sweeps(*stk, abc_k_d), sweep.halo_block_sweeps(*blk, abc_k_d)
+    torch.cuda.synchronize()
+    for t in range(2):
+        require_equal(torch, "K1 stack of 16 halo blocks", got_stk[t], torch.stack([one[t]] * 16))
+    b_k1["stack16_ms"] = time_ms(torch, lambda: sweep.halo_block_sweeps(*stk, abc_k_d), 10)
+    b_k1["stack16_bound_ms"] = bound(16 * px_e * 29, 16 * px_e * halo * JC_OPS)[0]
+    print(f"K1 over a stack of 16 such blocks in one launch: {b_k1['stack16_ms']:.3f} ms "
+          f"(bound {b_k1['stack16_bound_ms']:.4f}), 16 x one block {16 * b_k1['ms']:.3f} ms")
+    del stk, got_stk
 
     om_k = rb_omegas(fast_cfg.level_iterations(n_levels, 0), fast_cfg)[:halo]
     om_k_d = torch.from_numpy(om_k).to(dev)
@@ -742,8 +864,11 @@ def main() -> None:
     if not all(r for _, r in lv_routes):
         raise AssertionError(f"a 1080p level runs replicated on {mesh8.shape}")
     n_img = 4
-    want_k1 = n_img // mesh8.shape["batch"] * len(mesh8.slots) * sum(
+    # One K1 launch per exchange on each card that holds slots.
+    want_k1 = len(set(mesh8.devices.values())) * sum(
         -(-cfg.level_iterations(n_levels, lv) // halo) for lv in range(n_levels))
+    if len(set(mesh8.devices.values())) == 1 and want_k1 != 244:
+        raise AssertionError(f"a sharded 1080p step on one card would launch K1 {want_k1} times")
     want_step = {"jc_sweep_tiles": want_k1, "defocus_block": n_img * mesh8.shape["dy"]
                  * mesh8.shape["dx"]}
     imgs = [seeded_image(rng, H, W) for _ in range(n_img)]
@@ -788,21 +913,7 @@ def main() -> None:
     # The busy share: the last step again, on the same inputs (the same
     # work), under the profiler; its device time over that step's
     # unprofiled time. The slots share one stream, so kernels never overlap.
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        step_fn(*last_in)
-        torch.cuda.synchronize()
-    by_kernel = collections.Counter()  # by the kernel's bare name, templates merged
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            bare = re.split(r"[<(]", e.name.replace("(anonymous namespace)::", ""))[0]
-            by_kernel[bare.split("::")[-1].removeprefix("void ").strip()] += e.time_range.elapsed_us() / 1e3
-    device_ms = sum(by_kernel.values())
-    if device_ms <= 0:
-        raise AssertionError("the profiler saw no device time in the traced step")
-    print(f"sharded step {len(step_ms) - 1} traced again: {device_ms:.3f} ms of device time over "
-          f"{step_ms[-1]:.3f} ms unprofiled, busy share {device_ms / step_ms[-1]:.4f}; device ms "
-          f"by kernel {json.dumps({k: round(v, 3) for k, v in by_kernel.most_common(8)})}")
+    traced(f"sharded step {len(step_ms) - 1}", lambda: step_fn(*last_in), step_ms[-1])
 
     # The fast profile, sharded: red-black with the rms early exit on (1, 2, 2),
     # one image, so that the exit's gate is that image's residual. A probe
@@ -884,15 +995,23 @@ def main() -> None:
                  "launches": launches["jc_sweep_tiles"],
                  "max_abs_err": max(k1_l0["max_abs_err"], k1_l1["max_abs_err"], k1_k),
                  "ms": k1_l0["ms"], "plain_ms": k1_l0["plain_ms"],
+                 "l1_ms": k1_l1["ms"], "tiles_ms": k1_tiles,
                  "halo_launches": step_launches["jc_sweep_tiles"],
                  "halo_max_abs_err": max(b_k1["max_abs_err"], step_err),
-                 "halo_ms": b_k1["ms"], "halo_plain_ms": b_k1["plain_ms"]},
-                px0 * 25, px0 * k1_l0["sweeps"] * JC_OPS),
+                 "halo_ms": b_k1["ms"], "halo_plain_ms": b_k1["plain_ms"],
+                 "halo_stack16_ms": b_k1["stack16_ms"],
+                 "halo_stack16_bound_ms": b_k1["stack16_bound_ms"]},
+                px0 * 29, px0 * k1_l0["sweeps"] * JC_OPS),
         bounded({"name": "jc_sweep_resident", "route": "cuda",
                  "source": "realtimedepthdiffusion_tpu_torch/csrc/sweep.cu",
                  "replaces": f"{TPU_SWEEP}:111", "launches": launches["jc_sweep_resident"],
-                 "max_abs_err": k2["max_abs_err"], "ms": k2["ms"], "plain_ms": k2["plain_ms"]},
-                px4 * 21, px4 * k2["sweeps"] * JC_OPS),
+                 "max_abs_err": max(v["max_abs_err"] for v in k2.values()),
+                 "ms": k2["L4"]["ms"], "plain_ms": k2["L4"]["plain_ms"],
+                 "max_cluster": max_cluster,
+                 "by_level": {n: {key: v[key] for key in ("shape", "sweeps", "cluster", "ms",
+                                                          "bound_ms", "k1_ms")}
+                              for n, v in k2.items()}},
+                px4 * 29, px4 * k2["L4"]["sweeps"] * JC_OPS),
         bounded({"name": "defocus_box", "route": "cuda",
                  "source": "realtimedepthdiffusion_tpu_torch/csrc/defocus.cu",
                  "replaces": f"{TPU_DEFOCUS}:234",

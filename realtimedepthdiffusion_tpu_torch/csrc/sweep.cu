@@ -2,50 +2,76 @@
 //
 // K1 jc_sweep_tiles replaces the TPU strip megakernel
 //   realtimedepthdiffusion_tpu/ops/pallas_sweep.py:_strip_mega_kernel_arena (:298)
+//   and, on a stack of halo-extended blocks, _halo_block_kernel (:1936)
 // K2 jc_sweep_resident replaces the TPU resident kernel
 //   realtimedepthdiffusion_tpu/ops/pallas_sweep.py:_resident_kernel (:111)
 //
-// Layout: every plane is an unpadded row-major (h, w) array. bh[y][x] is
-// the weight between (y, x) and (y, x+1), 0 in the last column; bv[y][x]
-// between (y, x) and (y+1, x), 0 in the last row; inv is the reciprocal
-// weight sum; mask is 1 on scribbled pixels, which keep their value. A
-// neighbour outside the image reads as 0 with weight 0. abc is the
-// (iters, 3) float32 table of (a, b, c) per sweep, in device memory.
+// Layout: every plane is an unpadded row-major (h, w) array, or a stack of
+// nb of them. bh[y][x] is the weight between (y, x) and (y, x+1), 0 in the
+// last column; bv[y][x] between (y, x) and (y+1, x), 0 in the last row; inv
+// is the reciprocal weight sum; mask is 1 on scribbled pixels, which keep
+// their value. A neighbour outside the image reads as 0 with weight 0. abc
+// is the (iters, 3) float32 table of (a, b, c) per sweep, in device memory.
 //
-// What bounds them on the card. A sweep reads 5 neighbours of u, prev and
-// 6 weight values per pixel and writes u: about 9 flops per ~40 bytes, far
-// below the card's ~20 flops/byte balance, so a sweep that goes through
-// device memory is bandwidth bound (1080p: ~80 MB per sweep, ~25 us at
-// 3.35 TB/s, ~1.6 ms for L0's 62 sweeps alone). Each sweep also depends on
-// the last, so the coarse levels, with 500-1000 sweeps of a few thousand
-// pixels, are bound by the latency of one sweep, not by bytes.
+// What bounds them on the card. A sweep does 16 operations per pixel
+// (jc_sweep.cuh) and depends on the sweep before it. Read once, the state
+// and weights are ~25 bytes a pixel, so a level whose sweeps all stay on
+// chip is bound by the SMs' issue rate (1080p L0, 62 sweeps: 0.061 ms), and
+// a coarse level of 500-1000 sweeps over a few thousand pixels by the
+// latency of one sweep and its barrier.
 //
 // What the designs do about it.
-// K1 blocks in time: one CTA loads a TILE_H x TILE_W tile of u and prev
-// with a k-pixel ring into shared memory, runs up to k sweeps there with a
-// barrier between them (the valid region shrinks by one ring per sweep),
-// and writes the tile's interior back. Device-memory traffic for the state
-// falls k-fold; the weights are read through the read-only path and stay
-// in L1/L2 across the k sweeps. u/prev ping-pong between two global buffer
-// pairs from one launch to the next, as the TPU kernel ping-pongs by block
-// parity; the last launch of a level runs n_active = iters - base sweeps.
-// K2 keeps a whole level (u, prev, bh, bv, inv as f32 and mask as u8: 21
-// bytes per padded pixel) in one CTA's shared memory and runs all of its
-// sweeps in one launch, so a coarse level pays one launch instead of
-// iters/k. It fits a level of up to ~11k padded pixels (227 KB); at 1080p
-// that is L4 (67 x 120, 1000 sweeps). A cluster with distributed shared
-// memory would hold larger levels; that is later work.
+// K1 blocks in time. A CTA of bx x by threads owns an extended tile of
+// (by*R) x bx pixels: thread (tx, ty) owns the R pixels of column tx from
+// row ty*R down. Before the sweep loop each thread loads its pixels' u,
+// prev and weights (wl, bh, bv, inv, a mask bit) from device memory into
+// registers, one coalesced pass in which a warp reads 128-byte lines; the
+// weights are never read again. A sweep then costs, per pixel, two shared
+// loads (the left and right neighbours), one shared store (the new u, for
+// the neighbouring columns) and jc_point: the upper and lower neighbours
+// are the thread's own registers except at the ends of its column, and
+// prev is the pixel's own old u. No index arithmetic, divide or bounds
+// test runs in the loop: the shared buffers carry a one-pixel ring of
+// zeros that nobody writes, and pixels outside the image carry mask 1 and
+// u = 0, so every sweep updates the whole tile and they stay 0. Each sweep
+// spoils one more ring from the tile's edge (the zero ring stands in for
+// the true neighbours), so after n_active <= k sweeps the interior, ring k
+// inwards, is exact and is all that is written back. u/prev ping-pong
+// between two global buffer pairs from one launch to the next; the last
+// launch of a level runs n_active = iters - base sweeps. gridDim.z walks a
+// stack of nb planes with one abc table, so the sharded step runs every
+// block a card holds in one launch per exchange.
+// K2 keeps a whole level on chip in a thread block cluster of C CTAs (C <=
+// 16) and runs sweeps base .. base+n-1 in one launch, carrying (u, prev) in
+// and out. Each CTA holds a band of at most 17 rows of at most 512 columns,
+// one column per thread, laid out as K1's threads hold theirs: weights,
+// prev and u in registers, u also in shared memory for the neighbouring
+// columns (and bh there, whence wl). A sweep reads the rows across a band
+// edge from the neighbouring CTAs' shared memory (cluster.map_shared_rank)
+// and ends with one cluster barrier, whose release/acquire makes each
+// CTA's new row visible to its neighbours. The cluster spreads a sweep's issue over C SMs, and a level
+// that outgrows one SM (1080p L3 and L2, 4K L4 and L3: up to 272 x 512)
+// stays on chip for all its sweeps. (A first form that kept u, prev and
+// the weights in shared memory, 21 bytes a pixel, spent 12 shared loads a
+// pixel and lost to K1 at 1080p L2; PERF.md.)
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include "jc_sweep.cuh"
 
-#define TILE_H 32
-#define TILE_W 64
-#define TILE_THREADS 256
-#define RESIDENT_THREADS 1024
+namespace cg = cooperative_groups;
 
-__global__ void __launch_bounds__(TILE_THREADS)
+// K2: a band of at most RESIDENT_ROWS rows and RESIDENT_MAX_W columns per
+// CTA, one column per thread.
+#define RESIDENT_ROWS 17
+#define RESIDENT_MAX_W 512
+#define MAX_CLUSTER 16
+
+// K1: R pixels per thread, at most MAXT threads per CTA (the register
+// budget per thread is 65536 / MAXT).
+template <int R, int MAXT>
+__global__ void __launch_bounds__(MAXT)
 jc_sweep_tiles_kernel(const float* __restrict__ u_in, const float* __restrict__ p_in,
                       float* __restrict__ u_out, float* __restrict__ p_out,
                       const float* __restrict__ bh, const float* __restrict__ bv,
@@ -54,129 +80,222 @@ jc_sweep_tiles_kernel(const float* __restrict__ u_in, const float* __restrict__ 
                       const float* __restrict__ abc, int h, int w, int base,
                       int n_active, int k) {
   extern __shared__ float smem[];
-  const int th = TILE_H + 2 * k;
-  const int tw = TILE_W + 2 * k;
-  const int n = th * tw;
-  // A holds u and B holds prev. A sweep writes the new u into B, in place
-  // of prev at the same pixel (the update reads prev only there), and the
-  // old u in A becomes prev: the two buffers swap roles every sweep.
-  float* A = smem;
-  float* B = smem + n;
-  const int y0 = blockIdx.y * TILE_H - k;
-  const int x0 = blockIdx.x * TILE_W - k;
+  const int ew = blockDim.x;
+  const int eh = blockDim.y * R;
+  const int pitch = ew + 2;
+  const int np = (eh + 2) * pitch;
+  const int tid = threadIdx.y * ew + threadIdx.x;
+  const int nt = ew * blockDim.y;
+  // Two buffers of u: a sweep reads one and writes the other.
+  float* cur = smem;
+  float* nxt = smem + np;
+  const int y0 = blockIdx.y * (eh - 2 * k) - k;  // the extended tile's origin
+  const int x0 = blockIdx.x * (ew - 2 * k) - k;
+  const size_t off = (size_t)blockIdx.z * h * w;
+  u_in += off;
+  p_in += off;
+  u_out += off;
+  p_out += off;
+  bh += off;
+  bv += off;
+  inv += off;
+  mask += off;
 
-  // Pixels outside the image load as 0 and are never written, so they
-  // read as 0 in both buffers for the whole launch.
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    const int ly = i / tw;
-    const int gy = y0 + ly;
-    const int gx = x0 + (i - ly * tw);
-    const bool in = gy >= 0 && gy < h && gx >= 0 && gx < w;
-    const size_t g = (size_t)gy * w + gx;
-    A[i] = in ? u_in[g] : 0.0f;
-    B[i] = in ? p_in[g] : 0.0f;
+  // The zero ring around both buffers.
+  for (int i = tid; i < pitch; i += nt) {
+    cur[i] = nxt[i] = 0.0f;
+    cur[np - pitch + i] = nxt[np - pitch + i] = 0.0f;
   }
+  for (int i = tid; i < eh; i += nt) {
+    const int row = (i + 1) * pitch;
+    cur[row] = nxt[row] = 0.0f;
+    cur[row + ew + 1] = nxt[row + ew + 1] = 0.0f;
+  }
+
+  const int tx = threadIdx.x;
+  const int ly0 = threadIdx.y * R;  // the thread's first row in the tile
+  const int gx = x0 + tx;
+  const bool col_in = gx >= 0 && gx < w;
+  float u[R], pv[R], wl[R], wr[R], wd[R], iv[R];
+  unsigned msk = 0;
+  float wu0 = 0.0f;  // bv of the pixel above the thread's first pixel
+  {
+    const int gy = y0 + ly0;
+    if (col_in && gy > 0 && gy < h) wu0 = bv[(size_t)(gy - 1) * w + gx];
+  }
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int gy = y0 + ly0 + r;
+    const bool in = col_in && gy >= 0 && gy < h;
+    const size_t g = (size_t)gy * w + gx;
+    u[r] = in ? u_in[g] : 0.0f;
+    pv[r] = in ? p_in[g] : 0.0f;
+    wl[r] = in && gx > 0 ? bh[g - 1] : 0.0f;
+    wr[r] = in ? bh[g] : 0.0f;
+    wd[r] = in ? bv[g] : 0.0f;
+    iv[r] = in ? inv[g] : 0.0f;
+    msk |= (unsigned)(in ? mask[g] != 0 : 1) << r;
+  }
+  const int c0 = (ly0 + 1) * pitch + tx + 1;  // the first pixel in the buffers
+#pragma unroll
+  for (int r = 0; r < R; ++r) cur[c0 + r * pitch] = u[r];
   __syncthreads();
 
+  // The sweep's (a, b, c) are loaded one sweep ahead, off the critical path.
+  float a = __ldg(abc + 3 * base), b = __ldg(abc + 3 * base + 1), c = __ldg(abc + 3 * base + 2);
   for (int s = 0; s < n_active; ++s) {
-    const float a = __ldg(abc + 3 * (base + s));
-    const float b = __ldg(abc + 3 * (base + s) + 1);
-    const float c = __ldg(abc + 3 * (base + s) + 2);
-    // After s sweeps the values in ring >= s are exact; sweep s computes
-    // ring >= s + 1 from them. After n_active <= k sweeps ring k, the
-    // tile's interior, is exact.
-    const int lo = s + 1;
-    const int rh = th - 2 * lo;
-    const int rw = tw - 2 * lo;
-    for (int i = threadIdx.x; i < rh * rw; i += blockDim.x) {
-      const int ry = i / rw;
-      const int ly = lo + ry;
-      const int lx = lo + (i - ry * rw);
-      const int gy = y0 + ly;
-      const int gx = x0 + lx;
-      if (gy < 0 || gy >= h || gx < 0 || gx >= w) continue;
-      const size_t g = (size_t)gy * w + gx;
-      const int li = ly * tw + lx;
-      const float wl = gx > 0 ? __ldg(bh + g - 1) : 0.0f;
-      const float wu = gy > 0 ? __ldg(bv + g - w) : 0.0f;
-      B[li] = jc_point(A[li - 1], A[li + 1], A[li - tw], A[li + tw], A[li], B[li],
-                       wl, __ldg(bh + g), wu, __ldg(bv + g), __ldg(inv + g),
-                       __ldg(mask + g), a, b, c);
+    const int next = 3 * (base + (s + 1 < n_active ? s + 1 : s));
+    const float na = __ldg(abc + next), nb = __ldg(abc + next + 1), nc = __ldg(abc + next + 2);
+    float above = cur[c0 - pitch];
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const int li = c0 + r * pitch;
+      const float uc = u[r];
+      const float below = r + 1 < R ? u[r + 1] : cur[li + pitch];
+      const float wu = r > 0 ? wd[r - 1] : wu0;
+      const float nu = jc_point(cur[li - 1], cur[li + 1], above, below, uc, pv[r], wl[r],
+                                wr[r], wu, wd[r], iv[r], (msk >> r) & 1u, a, b, c);
+      nxt[li] = nu;
+      above = uc;
+      pv[r] = uc;
+      u[r] = nu;
     }
     __syncthreads();
-    float* t = A;
-    A = B;
-    B = t;
+    float* t = cur;
+    cur = nxt;
+    nxt = t;
+    a = na;
+    b = nb;
+    c = nc;
   }
 
-  for (int i = threadIdx.x; i < TILE_H * TILE_W; i += blockDim.x) {
-    const int ty = i / TILE_W;
-    const int tx = i - ty * TILE_W;
-    const int gy = blockIdx.y * TILE_H + ty;
-    const int gx = blockIdx.x * TILE_W + tx;
-    if (gy >= h || gx >= w) continue;
+  if (tx < k || tx >= ew - k || gx >= w) return;
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int ly = ly0 + r;
+    const int gy = y0 + ly;
+    if (ly < k || ly >= eh - k || gy >= h) continue;
     const size_t g = (size_t)gy * w + gx;
-    const int li = (ty + k) * tw + tx + k;
-    u_out[g] = A[li];
-    p_out[g] = B[li];
+    u_out[g] = u[r];
+    p_out[g] = pv[r];
   }
 }
 
-__global__ void __launch_bounds__(RESIDENT_THREADS)
-jc_sweep_resident_kernel(float* __restrict__ u, const float* __restrict__ bh,
-                         const float* __restrict__ bv, const float* __restrict__ inv,
+__global__ void __launch_bounds__(RESIDENT_MAX_W)
+jc_sweep_resident_kernel(float* __restrict__ u, float* __restrict__ p,
+                         const float* __restrict__ bh, const float* __restrict__ bv,
+                         const float* __restrict__ inv,
                          const unsigned char* __restrict__ mask,
-                         const float* __restrict__ abc, int h, int w, int iters) {
+                         const float* __restrict__ abc, int h, int w, int rows, int base,
+                         int n) {
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const int ncta = (int)cluster.num_blocks();
   extern __shared__ float smem[];
-  // Every plane is stored with a one-pixel ring of zeros (mask 1 there), so
-  // neighbour reads need no bounds checks: wl = bh one pixel to the left,
-  // wu = bv one row up, and both are 0 on the ring.
-  const int pw = w + 2;
-  const int np = (h + 2) * pw;
-  float* A = smem;  // u
-  float* B = A + np;  // prev, then the new u (see jc_sweep_tiles_kernel)
-  float* sbh = B + np;
-  float* sbv = sbh + np;
-  float* sinv = sbv + np;
-  unsigned char* sm = reinterpret_cast<unsigned char*>(sinv + np);
-
-  for (int i = threadIdx.x; i < np; i += blockDim.x) {
-    const int py = i / pw;
-    const int y = py - 1;
-    const int x = i - py * pw - 1;
-    const bool in = y >= 0 && y < h && x >= 0 && x < w;
-    const size_t g = (size_t)y * w + x;
-    A[i] = in ? u[g] : 0.0f;
-    B[i] = 0.0f;  // the Chebyshev history starts at zero
-    sbh[i] = in ? bh[g] : 0.0f;
-    sbv[i] = in ? bv[g] : 0.0f;
-    sinv[i] = in ? inv[g] : 0.0f;
-    sm[i] = in ? mask[g] : 1;
+  // The CTA's band is image rows y0 .. y0+rows-1 (rows <= RESIDENT_ROWS);
+  // thread x owns column x of it, in registers as K1's threads own theirs.
+  // Two (rows + 2) x (w + 2) buffers of u hold the band for the
+  // neighbouring columns and CTAs, and a third its bh, whence wl (one
+  // register array fewer: six arrays of 17 spilled 236 bytes, five spill
+  // 108). Their ring is zeros that nobody writes: columns 0 and w+1 stand
+  // for the neighbours past the image's sides, rows 0 and rows+1 for those
+  // past its top and bottom. Rows past h load as outside the image: mask
+  // 1, u = 0.
+  const int pitch = w + 2;
+  const int np = (rows + 2) * pitch;
+  float* cur = smem;
+  float* nxt = smem + np;
+  float* sbh = nxt + np;
+  const int x = threadIdx.x;
+  const int nt = blockDim.x;
+  const int y0 = rank * rows;
+  for (int i = x; i < pitch; i += nt) {
+    cur[i] = nxt[i] = sbh[i] = 0.0f;
+    cur[np - pitch + i] = nxt[np - pitch + i] = sbh[np - pitch + i] = 0.0f;
   }
-  __syncthreads();
+  for (int i = x; i < rows; i += nt) {
+    const int row = (i + 1) * pitch;
+    cur[row] = nxt[row] = sbh[row] = 0.0f;
+    cur[row + w + 1] = nxt[row + w + 1] = sbh[row + w + 1] = 0.0f;
+  }
 
-  const int n = h * w;
-  for (int t = 0; t < iters; ++t) {
-    const float a = __ldg(abc + 3 * t);
-    const float b = __ldg(abc + 3 * t + 1);
-    const float c = __ldg(abc + 3 * t + 2);
-    for (int i = threadIdx.x; i < n; i += blockDim.x) {
-      const int y = i / w;
-      const int pi = (y + 1) * pw + (i - y * w) + 1;
-      B[pi] = jc_point(A[pi - 1], A[pi + 1], A[pi - pw], A[pi + pw], A[pi], B[pi],
-                       sbh[pi - 1], sbh[pi], sbv[pi - pw], sbv[pi], sinv[pi], sm[pi],
-                       a, b, c);
+  const bool col = x < w;
+  float uu[RESIDENT_ROWS], pv[RESIDENT_ROWS], wr[RESIDENT_ROWS], wd[RESIDENT_ROWS],
+      iv[RESIDENT_ROWS];
+  unsigned msk = 0;
+  const float wu0 = col && y0 > 0 && y0 < h ? bv[(size_t)(y0 - 1) * w + x] : 0.0f;
+  const int c0 = pitch + x + 1;  // the thread's first pixel in the buffers
+#pragma unroll
+  for (int r = 0; r < RESIDENT_ROWS; ++r) {
+    const int gy = y0 + r;
+    const bool in = col && r < rows && gy < h;
+    const size_t g = (size_t)gy * w + x;
+    uu[r] = in ? u[g] : 0.0f;
+    pv[r] = in ? p[g] : 0.0f;
+    wr[r] = in ? bh[g] : 0.0f;
+    wd[r] = in ? bv[g] : 0.0f;
+    iv[r] = in ? inv[g] : 0.0f;
+    msk |= (unsigned)(in ? mask[g] != 0 : 1) << r;
+    if (col && r < rows) {
+      cur[c0 + r * pitch] = uu[r];
+      sbh[c0 + r * pitch] = wr[r];
     }
-    __syncthreads();
-    float* tmp = A;
-    A = B;
-    B = tmp;
+  }
+  cluster.sync();
+
+  float a = __ldg(abc + 3 * base), b = __ldg(abc + 3 * base + 1), c = __ldg(abc + 3 * base + 2);
+  for (int t = 0; t < n; ++t) {
+    const int next = 3 * (base + (t + 1 < n ? t + 1 : t));
+    const float na = __ldg(abc + next), nb = __ldg(abc + next + 1), nc = __ldg(abc + next + 2);
+    if (col) {
+      // The rows across the band's edges: the neighbours' last and first
+      // band rows in their copies of this sweep's u, or the zero ring.
+      const float* top = rank > 0 ? cluster.map_shared_rank(cur + rows * pitch, rank - 1) : cur;
+      const float* bottom =
+          rank + 1 < ncta ? cluster.map_shared_rank(cur + pitch, rank + 1) : cur + (rows + 1) * pitch;
+      float above = top[x + 1];
+      const float past = bottom[x + 1];
+#pragma unroll
+      for (int r = 0; r < RESIDENT_ROWS; ++r) {
+        if (r < rows) {
+          const int li = c0 + r * pitch;
+          const float uc = uu[r];
+          const float down = r + 1 < RESIDENT_ROWS ? uu[r + 1 < RESIDENT_ROWS ? r + 1 : r] : 0.0f;
+          const float below = r + 1 < rows ? down : past;
+          const float wu = r > 0 ? wd[r > 0 ? r - 1 : 0] : wu0;
+          const float nu = jc_point(cur[li - 1], cur[li + 1], above, below, uc, pv[r],
+                                    sbh[li - 1], wr[r], wu, wd[r], iv[r], (msk >> r) & 1u, a,
+                                    b, c);
+          nxt[li] = nu;
+          above = uc;
+          pv[r] = uc;
+          uu[r] = nu;
+        }
+      }
+    }
+    // The new u of every CTA is visible to its neighbours (release/acquire).
+    cluster.sync();
+    float* tmp = cur;
+    cur = nxt;
+    nxt = tmp;
+    a = na;
+    b = nb;
+    c = nc;
   }
 
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    const int y = i / w;
-    u[i] = A[(y + 1) * pw + (i - y * w) + 1];
+  if (col) {
+#pragma unroll
+    for (int r = 0; r < RESIDENT_ROWS; ++r) {
+      const int gy = y0 + r;
+      if (r < rows && gy < h) {
+        const size_t g = (size_t)gy * w + x;
+        u[g] = uu[r];
+        p[g] = pv[r];
+      }
+    }
   }
+  // No CTA leaves while a neighbour may still read its shared memory.
+  cluster.sync();
 }
 
 static int set_smem(const void* kernel, size_t bytes) {
@@ -185,31 +304,109 @@ static int set_smem(const void* kernel, size_t bytes) {
                                    (int)bytes);
 }
 
-extern "C" int jc_sweep_tiles(const float* u_in, const float* p_in, float* u_out,
-                              float* p_out, const float* bh, const float* bv,
-                              const float* inv, const unsigned char* mask,
-                              const float* abc, int h, int w, int base, int n_active,
-                              int k, void* stream) {
-  const size_t smem = 2 * sizeof(float) * (size_t)(TILE_H + 2 * k) * (TILE_W + 2 * k);
-  int err = set_smem((const void*)jc_sweep_tiles_kernel, smem);
+template <int R, int MAXT>
+static int launch_tiles(const float* u_in, const float* p_in, float* u_out, float* p_out,
+                        const float* bh, const float* bv, const float* inv,
+                        const unsigned char* mask, const float* abc, int nb, int h, int w,
+                        int base, int n_active, int k, int bx, int by, cudaStream_t stream) {
+  const int eh = by * R;
+  if (bx * by > MAXT || bx - 2 * k < 1 || eh - 2 * k < 1) return (int)cudaErrorInvalidValue;
+  const size_t smem = 2 * sizeof(float) * (size_t)(eh + 2) * (bx + 2);
+  int err = set_smem((const void*)jc_sweep_tiles_kernel<R, MAXT>, smem);
   if (err) return err;
-  const dim3 grid((w + TILE_W - 1) / TILE_W, (h + TILE_H - 1) / TILE_H);
-  jc_sweep_tiles_kernel<<<grid, TILE_THREADS, smem, (cudaStream_t)stream>>>(
+  const dim3 grid((w + bx - 2 * k - 1) / (bx - 2 * k), (h + eh - 2 * k - 1) / (eh - 2 * k), nb);
+  jc_sweep_tiles_kernel<R, MAXT><<<grid, dim3(bx, by), smem, stream>>>(
       u_in, p_in, u_out, p_out, bh, bv, inv, mask, abc, h, w, base, n_active, k);
   return (int)cudaGetLastError();
 }
 
-extern "C" int jc_sweep_resident(float* u, const float* bh, const float* bv,
-                                 const float* inv, const unsigned char* mask,
-                                 const float* abc, int h, int w, int iters,
-                                 void* stream) {
-  const size_t np = (size_t)(h + 2) * (w + 2);
-  const size_t smem = np * (5 * sizeof(float) + 1);
+// rows_per_thread picks the instance: 8 (at most 512 threads, up to 128
+// registers a thread) or 6 (at most 1024 threads, 64 registers), which
+// holds the wider tiles that a ring of 17-32 needs.
+extern "C" int jc_sweep_tiles(const float* u_in, const float* p_in, float* u_out,
+                              float* p_out, const float* bh, const float* bv,
+                              const float* inv, const unsigned char* mask,
+                              const float* abc, int nb, int h, int w, int base, int n_active,
+                              int k, int bx, int by, int rows_per_thread, void* stream) {
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (rows_per_thread == 8)
+    return launch_tiles<8, 512>(u_in, p_in, u_out, p_out, bh, bv, inv, mask, abc, nb, h, w,
+                                base, n_active, k, bx, by, s);
+  if (rows_per_thread == 6)
+    return launch_tiles<6, 1024>(u_in, p_in, u_out, p_out, bh, bv, inv, mask, abc, nb, h, w,
+                                 base, n_active, k, bx, by, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+static size_t resident_smem(int rows, int w) {
+  return 3 * sizeof(float) * (size_t)(rows + 2) * (w + 2);
+}
+
+static int resident_config(cudaLaunchConfig_t* cfg, cudaLaunchAttribute* attr, int cluster,
+                           int threads, size_t smem, cudaStream_t stream) {
   int err = set_smem((const void*)jc_sweep_resident_kernel, smem);
   if (err) return err;
-  jc_sweep_resident_kernel<<<1, RESIDENT_THREADS, smem, (cudaStream_t)stream>>>(
-      u, bh, bv, inv, mask, abc, h, w, iters);
+  if (cluster > 8) {
+    err = (int)cudaFuncSetAttribute((const void*)jc_sweep_resident_kernel,
+                                    cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (err) return err;
+  }
+  *cfg = cudaLaunchConfig_t{};
+  cfg->gridDim = dim3(cluster);
+  cfg->blockDim = dim3(threads);
+  cfg->dynamicSmemBytes = smem;
+  cfg->stream = stream;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = cluster;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg->attrs = attr;
+  cfg->numAttrs = 1;
+  return 0;
+}
+
+extern "C" int jc_sweep_resident(float* u, float* p, const float* bh, const float* bv,
+                                 const float* inv, const unsigned char* mask,
+                                 const float* abc, int h, int w, int base, int n, int cluster,
+                                 void* stream) {
+  if (cluster < 1 || cluster > MAX_CLUSTER || w > RESIDENT_MAX_W) return (int)cudaErrorInvalidValue;
+  const int rows = (h + cluster - 1) / cluster;
+  if (rows > RESIDENT_ROWS) return (int)cudaErrorInvalidValue;
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  int err = resident_config(&cfg, &attr, cluster, (w + 31) / 32 * 32, resident_smem(rows, w),
+                            (cudaStream_t)stream);
+  if (err) return err;
+  err = (int)cudaLaunchKernelEx(&cfg, jc_sweep_resident_kernel, u, p, bh, bv, inv, mask, abc,
+                                h, w, rows, base, n);
+  if (err) return err;
   return (int)cudaGetLastError();
+}
+
+// The largest cluster (16, 8, 4, 2 or 1 CTAs) of K2 at its largest band
+// (RESIDENT_ROWS x RESIDENT_MAX_W) that the current card can run (at least
+// one such cluster active at once), in *out; 0 where none can.
+extern "C" int jc_resident_max_cluster(int* out) {
+  *out = 0;
+  for (int c = MAX_CLUSTER; c >= 1; c /= 2) {
+    cudaLaunchConfig_t cfg;
+    cudaLaunchAttribute attr;
+    int err = resident_config(&cfg, &attr, c, RESIDENT_MAX_W,
+                              resident_smem(RESIDENT_ROWS, RESIDENT_MAX_W), 0);
+    if (err) return err;
+    int active = 0;
+    err = (int)cudaOccupancyMaxActiveClusters(&active, jc_sweep_resident_kernel, &cfg);
+    if (err == (int)cudaErrorInvalidValue || err == (int)cudaErrorInvalidConfiguration) {
+      cudaGetLastError();  // this size is refused: try the next smaller one
+      continue;
+    }
+    if (err) return err;
+    if (active >= 1) {
+      *out = c;
+      return 0;
+    }
+  }
+  return 0;
 }
 
 extern "C" const char* rtdd_error_string(int err) {

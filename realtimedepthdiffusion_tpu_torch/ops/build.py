@@ -41,10 +41,13 @@ I = ctypes.c_int
 # c_void_p (ctypes would otherwise pass a Python int as a 32-bit int and cut
 # the pointer), ints as c_int. Each returns cudaGetLastError() as an int.
 SIGNATURES = {
-    # u_in, p_in, u_out, p_out, bh, bv, inv, mask, abc, h, w, base, n_active, k, stream
-    "jc_sweep_tiles": (P, P, P, P, P, P, P, P, P, I, I, I, I, I, P),
-    # u (in/out), bh, bv, inv, mask, abc, h, w, iters, stream
-    "jc_sweep_resident": (P, P, P, P, P, P, I, I, I, P),
+    # u_in, p_in, u_out, p_out, bh, bv, inv, mask, abc, nb, h, w, base,
+    # n_active, k, bx, by, rows_per_thread, stream
+    "jc_sweep_tiles": (P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, P),
+    # u, p (in/out), bh, bv, inv, mask, abc, h, w, base, n, cluster, stream
+    "jc_sweep_resident": (P, P, P, P, P, P, P, I, I, I, I, I, P),
+    # int* out
+    "jc_resident_max_cluster": (ctypes.POINTER(I),),
     # u_in, u_out, bh, bv, inv, mask, om, h, w, base, n_active, k, tile_h,
     # tile_w, parity, stream
     "rb_sweep_tiles": (P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, P),

@@ -3,8 +3,8 @@
 The device of the tensors decides: a CPU tensor runs the plain torch
 versions, a CUDA tensor runs the hand-written kernels. There is no
 fallback between the two. The solver decides the kernels: the Jacobi
-sweeps (``jacobi_chebyshev`` and ``jacobi``) run K1 and K2
-(``ops/sweep.py``), and K6 (``ops/fused_sweep.py``) on levels whose weight
+sweeps (``jacobi_chebyshev`` and ``jacobi``) run K1 and the cluster kernel
+K2 (``ops/sweep.py``), and K6 (``ops/fused_sweep.py``) on levels whose weight
 planes outgrow the card's L2 cache (``fused_level``); red-black runs K4 and
 K5 (``ops/rb_sweep.py``). What the port does not implement yet raises,
 naming the ROADMAP item that will bring it.
@@ -80,7 +80,8 @@ def fused_level(depth: torch.Tensor, solver: str) -> bool:
     if solver == "red_black":
         return False
     h, w = depth.shape
-    return sweep.strip_route(h, w, l2_bytes(depth.device)) == "K6"
+    return sweep.strip_route(h, w, l2_bytes(depth.device),
+                             sweep.resident_max_cluster(depth.device)) == "K6"
 
 
 def run_sweeps(depth: torch.Tensor, mask: torch.Tensor, wts, table: np.ndarray,

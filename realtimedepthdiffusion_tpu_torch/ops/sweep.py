@@ -3,9 +3,13 @@
 Counterpart of ``realtimedepthdiffusion_tpu/ops/pallas_sweep.py``:
 
 - ``jc_sweep_tiles`` (K1) launches up to k temporally blocked sweeps over
-  the whole level; it replaces ``_strip_mega_kernel_arena``.
-- ``jc_sweep_resident`` (K2) runs every sweep of a level that fits one
-  CTA's shared memory in one launch; it replaces ``_resident_kernel``.
+  the whole level, or over a stack of equally shaped planes; it replaces
+  ``_strip_mega_kernel_arena``.
+- ``jc_sweep_resident`` (K2) runs sweeps base .. base+n-1 of a level that a
+  thread-block cluster holds on chip, a band of rows per CTA, in one
+  launch, carrying (u, prev) in and out; it replaces ``_resident_kernel``.
+  ``resident_cluster`` is its fit rule, ``resident_max_cluster`` asks the
+  card how large a cluster it runs.
 - ``sweep_plain`` / ``solve_level_plain`` compute the same thing with torch
   ops, one rounding per op in the kernels' order. The CPU runs them, and
   on the card they are what the kernels are held to, bit for bit.
@@ -16,17 +20,20 @@ Counterpart of ``realtimedepthdiffusion_tpu/ops/pallas_sweep.py``:
 - ``chunks_plain`` / ``chunks_cuda`` run a level's sweeps in chunks that
   carry (u, prev) from one to the next, for the residual early exit
   (``core/solver.py:_chunked_early_exit``); they are the counterpart of
-  ``solve_level_strips_early_exit``. As there, every level of the early
-  exit goes through K1, since K2 keeps no ``prev`` between launches.
+  ``solve_level_strips_early_exit``. On the card a chunk is one K2 launch
+  on a level a cluster holds, else ceil(n/k) K1 launches.
 - ``halo_block_sweeps`` runs the sweeps between two halo exchanges of the
-  sharded step (``parallel/sharded.py``) on one halo-extended block: one K1
-  launch over the block, in place of the TPU's ``_halo_block_kernel``.
-  ``halo_block_sweeps_plain`` is its plain version.
+  sharded step (``parallel/sharded.py``) on a stack of halo-extended
+  blocks: one K1 launch over the whole stack, in place of the TPU's
+  ``_halo_block_kernel`` per block. ``halo_block_sweeps_plain`` is its
+  plain version.
 
 Each kernel wrapper counts its launches in ``<wrapper>.launches``.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import numpy as np
 import torch
@@ -37,13 +44,26 @@ from . import build
 # Sweeps per K1 launch: the ring of halo each tile carries. Deeper blocks
 # read the state from device memory less often and recompute more halo.
 TILE_SWEEPS = 8
-# The largest ring K1 accepts (shared memory grows as (32+2k)*(64+2k)*8 B).
+# The largest ring K1 accepts.
 MAX_TILE_SWEEPS = 32
-# One CTA's shared memory on Hopper (232,448 bytes) and K2's need per pixel
-# of the level padded by a one-pixel ring: u, prev, bh, bv, inv (f32) and
-# mask (u8).
+# K1's CTA shapes (threads across, threads down, rows per thread): each
+# thread owns a column of rows_per_thread pixels, so the extended tile is
+# (down * rows) x across and its interior that less 2k each way. The first
+# serves k <= 16 (a 64x64 tile, 48x48 inside at k = 8); the second, whose
+# 1024 threads keep 6 pixels each, the rings of 17 to 32 (72x80).
+TILE_SHALLOW = (64, 8, 8)
+TILE_DEEP = (80, 12, 6)
+# One CTA's shared memory on Hopper (232,448 bytes).
 SMEM_PER_CTA = 232448
-RESIDENT_BYTES_PER_PX = 21
+# K2's band: at most RESIDENT_ROWS rows of at most RESIDENT_MAX_W columns
+# per CTA, one column per thread, whose pixels live in registers.
+RESIDENT_ROWS = 17
+RESIDENT_MAX_W = 512
+# K2's cluster sizes; a cluster of 16 CTAs is the largest Hopper allows
+# (above 8 as a non-portable size). The CPU routes as the H100 does, which
+# runs 16.
+CLUSTER_SIZES = (1, 2, 4, 8, 16)
+H100_MAX_CLUSTER = 16
 # What K1 reads of a level's weights on every launch: bh, bv, inv (f32) and
 # mask (u8).
 WEIGHT_PLANE_BYTES_PER_PX = 13
@@ -51,12 +71,12 @@ WEIGHT_PLANE_BYTES_PER_PX = 13
 
 def relax_plain(u, wl, bh, wu, bv, inv):
     """The weighted 4-neighbour average, clip((wl*ul + bh*ur + wu*uu +
-    bv*ud) * inv, 0, 255), summed left to right; a neighbour outside the
-    image reads as 0."""
-    ul = F.pad(u[:, :-1], (1, 0))
-    ur = F.pad(u[:, 1:], (0, 1))
-    uu = F.pad(u[:-1, :], (0, 0, 1, 0))
-    ud = F.pad(u[1:, :], (0, 0, 0, 1))
+    bv*ud) * inv, 0, 255), summed left to right over the last two axes; a
+    neighbour outside the image reads as 0."""
+    ul = F.pad(u[..., :-1], (1, 0))
+    ur = F.pad(u[..., 1:], (0, 1))
+    uu = F.pad(u[..., :-1, :], (0, 0, 1, 0))
+    ud = F.pad(u[..., 1:, :], (0, 0, 0, 1))
     s = wl * ul
     s = s + bh * ur
     s = s + wu * uu
@@ -128,15 +148,25 @@ def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+def tile_config(k: int):
+    """K1's (threads across, threads down, rows per thread) at ring k."""
+    return TILE_SHALLOW if k <= 16 else TILE_DEEP
+
+
 def jc_sweep_tiles(u_in, p_in, u_out, p_out, bh, bv, inv, mask_u8, abc_dev,
-                   base: int, n_active: int, k: int = TILE_SWEEPS) -> None:
+                   base: int, n_active: int, k: int = TILE_SWEEPS, tile=None) -> None:
     """K1: sweeps base .. base+n_active-1 of the (iters, 3) device table
-    ``abc_dev``, reading (u_in, p_in) and writing (u_out, p_out)."""
-    h, w = u_in.shape
+    ``abc_dev``, reading (u_in, p_in) and writing (u_out, p_out): (h, w)
+    planes, or (nb, h, w) stacks of nb independent planes, one launch for
+    all. ``tile`` overrides ``tile_config(k)``."""
+    if u_in.dim() not in (2, 3):
+        raise ValueError(f"u_in: expected (h, w) or (nb, h, w), got {tuple(u_in.shape)}")
+    shape = tuple(u_in.shape)
+    nb, h, w = (1, *shape) if len(shape) == 2 else shape
     for name, t in (("u_in", u_in), ("p_in", p_in), ("u_out", u_out),
                     ("p_out", p_out), ("bh", bh), ("bv", bv), ("inv", inv)):
-        _check(name, t, torch.float32, (h, w))
-    _check("mask", mask_u8, torch.uint8, (h, w))
+        _check(name, t, torch.float32, shape)
+    _check("mask", mask_u8, torch.uint8, shape)
     _check_table("abc", abc_dev, 3)
     if not 1 <= k <= MAX_TILE_SWEEPS:
         raise ValueError(f"k must be in 1..{MAX_TILE_SWEEPS}, got {k}")
@@ -145,13 +175,16 @@ def jc_sweep_tiles(u_in, p_in, u_out, p_out, bh, bv, inv, mask_u8, abc_dev,
             f"sweeps {base}..{base + n_active - 1} with k={k} do not fit a "
             f"table of {abc_dev.shape[0]}"
         )
+    bx, by, rows = tile or tile_config(k)
+    if rows not in (6, 8) or bx * by > (512 if rows == 8 else 1024) or min(bx, by * rows) <= 2 * k:
+        raise ValueError(f"tile {(bx, by, rows)} cannot carry a ring of {k}")
     lib = build.load_library()
     # The launch goes to the current device: make it the tensors' one.
     with torch.cuda.device(u_in.device):
         err = lib.jc_sweep_tiles(
             u_in.data_ptr(), p_in.data_ptr(), u_out.data_ptr(), p_out.data_ptr(),
             bh.data_ptr(), bv.data_ptr(), inv.data_ptr(), mask_u8.data_ptr(),
-            abc_dev.data_ptr(), h, w, base, n_active, k, _stream(u_in),
+            abc_dev.data_ptr(), nb, h, w, base, n_active, k, bx, by, rows, _stream(u_in),
         )
     build.check("jc_sweep_tiles", err)
     jc_sweep_tiles.launches += 1
@@ -160,40 +193,76 @@ def jc_sweep_tiles(u_in, p_in, u_out, p_out, bh, bv, inv, mask_u8, abc_dev,
 jc_sweep_tiles.launches = 0
 
 
-def resident_fits(h: int, w: int) -> bool:
-    """Whether K2 can hold an (h, w) level in one CTA's shared memory."""
-    return (h + 2) * (w + 2) * RESIDENT_BYTES_PER_PX <= SMEM_PER_CTA
+def resident_cluster(h: int, w: int, max_cluster: int):
+    """The cluster K2 runs an (h, w) level on, on a card that runs clusters
+    of up to ``max_cluster`` CTAs: the largest, since more CTAs share a
+    sweep's issue and were faster at every level measured (PERF.md),
+    if its bands hold at most ``RESIDENT_ROWS`` rows of at most
+    ``RESIDENT_MAX_W`` columns; else None."""
+    if w <= RESIDENT_MAX_W and -(-h // max_cluster) <= RESIDENT_ROWS:
+        return max_cluster
+    return None
 
 
-def strip_route(h: int, w: int, l2_bytes: int) -> str:
+_max_cluster = {}
+
+
+def resident_max_cluster(device: torch.device) -> int:
+    """The largest K2 cluster the card ``device`` names runs at K2's largest
+    band, asked of the card once (``cudaOccupancyMaxActiveClusters``); the
+    H100's for the CPU. Raises where the card runs not even one CTA."""
+    if device.type != "cuda":
+        return H100_MAX_CLUSTER
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    if index not in _max_cluster:
+        lib = build.load_library()
+        out = ctypes.c_int(0)
+        with torch.cuda.device(index):
+            build.check("jc_resident_max_cluster", lib.jc_resident_max_cluster(ctypes.byref(out)))
+        if out.value < 1:
+            raise RuntimeError(f"K2: card {index} runs not even one CTA of it")
+        _max_cluster[index] = out.value
+    return _max_cluster[index]
+
+
+def strip_route(h: int, w: int, l2_bytes: int, max_cluster: int) -> str:
     """The kernel of an (h, w) Jacobi level on a card with an L2 cache of
-    ``l2_bytes``: "K2" when the level fits one CTA's shared memory; else
-    "K6" when K1's weight planes would not stay in L2, so that K6 derives
-    the weights in the kernel instead; else "K1". It is the Hopper reading
-    of the reference's arena/uarena choice (``_plan_strips``,
-    ``pallas_sweep.py:902-917``), with L2 in place of VMEM."""
-    if resident_fits(h, w):
+    ``l2_bytes`` that runs K2 clusters of up to ``max_cluster`` CTAs: "K2"
+    when such a cluster holds the level; else "K6" when K1's weight planes
+    would not stay in L2, so that K6 derives the weights in the kernel
+    instead; else "K1". It is the Hopper reading of the reference's
+    resident/arena/uarena choice (``solve_level_pallas``, ``_plan_strips``,
+    ``pallas_sweep.py:902-917``), with a cluster's shared memory and L2 in
+    place of VMEM."""
+    if resident_cluster(h, w, max_cluster):
         return "K2"
     if WEIGHT_PLANE_BYTES_PER_PX * h * w > l2_bytes:
         return "K6"
     return "K1"
 
 
-def jc_sweep_resident(u, bh, bv, inv, mask_u8, abc_dev) -> None:
-    """K2: every sweep of the (iters, 3) device table ``abc_dev`` on the
-    level ``u``, in place, starting from a zero Chebyshev history."""
+def jc_sweep_resident(u, p, bh, bv, inv, mask_u8, abc_dev, base: int, n: int,
+                      cluster: int) -> None:
+    """K2: sweeps base .. base+n-1 of the (iters, 3) device table
+    ``abc_dev`` on the level (u, prev) = (``u``, ``p``), in place, on a
+    cluster of ``cluster`` CTAs."""
     h, w = u.shape
-    for name, t in (("u", u), ("bh", bh), ("bv", bv), ("inv", inv)):
+    for name, t in (("u", u), ("p", p), ("bh", bh), ("bv", bv), ("inv", inv)):
         _check(name, t, torch.float32, (h, w))
     _check("mask", mask_u8, torch.uint8, (h, w))
     _check_table("abc", abc_dev, 3)
-    if not resident_fits(h, w):
-        raise ValueError(f"a {h}x{w} level does not fit one CTA's shared memory")
+    if n < 1 or base < 0 or base + n > abc_dev.shape[0]:
+        raise ValueError(f"sweeps {base}..{base + n - 1} do not fit a table of {abc_dev.shape[0]}")
+    if cluster not in CLUSTER_SIZES or cluster > resident_max_cluster(u.device):
+        raise ValueError(f"a cluster of {cluster} does not run on {u.device}")
+    if w > RESIDENT_MAX_W or -(-h // cluster) > RESIDENT_ROWS:
+        raise ValueError(f"a {h}x{w} level does not fit a cluster of {cluster} CTAs")
     lib = build.load_library()
-    err = lib.jc_sweep_resident(
-        u.data_ptr(), bh.data_ptr(), bv.data_ptr(), inv.data_ptr(),
-        mask_u8.data_ptr(), abc_dev.data_ptr(), h, w, abc_dev.shape[0], _stream(u),
-    )
+    with torch.cuda.device(u.device):
+        err = lib.jc_sweep_resident(
+            u.data_ptr(), p.data_ptr(), bh.data_ptr(), bv.data_ptr(), inv.data_ptr(),
+            mask_u8.data_ptr(), abc_dev.data_ptr(), h, w, base, n, cluster, _stream(u),
+        )
     build.check("jc_sweep_resident", err)
     jc_sweep_resident.launches += 1
 
@@ -203,22 +272,10 @@ jc_sweep_resident.launches = 0
 
 def solve_level_cuda(depth: torch.Tensor, mask: torch.Tensor, wts, abc: np.ndarray,
                      k: int = TILE_SWEEPS) -> torch.Tensor:
-    """All sweeps of one level on the card: K2 when the level fits one CTA's
-    shared memory, else ceil(iters/k) launches of K1."""
-    h, w = depth.shape
-    iters = abc.shape[0]
-    u = depth.to(torch.float32).contiguous().clone()
-    if iters == 0:
-        return u
-    abc_dev = torch.from_numpy(np.ascontiguousarray(abc, np.float32)).to(u.device)
-    bh = wts.wr.contiguous()
-    bv = wts.wd.contiguous()
-    inv = wts.inv_count.contiguous()
-    m8 = mask.to(torch.uint8).contiguous()
-    if resident_fits(h, w):
-        jc_sweep_resident(u, bh, bv, inv, m8, abc_dev)
-        return u
-    return _solve_tiles(u, bh, bv, inv, m8, abc_dev, k)
+    """All sweeps of one level on the card: one K2 launch when a cluster
+    holds the level, else ceil(iters/k) launches of K1."""
+    state, run, u_of = chunks_cuda(depth, mask, wts, abc, k)
+    return u_of(run(state, 0, abc.shape[0])) if abc.shape[0] else u_of(state)
 
 
 def _solve_tiles(u, bh, bv, inv, m8, abc_dev, k):
@@ -252,21 +309,28 @@ def _tiles_chunk(u, prev, bh, bv, inv, m8, abc_dev, base, n, k):
 
 def chunks_cuda(depth: torch.Tensor, mask: torch.Tensor, wts, abc: np.ndarray,
                 k: int = TILE_SWEEPS):
-    """``chunks_plain`` on the card: each chunk is ceil(n/k) launches of K1."""
+    """``chunks_plain`` on the card: each chunk is one K2 launch from its
+    ``base`` when a cluster holds the level, else ceil(n/k) launches of K1."""
     u = depth.to(torch.float32).contiguous().clone()
     abc_dev = torch.from_numpy(np.ascontiguousarray(abc, np.float32)).to(u.device)
     planes = (wts.wr.contiguous(), wts.wd.contiguous(), wts.inv_count.contiguous(),
               mask.to(torch.uint8).contiguous())
+    cluster = resident_cluster(*u.shape, resident_max_cluster(u.device))
 
-    def run(state, base, n):
-        return _tiles_chunk(*state, *planes, abc_dev, base, n, k)
+    if cluster:
+        def run(state, base, n):
+            jc_sweep_resident(*state, *planes, abc_dev, base, n, cluster)
+            return state
+    else:
+        def run(state, base, n):
+            return _tiles_chunk(*state, *planes, abc_dev, base, n, k)
 
     return (u, torch.zeros_like(u)), run, _first
 
 
 def halo_block_sweeps_plain(u_e, p_e, bh_e, bv_e, inv_e, m_e, abc):
     """Plain version of ``halo_block_sweeps``: ``sweep_plain`` once per row
-    of ``abc``, on the block alone."""
+    of ``abc``, on each block alone."""
     wl, wu = left_up_weights(bh_e, bv_e)
     mask = m_e.to(torch.bool)
     u, prev = u_e, p_e
@@ -276,11 +340,12 @@ def halo_block_sweeps_plain(u_e, p_e, bh_e, bv_e, inv_e, m_e, abc):
 
 
 def halo_block_sweeps(u_e, p_e, bh_e, bv_e, inv_e, m_e, abc):
-    """The (n, 3) schedule ``abc`` on one halo-extended (h, w) block of the
-    sharded step; returns (u, prev). Plain torch for CPU tensors, one K1
-    launch with n_active = k = n for CUDA tensors.
+    """The (n, 3) schedule ``abc`` on a halo-extended (h, w) block of the
+    sharded step, or on an (nb, h, w) stack of them; returns (u, prev).
+    Plain torch for CPU tensors, one K1 launch over the whole stack with
+    n_active = k = n for CUDA tensors.
 
-    K1 reads zeros past the block where the TPU kernel's rolls wrap around;
+    K1 reads zeros past each block where the TPU kernel's rolls wrap around;
     either way only the outer n rings are wrong, and the caller, whose halo
     is at least n wide, crops them."""
     if u_e.device.type == "cpu":

@@ -1,16 +1,18 @@
 """k-wide halo exchange between the slots of a mesh (port of ``realtimedepthdiffusion_tpu/parallel/halo.py``).
 
 Each slot's block is extended by a k-wide ring of its neighbours' data:
-rows first (the top halo is the up-neighbour's bottom k rows, the bottom
-halo the down-neighbour's top k rows), then columns taken from the
-row-extended neighbours, so the corners carry true diagonal data. Slots on
-the image border get zeros there, which is right because the weights at
-the image border are zero. Exchanging a k-wide halo every k sweeps leaves
-the interior exact, since each sweep spoils one more ring from the edge.
+the top halo is the up-neighbour's bottom k rows, the bottom halo the
+down-neighbour's top k rows, the sides likewise, and the corners the
+diagonal neighbours' corners, which is what exchanging rows first and then
+the columns of the row-extended blocks gives. Slots on the image border get
+zeros there, which is right because the weights at the image border are
+zero. Exchanging a k-wide halo every k sweeps leaves the interior exact,
+since each sweep spoils one more ring from the edge.
 
-JAX moves the strips with ``ppermute`` over ICI; here a strip moves to the
-receiving slot's device with ``.to(device, non_blocking=True)``, a no-op
-between slots of one device.
+JAX moves the strips with ``ppermute`` over ICI; here each strip is copied
+into the receiving slot's extended block (``extend_into``), which may be a
+view of a stack that holds every block of a device, across devices where
+the two slots live on different cards.
 """
 
 from __future__ import annotations
@@ -22,35 +24,47 @@ import torch
 from .mesh import Slot, SlotMesh
 
 
-def _strip(blocks, src: Slot, take, like: torch.Tensor) -> torch.Tensor:
-    """``take`` of the block of slot ``src`` on ``like``'s device, or zeros
-    shaped as ``take(like)`` where ``src`` is off the grid."""
-    block = blocks.get(src)
-    if block is None:
-        return torch.zeros_like(take(like))
-    return take(block).to(like.device, non_blocking=True)
+# Where each of the eight neighbours' strips lands in an extended block
+# (rows, then columns, of the extended block, for an offset of -1, 0 or +1)
+# and which part of the neighbour's block it is.
+def _dst(d, k, n):
+    return slice(0, k) if d < 0 else slice(k, k + n) if d == 0 else slice(k + n, None)
+
+
+def _src(d, k):
+    return slice(-k, None) if d < 0 else slice(None) if d == 0 else slice(0, k)
+
+
+def extend_into(mesh: SlotMesh, blocks: Dict[Slot, torch.Tensor], k: int,
+                out: Dict[Slot, torch.Tensor]) -> None:
+    """Write every slot's (..., h, w) block, extended by a k-wide ring of its
+    neighbours' data, into ``out[slot]`` (..., h+2k, w+2k), which may be a
+    view of a larger stack: the block itself, its up/down/left/right
+    neighbours' k nearest rows or columns, and its diagonal neighbours'
+    k x k corners. A part whose neighbour is off the grid is not written:
+    ``out`` holds zeros there, from its allocation on. A strip from a slot
+    on another device is copied across."""
+    h, w = blocks[mesh.home_slot].shape[-2:]
+    if not 1 <= k <= min(h, w):
+        raise ValueError(f"a {k}-wide halo does not fit {h}x{w} blocks")
+    for (p, i, j), dst in out.items():
+        for di in (-1, 0, 1):
+            for dj in (-1, 0, 1):
+                src = blocks.get((p, i + di, j + dj))
+                if src is not None:
+                    dst[..., _dst(di, k, h), _dst(dj, k, w)].copy_(
+                        src[..., _src(di, k), _src(dj, k)], non_blocking=True)
 
 
 def extend_with_halo(mesh: SlotMesh, blocks: Dict[Slot, torch.Tensor], k: int) -> Dict[Slot, torch.Tensor]:
     """Every slot's (..., h, w) block extended to (..., h+2k, w+2k) with its
-    neighbours' data. The spatial block is the last two axes; leading axes
-    (a slot's local batch, channels) ride along, so one exchange serves
-    them all. k may not exceed a block's height or width."""
-    h, w = blocks[mesh.home_slot].shape[-2:]
-    if not 1 <= k <= min(h, w):
-        raise ValueError(f"a {k}-wide halo does not fit {h}x{w} blocks")
-    rows = {}
-    for p, i, j in mesh.slots:
-        x = blocks[(p, i, j)]
-        top = _strip(blocks, (p, i - 1, j), lambda a: a[..., -k:, :], x)
-        bot = _strip(blocks, (p, i + 1, j), lambda a: a[..., :k, :], x)
-        rows[(p, i, j)] = torch.cat([top, x, bot], dim=-2)
-    out = {}
-    for p, i, j in mesh.slots:
-        xv = rows[(p, i, j)]
-        left = _strip(rows, (p, i, j - 1), lambda a: a[..., :, -k:], xv)
-        right = _strip(rows, (p, i, j + 1), lambda a: a[..., :, :k], xv)
-        out[(p, i, j)] = torch.cat([left, xv, right], dim=-1)
+    neighbours' data (``extend_into``), in new tensors. The spatial block is
+    the last two axes; leading axes (a slot's local batch, channels) ride
+    along, so one exchange serves them all. k may not exceed a block's
+    height or width."""
+    out = {s: b.new_zeros((*b.shape[:-2], b.shape[-2] + 2 * k, b.shape[-1] + 2 * k))
+           for s, b in blocks.items()}
+    extend_into(mesh, blocks, k, out)
     return out
 
 

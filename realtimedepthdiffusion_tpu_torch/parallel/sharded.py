@@ -3,13 +3,14 @@
 Each image is cut into a dy x dx grid of blocks, one per slot of a
 ``SlotMesh`` (``parallel/mesh.py``). Every k sweeps the slots exchange a
 k-wide halo (``parallel/halo.py``) and run k sweeps on their extended
-blocks: one K1 launch per block for Jacobi-Chebyshev, one K4 launch with
-the block's checkerboard parity for red-black (2k-wide halo, since an
-iteration reads two rings), and one K3 launch per block for the defocus,
-behind a ring of max_half + 1. The 'batch' axis splits a batch of images
-over the slots; each slot runs its share image by image. Levels whose
-blocks would be thinner than the exchange run replicated, through the
-single-device ``core/solver.py:solve_level`` per image, on the home device.
+blocks: for Jacobi-Chebyshev one K1 launch per device over a stack of
+every block the device holds, for red-black one K4 launch per block with
+the block's checkerboard parity (2k-wide halo, since an iteration reads
+two rings), and one K3 launch per block for the defocus, behind a ring of
+max_half + 1. The 'batch' axis splits a batch of images over the slots.
+Levels whose blocks would be thinner than the exchange run replicated,
+through the single-device ``core/solver.py:solve_level`` per image, on the
+home device.
 
 One process drives every slot, as one JAX program drives its mesh; the
 residual early exit is a host loop that reduces the slots' partial sums to
@@ -40,7 +41,7 @@ from ..ops.defocus import block_ring, defocus_block, defocus_block_sat, defocus_
 from ..ops.dispatch import check_supported
 from ..ops.rb_sweep import halo_block_rb_sweeps, halo_block_rb_sweeps_plain
 from ..ops.sweep import halo_block_sweeps, halo_block_sweeps_plain, left_up_weights, relax_plain
-from .halo import extend_with_halo
+from .halo import extend_into, extend_with_halo
 from .mesh import SlotMesh
 
 # Halo width == sweeps between exchanges.
@@ -128,15 +129,27 @@ class _ShardedLevel:
     """One level's padded planes scattered over the mesh and extended once
     by the exchange width, the probe of the early exit, and the host loop
     that runs chunks of iterations until the probe or the budget says stop.
-    The solvers below supply ``state``, ``run`` and ``u_of``."""
+    The solvers below supply ``state``, ``run`` and ``u_of``.
+
+    The extended blocks of every slot on a device lie in one (N, h+2w,
+    w+2w) stack per device, slot after slot (``at``), so one kernel launch
+    serves all of a device's blocks; ``bh_e`` and the rest are per-slot
+    views of the weight stacks."""
 
     def __init__(self, mesh, u, planes, m, width, plain):
         self.mesh, self.width, self.plain = mesh, width, plain
         self.hb, self.wb = u.shape[-2] // mesh.shape["dy"], u.shape[-1] // mesh.shape["dx"]
         self.m = {s: b.to(torch.bool) for s, b in mesh.scatter(m).items()}
-        self.bh_e, self.bv_e, self.inv_e, self.m_e = (
-            self.ext(mesh.scatter(p)) for p in (*planes, m))
         self.u0 = mesh.scatter(u)
+        self.nb = self.u0[mesh.home_slot].shape[0]
+        self.n_blocks = self.nb * len(mesh.slots)
+        self.at, self.stack_len = {}, collections.Counter()
+        for s, d in mesh.devices.items():
+            self.at[s] = (d, self.stack_len[d])
+            self.stack_len[d] += self.nb
+        self.canvas = None
+        self.stacks = [self.stack(mesh.scatter(p)) for p in (*planes, m)]
+        self.bh_e, self.bv_e, self.inv_e, self.m_e = (self.views(st) for st in self.stacks)
         # The planes extended by one ring, for the probe.
         c = width - 1
         ring1 = (lambda a: a[..., c:-c, c:-c]) if c else (lambda a: a)  # noqa: E731
@@ -148,13 +161,52 @@ class _ShardedLevel:
     def ext(self, blocks, k=None):
         return extend_with_halo(self.mesh, blocks, k or self.width)
 
+    def views(self, stacks):
+        """Each slot's blocks in the per-device ``stacks``."""
+        return {s: stacks[d][i:i + self.nb] for s, (d, i) in self.at.items()}
+
+    def stack(self, blocks, stacks=None):
+        """The per-slot ``blocks`` extended by the exchange width, written
+        into per-device ``stacks`` (new zeroed ones if None); returns them."""
+        if stacks is None:
+            like = blocks[self.mesh.home_slot]
+            e = 2 * self.width
+            stacks = {d: torch.zeros((n, self.hb + e, self.wb + e), dtype=like.dtype, device=d)
+                      for d, n in self.stack_len.items()}
+        extend_into(self.mesh, blocks, self.width, self.views(stacks))
+        return stacks
+
+    def crop(self, stacks):
+        """Each slot's blocks in the per-device ``stacks``, less the ring."""
+        k = self.width
+        return {s: v[..., k:-k, k:-k] for s, v in self.views(stacks).items()}
+
+    def refill(self, src, dst):
+        """One exchange: the interiors of the per-device stacks ``src``
+        extended by their neighbours' data into the stacks ``dst``. Where
+        one device holds every slot, the interiors go into a zero-ringed
+        canvas of the whole padded images, and the extended blocks are its
+        overlapping windows: two copies whatever the mesh, where
+        ``extend_into`` makes up to nine per slot."""
+        if not _one_device(self.mesh):
+            extend_into(self.mesh, self.crop(src), self.width, self.views(dst))
+            return
+        (dev, s_in), = src.items()
+        b, dy, dx = (self.mesh.shape[a] for a in ("batch", "dy", "dx"))
+        k, hb, wb, nb = self.width, self.hb, self.wb, self.nb
+        he, we = hb + 2 * k, wb + 2 * k
+        if self.canvas is None:
+            self.canvas = s_in.new_zeros((b * nb, dy * hb + 2 * k, dx * wb + 2 * k))
+        c = self.canvas
+        c[:, k:-k, k:-k].view(b, nb, dy, hb, dx, wb).copy_(
+            s_in.view(b, dy, dx, nb, he, we)[..., k:-k, k:-k].permute(0, 3, 1, 4, 2, 5))
+        windows = c.unfold(1, he, hb).unfold(2, we, wb).view(b, nb, dy, dx, he, we)
+        dst[dev].view(b, dy, dx, nb, he, we).copy_(windows.permute(0, 2, 3, 1, 4, 5))
+
     def tables(self, table: np.ndarray):
-        """``table`` on each slot's device (on the CPU for the plain runs)."""
+        """``table`` on each device (on the CPU for the plain runs)."""
         host = torch.from_numpy(np.ascontiguousarray(table, np.float32))
-        if self.plain:
-            return {s: host for s in self.mesh.slots}
-        on = {d: host.to(d) for d in set(self.mesh.devices.values())}
-        return {s: on[d] for s, d in self.mesh.devices.items()}
+        return {d: host if self.plain else host.to(d) for d in self.stack_len}
 
     def residual(self, us, cfg) -> float:
         u1 = self.ext(us, 1)
@@ -203,25 +255,38 @@ class _ShardedLevel:
         return {s: torch.stack([crop(r) for r in rs]) for s, rs in res.items()}
 
 
+def _one_device(mesh) -> bool:
+    return len(set(mesh.devices.values())) == 1
+
+
 def _jc_level(mesh, u, planes, m, iters, cfg, k, blocks, exit_log, shape):
     lv = _ShardedLevel(mesh, u, planes, m, k, blocks.plain)
     tables = lv.tables(abc_schedule(iters, cfg))
+    weights = {d: tuple(st[d] for st in lv.stacks) for d in lv.stack_len}
+    u_e, p_e = lv.stack(lv.u0), lv.stack(lv.u0)
 
     def exchange(state, base, n):
-        """One halo exchange of (u, prev), then n <= k sweeps per block."""
-        u_e, p_e = lv.ext(state[0]), lv.ext(state[1])
-        block_calls["jacobi_chebyshev"] += sum(b.shape[0] for b in u_e.values())
-        return lv.blocks_of(k, lambda s, *b: blocks.jc(*b, tables[s][base:base + n]),
-                            u_e, p_e, lv.bh_e, lv.bv_e, lv.inv_e, lv.m_e)
+        """One halo exchange of (u, prev) into each device's stacks, then
+        n <= k sweeps over each stack in one call. The state is each
+        device's (u, prev) stacks with a ring, which only the interiors of
+        matter. A call writes new tensors, so no stack is both its input
+        and its output."""
+        lv.refill(state[0], u_e)
+        lv.refill(state[1], p_e)
+        block_calls["jacobi_chebyshev"] += lv.n_blocks
+        out = {d: blocks.jc(u_e[d], p_e[d], *weights[d], tables[d][base:base + n])
+               for d in weights}
+        return tuple({d: o[t] for d, o in out.items()} for t in (0, 1))
 
     def run(state, base, n):
         for b0 in range(base, base + n, k):
             state = exchange(state, b0, min(k, base + n - b0))
         return state
 
-    state = (lv.u0, {s: torch.zeros_like(b) for s, b in lv.u0.items()})
-    state, done, res = lv.solve(state, run, lambda st: st[0], iters, cfg, exit_log, shape)
-    return state[0], done, res
+    state = (lv.stack(lv.u0), lv.stack({s: torch.zeros_like(b) for s, b in lv.u0.items()}))
+    state, done, res = lv.solve(state, run, lambda st: lv.crop(st[0]), iters, cfg, exit_log,
+                                shape)
+    return lv.crop(state[0]), done, res
 
 
 def _rb_level(mesh, u, planes, m, iters, cfg, k, blocks, exit_log, shape):
@@ -237,7 +302,7 @@ def _rb_level(mesh, u, planes, m, iters, cfg, k, blocks, exit_log, shape):
         u_e = lv.ext(us)
         block_calls["red_black"] += sum(b.shape[0] for b in u_e.values())
         return lv.blocks_of(ew, lambda s, ue, bh, bv, inv, me: blocks.rb(
-            ue, bh, bv, inv, me, parity[s], tables[s][base:base + n]),
+            ue, bh, bv, inv, me, parity[s], tables[mesh.devices[s]][base:base + n]),
             u_e, lv.bh_e, lv.bv_e, lv.inv_e, lv.m_e)
 
     def run(us, base, n):

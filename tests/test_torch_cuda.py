@@ -1,6 +1,7 @@
 """The port's CUDA kernels against their plain versions on the card, at
 shapes the 1080p run does not reach: single rows, levels smaller than one
-tile, ragged tiles, every ring width k, tiles that start on a black cell,
+tile, ragged tiles, every ring width k, stacks of planes in one K1 launch,
+K2 on every cluster-held level shape from a base > 0, tiles that start on a black cell,
 chunks that start past iteration 0, large apertures, K6 at every level rule
 and the 4K routes and SAT sums. Every comparison is exact.
 
@@ -62,13 +63,75 @@ def test_tiles_kernel_equals_plain(dev, h, w, k, iters):
 @pytest.mark.parametrize("level", [0, 2])
 def test_resident_kernel_equals_plain(dev, h, w, iters, level):
     depth, mask, wts, abc = _level(dev, h, w, iters, seed=h + w + iters, level=level)
-    assert sweep.resident_fits(h, w)
+    assert sweep.resident_cluster(h, w, sweep.resident_max_cluster(dev))
     before = sweep.jc_sweep_resident.launches
     got = sweep.solve_level_cuda(depth, mask, wts, abc)
     want = sweep.solve_level_plain(depth, mask, wts, abc)
     torch.cuda.synchronize()
     assert torch.equal(got, want)
     assert sweep.jc_sweep_resident.launches == before + 1
+
+
+@pytest.mark.parametrize("h,w", [(1, 1), (67, 120), (135, 240), (270, 480), (133, 251),
+                                 (270, 512)])
+@pytest.mark.parametrize("split", [(1, 0), (3, 4), (10, 27)])
+@pytest.mark.parametrize("cluster", [None, 16])
+def test_cluster_resident_kernel_from_base_equals_plain(dev, h, w, split, cluster):
+    """K2 on its cluster (the route's, or 16 CTAs) in two launches, the
+    second from base > 0 carrying (u, prev), as an early exit runs it."""
+    first, rest = split
+    depth, mask, wts, abc = _level(dev, h, w, first + rest, seed=h + w + first)
+    planes = (wts.wr.contiguous(), wts.wd.contiguous(), wts.inv_count.contiguous(),
+              mask.to(torch.uint8))
+    route = sweep.resident_cluster(h, w, sweep.resident_max_cluster(dev))
+    assert route is not None
+    u, p = depth.clone(), torch.zeros_like(depth)
+    abc_dev = torch.from_numpy(abc).to(dev)
+    before = sweep.jc_sweep_resident.launches
+    sweep.jc_sweep_resident(u, p, *planes, abc_dev, 0, first, cluster or route)
+    if rest:
+        sweep.jc_sweep_resident(u, p, *planes, abc_dev, first, rest, cluster or route)
+    state, run, _ = sweep.chunks_plain(depth, mask, wts, abc)
+    want = run(state, 0, first + rest)
+    torch.cuda.synchronize()
+    assert torch.equal(u, want[0]) and torch.equal(p, want[1])
+    assert sweep.jc_sweep_resident.launches == before + 1 + (rest > 0)
+
+
+@pytest.mark.parametrize("nb", [1, 3, 16])
+@pytest.mark.parametrize("h,w", [(37, 53), (76, 136)])
+@pytest.mark.parametrize("k", [1, 8, 32])
+def test_stacked_tiles_kernel_equals_blocks_plain(dev, nb, h, w, k):
+    """K1 over an (nb, h, w) stack in one launch equals each plane's plain
+    sweeps alone."""
+    planes = [_halo_block(dev, h, w, seed=h + k + i) for i in range(nb)]
+    stack = [torch.stack(t).contiguous() for t in zip(*planes)]
+    abc = abc_schedule(k + 3, DiffusionConfig())[3:]
+    before = sweep.jc_sweep_tiles.launches
+    got = sweep.halo_block_sweeps(*stack, torch.from_numpy(abc).to(dev))
+    torch.cuda.synchronize()
+    assert sweep.jc_sweep_tiles.launches == before + 1
+    for i, blk in enumerate(planes):
+        want = sweep.halo_block_sweeps_plain(*blk, abc)
+        assert torch.equal(got[0][i], want[0]) and torch.equal(got[1][i], want[1])
+
+
+def test_cluster_query_and_refusals(dev):
+    """The card runs some K2 cluster; the wrapper refuses a cluster the
+    card does not run and a level its bands cannot hold."""
+    c = sweep.resident_max_cluster(dev)
+    assert c in sweep.CLUSTER_SIZES
+    f = torch.zeros((540, 960), device=dev)
+    m = torch.zeros((540, 960), dtype=torch.uint8, device=dev)
+    abc = torch.zeros((4, 3), device=dev)
+    with pytest.raises(ValueError, match="does not fit"):
+        sweep.jc_sweep_resident(f, f, f, f, f, m, abc, 0, 4, c)
+    with pytest.raises(ValueError, match="does not run"):
+        sweep.jc_sweep_resident(f, f, f, f, f, m, abc, 0, 4, 32)
+    with pytest.raises(ValueError, match="ring"):
+        sweep.jc_sweep_tiles(f, f, f, f, f, f, f, m, abc, 0, 4, k=4, tile=(8, 1, 8))
+    with pytest.raises(ValueError, match="nb, h, w"):
+        sweep.jc_sweep_tiles(*[f[None, None]] * 7, m[None, None], abc, 0, 4)
 
 
 @pytest.mark.parametrize("h,w", [(7, 9), (96, 160), (257, 130), (540, 960)])
@@ -159,7 +222,7 @@ def test_wrappers_reject_bad_arguments(dev):
     with pytest.raises(ValueError, match="float32"):
         sweep.jc_sweep_tiles(f.double(), f, f, f, f, f, f, m, abc, 0, 4)
     with pytest.raises(ValueError, match="shape"):
-        sweep.jc_sweep_resident(f, f[:, :8].contiguous(), f, f, m, abc)
+        sweep.jc_sweep_resident(f, f[:, :8].contiguous(), f, f, f, m, abc, 0, 4, 1)
     with pytest.raises(ValueError, match="do not fit"):
         sweep.jc_sweep_tiles(f, f, f, f, f, f, f, m, abc, 2, 4)
     with pytest.raises(ValueError, match="rgb"):
@@ -356,8 +419,9 @@ def test_defocus_whole_image_unchanged(dev, h, w):
 
 
 def test_sharded_step_on_card_equals_plain_and_single_device(dev):
-    """A 64x96 step on 8 slots of one card: the kernels' run equals the plain
-    blocks' run and the single-device pipeline per image."""
+    """A 64x96 step on 8 slots (of one card, or spread over several): the
+    kernels' run equals the plain blocks' run and the single-device
+    pipeline per image."""
     from realtimedepthdiffusion_tpu_torch import DepthPipeline
     from realtimedepthdiffusion_tpu_torch.core import effects as fx
     from realtimedepthdiffusion_tpu_torch.parallel import mesh, sharded
@@ -369,7 +433,9 @@ def test_sharded_step_on_card_equals_plain_and_single_device(dev):
     ops.reset_launch_counts()
     depth, _, out = fn(*args)
     counts = ops.launch_counts()
-    assert counts["jc_sweep_tiles"] == 5 * 8 and counts["defocus_block"] == 8
+    # One K1 launch per exchange (5) and card, over all its slots' blocks.
+    cards = len(set(m.devices.values()))
+    assert counts["jc_sweep_tiles"] == 5 * cards and counts["defocus_block"] == 8
     plain_fn, _ = sharded.batched_step(m, 64, 96, cfg, fx.EFFECT_DEFOCUS, plain=True)
     p_depth, _, p_out = plain_fn(*args)
     torch.cuda.synchronize()

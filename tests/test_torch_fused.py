@@ -116,20 +116,27 @@ def test_fused_early_exit_matches_uarena_kernel(monkeypatch):
     np.testing.assert_allclose(got, want, atol=5e-3, rtol=0)
 
 
-# Every level of each size, finest first, with an L2 of 50 MiB.
+# Every level of each size, finest first, with an L2 of 50 MiB, on a card
+# that runs K2 clusters of 16 CTAs (the H100) and on one that runs 4: L4,
+# L3 and L2 of 1080p (L5, L4 and L3 of 4K) need 4, 8 and 16 CTAs.
 ROUTES = {
-    (2160, 3840): ["K6", "K1", "K1", "K1", "K1", "K2"],
-    (2160, 4096): ["K6", "K1", "K1", "K1", "K1", "K2"],
-    (1080, 1920): ["K1", "K1", "K1", "K1", "K2"],
+    ((2160, 3840), 16): ["K6", "K1", "K1", "K2", "K2", "K2"],
+    ((2160, 4096), 16): ["K6", "K1", "K1", "K2", "K2", "K2"],
+    ((1080, 1920), 16): ["K1", "K1", "K2", "K2", "K2"],
+    ((2160, 3840), 4): ["K6", "K1", "K1", "K1", "K1", "K2"],
+    ((2160, 4096), 4): ["K6", "K1", "K1", "K1", "K1", "K2"],
+    ((1080, 1920), 4): ["K1", "K1", "K1", "K1", "K2"],
 }
 
 
-@pytest.mark.parametrize("hw", list(ROUTES))
-def test_strip_route(hw):
+@pytest.mark.parametrize("hw,max_cluster", list(ROUTES))
+def test_strip_route(hw, max_cluster):
     cfg = DiffusionConfig()
     levels = [cfg.level_size(*hw, lv) for lv in range(cfg.num_levels(*hw))]
-    assert [sweep.strip_route(h, w, 50 * MiB) for h, w in levels] == ROUTES[hw]
+    assert [sweep.strip_route(h, w, 50 * MiB, max_cluster)
+            for h, w in levels] == ROUTES[(hw, max_cluster)]
     assert dispatch.l2_bytes(torch.device("cpu")) == 50 * MiB
+    assert sweep.resident_max_cluster(torch.device("cpu")) == 16
 
 
 @pytest.fixture(scope="module")
@@ -148,9 +155,9 @@ def cascade():
 
 
 def test_cascade_on_forced_fused_route(cascade, monkeypatch):
-    """With no L2 every level that K2 cannot hold takes K6's route (L0 and
-    L1 here): bit-equal to the normal route on the CPU, within RMSE 1e-3 of
-    JAX, scribbles exact."""
+    """With no L2, on a card that runs K2 clusters of 4 CTAs, every level that
+    K2 cannot hold takes K6's route (L0 and L1 here): bit-equal to the
+    normal route on the CPU, within RMSE 1e-3 of JAX, scribbles exact."""
     derived = []
     real = fused_sweep.derive_weights_plain
 
@@ -160,6 +167,7 @@ def test_cascade_on_forced_fused_route(cascade, monkeypatch):
 
     monkeypatch.setattr(fused_sweep, "derive_weights_plain", spy)
     monkeypatch.setattr(dispatch, "l2_bytes", lambda device: 0)
+    monkeypatch.setattr(sweep, "resident_max_cluster", lambda device: 4)
     pipe = cascade["pipe"]
     d, _ = pipe.solve(cascade["gpyr"], cascade["m"], cascade["v"], pipe.initial_state())
     assert derived == [(90, 121), (181, 243)]

@@ -151,6 +151,26 @@ def test_halo_block_sweeps_plain_matches_pallas():
                        got_u)
 
 
+@pytest.mark.parametrize("nb", [1, 3])
+def test_stacked_halo_block_sweeps_equal_blocks_and_pallas(nb):
+    """A stack of nb extended blocks in one call equals each block alone,
+    and each block JAX's halo-block kernel in interpret mode."""
+    blocks = [_block(5 + i) for i in range(nb)]
+    stack = [torch.stack(t) for t in zip(*blocks)]
+    abc = solver.abc_schedule(12, DiffusionConfig())[8:12]
+    got_u, got_p = sweep.halo_block_sweeps_plain(*stack, abc)
+    assert got_u.shape == (nb, 24, 40)
+    for i, blk in enumerate(blocks):
+        one_u, one_p = sweep.halo_block_sweeps_plain(*blk, abc)
+        assert torch.equal(got_u[i], one_u) and torch.equal(got_p[i], one_p)
+        want_u, want_p = jps.halo_block_sweeps(*(jnp.asarray(t.numpy()) for t in blk), abc,
+                                               interpret=True)
+        for got, want in ((got_u[i], want_u), (got_p[i], want_p)):
+            np.testing.assert_allclose(got.numpy()[4:-4, 4:-4], np.asarray(want)[4:-4, 4:-4],
+                                       atol=5e-3, rtol=0)
+    assert torch.equal(sweep.halo_block_sweeps(*stack, torch.from_numpy(abc))[1], got_p)
+
+
 def test_halo_block_rb_sweeps_plain_matches_pallas():
     """Parity 1: the block's origin has odd y + x, so its (0, 0) is black."""
     u, _, bh, bv, inv, m = _block(6)
@@ -209,6 +229,37 @@ def test_sharded_level_equals_single_device(solver_name, batch):
     want = torch.stack(want) if batch else want[0]
     assert torch.equal(got, want)
     assert torch.equal(got[mask], depth[mask])
+
+
+@pytest.mark.parametrize("batch", [None, 2])
+@pytest.mark.parametrize("canvas", [True, False])
+def test_sharded_jacobi_level_one_call_per_device_and_exchange(monkeypatch, batch, canvas):
+    """The Jacobi-Chebyshev level runs every block of a device in one
+    block-route call per exchange: ceil(21 / 4) = 6 calls on the one CPU
+    device, each over a stack of all slots' blocks (4 slots of one image,
+    or 8 of one); the level equals the single-device level bit for bit,
+    whether the exchange goes through the whole-image canvas of one device
+    or, as on several cards, strip by strip (``extend_into``)."""
+    if not canvas:
+        monkeypatch.setattr(sharded, "_one_device", lambda m: False)
+    calls = []
+    real = sharded._KERNELS.jc
+
+    def spy(u_e, *args):
+        calls.append(tuple(u_e.shape))
+        return real(u_e, *args)
+
+    monkeypatch.setattr(sharded, "_KERNELS", sharded._KERNELS._replace(jc=spy))
+    gray, mask, depth = _level_case(11, 65, 97, batch)
+    m = mesh.make_mesh(8, device="cpu")
+    sharded.block_calls.clear()
+    got = sharded.solve_level_sharded(depth, mask, gray, 1, 1, 21, m, DiffusionConfig(), halo=4)
+    n_blocks = 4 if batch is None else 8
+    assert calls == [(n_blocks, 33 + 8, 49 + 8)] * 6
+    assert sharded.block_calls["jacobi_chebyshev"] == 6 * n_blocks
+    images = zip(depth, mask, gray) if batch else [(depth, mask, gray)]
+    want = [solver.solve_level(d, mk, g, 1, 1, 21, DiffusionConfig()) for d, mk, g in images]
+    assert torch.equal(got, torch.stack(want) if batch else want[0])
 
 
 @pytest.mark.parametrize("h,w,solver_name", [(64, 96, "jacobi_chebyshev"),

@@ -50,6 +50,29 @@ def test_plain_level_solve_matches_pallas(iters, kernel, level):
     assert np.array_equal(got[mask], depth[mask])
 
 
+def test_early_exit_on_cluster_level_matches_pallas():
+    """The Jacobi-Chebyshev early exit on a level that K2's cluster holds:
+    each chunk after the first starts from a base > 0 and carries (u, prev),
+    as K2 now does on the card. Against JAX's chunked early exit in
+    interpret mode; every probe sits more than 5 % from the threshold, so
+    both exit after the same chunk (18 of 24 sweeps, chunks of 6)."""
+    gray, mask, depth = _case(21)
+    assert sweep.strip_route(*depth.shape, dispatch.H100_L2_BYTES,
+                             sweep.H100_MAX_CLUSTER) == "K2"
+    kw = dict(early_exit=True, tolerance=0.05, residual_check_every=6)
+    want = np.asarray(jps.solve_level_strips_early_exit(
+        jnp.asarray(depth), jnp.asarray(mask), jnp.asarray(gray), 1, 2, 24, JConfig(**kw),
+        interpret=True))
+    log = []
+    got = solver.solve_level(torch.from_numpy(depth), torch.from_numpy(mask),
+                             torch.from_numpy(gray), 1, 2, 24, DiffusionConfig(**kw), log)
+    assert log[0]["iters"] == 18
+    assert all(abs(p - log[0]["tol"]) > 0.05 * log[0]["tol"] for p in log[0]["probes"])
+    got = got.numpy()
+    np.testing.assert_allclose(got, want, atol=5e-3, rtol=0)
+    assert np.array_equal(got[mask], depth[mask])
+
+
 def test_plain_sweep_is_the_abc_form():
     """One sweep by hand in float32 numpy, op by op, equals sweep_plain exactly."""
     gray, mask, depth = _case(3, 13, 17)
@@ -119,14 +142,34 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         sweep.jc_sweep_tiles(f, f, f, f, f, f, f, m, abc, 0, 4)
     with pytest.raises(ValueError, match="CUDA"):
-        sweep.jc_sweep_resident(f, f, f, f, m, abc)
+        sweep.jc_sweep_resident(f, f, f, f, f, m, abc, 0, 4, 1)
+    with pytest.raises(ValueError, match="CUDA"):
+        sweep.jc_sweep_tiles(*[f[None]] * 7, m[None], abc, 0, 4)
     with pytest.raises(ValueError, match="CUDA"):
         sweep.solve_level_cuda(f, m.bool(), edge_weights(m, f, 0, 1),
                                solver.abc_schedule(4, DiffusionConfig()))
     assert ops.launch_counts()["jc_sweep_tiles"] == 0
 
 
-def test_resident_fit_rule():
-    """K2 holds L4 of a 1080p cascade (67x120) and nothing from L3 up."""
-    assert sweep.resident_fits(67, 120)
-    assert not sweep.resident_fits(135, 240)
+@pytest.mark.parametrize("h,w,max_cluster,cluster", [
+    ((67, 120, 16, 16)),    # 1080p L4: 4 bands of 17 rows would hold it
+    ((67, 120, 4, 4)),      # ... on a card that runs clusters of 4
+    ((67, 120, 2, None)),
+    ((135, 240, 16, 16)),   # 1080p L3 needs 8 CTAs
+    ((135, 240, 8, 8)),
+    ((135, 240, 4, None)),
+    ((270, 480, 16, 16)),   # 1080p L2 (4K L3) needs 16, a non-portable size
+    ((270, 480, 8, None)),
+    ((270, 512, 16, 16)),   # DCI 4K L3: the widest band
+    ((272, 513, 16, None)),
+    ((540, 960, 16, None)),  # 1080p L1 outgrows every cluster
+    ((1, 1, 16, 16)),
+    ((1, 1, 1, 1)),
+])
+def test_resident_fit_rule(h, w, max_cluster, cluster):
+    """K2's cluster: the largest the card runs, if its bands hold at most
+    RESIDENT_ROWS rows of at most RESIDENT_MAX_W columns; else None."""
+    assert sweep.resident_cluster(h, w, max_cluster) == cluster
+    if cluster:
+        assert -(-h // cluster) <= sweep.RESIDENT_ROWS and w <= sweep.RESIDENT_MAX_W
+    assert sweep.resident_max_cluster(torch.device("cpu")) == sweep.H100_MAX_CLUSTER
