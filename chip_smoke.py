@@ -12,8 +12,9 @@ Phases, each printed on its own lines; any failure raises and exits non-zero:
    main paths give it, with inputs from a numpy seed: K1 on L0 and L1 (and
    timed there under four CTA shapes) and at k=1 against its default k; K2
    on 1080p L4, L3 and L2 and 4K L3, each timed beside K1 on the same
-   level; K3 exact and approx; K4 on L0 and L1 and K5 on L4 with the
-   red-black omegas. Every comparison must be exact (max abs difference 0).
+   level; K3 exact and approx; K4 on L0 and L1 (and timed there under its
+   CTA shapes at k = 2, 4 and 8) and K5 on L4 with the red-black omegas.
+   Every comparison must be exact (max abs difference 0).
 4. Drives the default path: ``DepthPipeline(1080, 1920, device="cuda")`` and
    three ``solve_and_effect(EFFECT_DEFOCUS, ...)`` updates with a scribble
    added before the second. Checks finite depth, exact scribbles, the
@@ -25,11 +26,13 @@ Phases, each printed on its own lines; any failure raises and exits non-zero:
 5. Drives the ``--profile fast`` path (red-black SOR with the rms early
    exit, resolved by the port's ``flags.py``) the same way: three frames
    through K4, K5 and K3, the iterations and residual probes of every
-   level, a kernel frame against the plain frame, and a small solve against
+   level, from which the frames' K4 and K5 launches are asserted (one per
+   k iterations of each chunk between two probes), a kernel frame against
+   the plain frame, and a small solve against
    the CPU's. Then one ``solver="jacobi"`` frame and one Jacobi-Chebyshev
    early-exit frame, each exact against the plain frame.
 6. Drives the 4K path at 2160x3840: K6 against its plain version (and K1)
-   at L0 and at the L1 shape, at k = 8, 12 and 1, with K6, K1 and plain
+   at L0 and at the L1 shape, at k = 1, 8, 12 and 16, with K6, K1 and plain
    times; three ``solve_and_effect(EFFECT_DEFOCUS, ...)`` frames that must
    launch exactly K2 x3, K1 x24, K6 x4 and K3 each, with ``auto`` resolved to
    approx; a kernel frame and a Jacobi-Chebyshev early-exit frame against
@@ -39,18 +42,23 @@ Phases, each printed on its own lines; any failure raises and exits non-zero:
    each equal to the default output.
 7. Drives the multi-device step (``parallel/``) on a slot mesh whose slots
    all live on the card: K1 on a halo block and on a stack of 16, K4 with
-   parity 0 and 1, and K3 on blocks with an origin, at the 1080p blocks'
+   parity 0 and 1 and on a stack of 4 blocks of mixed parities, and K3 on
+   blocks with an origin, at the 1080p blocks'
    shapes, each exact against its plain version with both times; three
    ``batched_step(make_mesh(8), 1080, 1920, ..., EFFECT_DEFOCUS)`` steps on
    a batch of 4 (mesh (2, 2, 2)), which must launch exactly 244 K1 (one per
    exchange over the card's 16 blocks) and 16 K3-block per step and give the
    single-device depth and defocus per image bit for bit; one sharded
-   ``--profile fast`` step on mesh (1, 2, 2) within RMSE 1e-3 of the
-   single-device fast solve; a 270x480 step equal to the same step on the
+   ``--profile fast`` step on mesh (1, 2, 2), which must launch K4 once per
+   exchange and card, within RMSE 1e-3 of the single-device fast solve; a 270x480 step equal to the same step on the
    plain versions; and ``dryrun_multichip(8)``. The last 1080p step runs
    once more under ``torch.profiler``: its device time by kernel, over the
    same step's unprofiled time, is the step's device busy share; so do the
    timed default, fast and 4K frames of phases 4-6.
+
+8. Takes the device time alone of K1, K4 and K6 at the shapes above: the
+   launches of a level are captured once into a CUDA graph and replayed,
+   so that the host paces nothing between them.
 
 Each phase prints its seconds. The line before the last is a JSON object
 of the kernels, each with its launches on its main path, its largest
@@ -94,9 +102,12 @@ FP32_OPS_S = 33.5e12
 INT32_OPS_S = 16.75e12
 # Operations per pixel and sweep or iteration, counted from the sources:
 # jc_point 8 multiplies, 5 adds, 2 min/max, 1 select (csrc/jc_sweep.cuh);
-# rb_point 6 multiplies, 5 adds or subtracts, 4 min/max (csrc/rb_sweep.cuh);
-# K6 derives each pixel's weights once per level for ~20 more.
-JC_OPS, RB_OPS, K6_DERIVE_OPS = 16, 15, 20
+# rb_point 6 multiplies, 5 adds or subtracts, 4 min/max (csrc/rb_sweep.cuh)
+# and the mask's select (csrc/rb_sweep.cu); K6 derives each pixel's weights
+# once per level for 20 more (csrc/fused_sweep.cu: the pairs toward the
+# right and the lower neighbour, each 2 subtracts, 2 abs, a compare, a
+# lookup and a select, then 3 adds, a compare, a divide and a select).
+JC_OPS, RB_OPS, K6_DERIVE_OPS = 16, 16, 20
 # K3's (floating-point, integer) operations, counted from csrc/defocus.cu:
 # per pixel, the half-width (a max, a multiply, a divide and a convert; a
 # halving and a min), which defocus_block is handed instead; per pixel of
@@ -146,6 +157,19 @@ def time_ms(torch, fn, reps):
         end.synchronize()
         times.append(start.elapsed_time(end))
     return float(np.median(times))
+
+
+def graph_ms(torch, fn, reps):
+    """Median ms of the device work of ``fn`` alone: its launches are
+    captured once into a CUDA graph and the graph replayed, so the host
+    paces nothing between them. ``fn`` may allocate but must copy nothing
+    from the host."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    return time_ms(torch, graph.replay, reps)
 
 
 def bound(n_bytes, n_ops, n_int=0):
@@ -227,6 +251,11 @@ def main() -> None:
         print(f"phase {name}: {now - mark[0]:.2f} s")
         mark[0] = now
 
+    # Work whose device time alone is taken at the very end (phase 8), by
+    # graph replay: a process that has captured graphs ran the later frames
+    # slower, so no capture comes before the frames and steps are timed.
+    device_only = {}
+
     # -- 1. the card ---------------------------------------------------------
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -283,6 +312,9 @@ def main() -> None:
         line = {"shape": list(depth_t.shape), "sweeps": len(abc), "max_abs_err": err}
         if timed:
             line["ms"] = time_ms(torch, lambda: sweep.solve_level_cuda(depth_t, mask_t, wts, abc), 10)
+            if kernel_name == "jc_sweep_tiles":  # K2 is one launch: nothing to pace
+                state, run, _ = sweep.chunks_cuda(depth_t, mask_t, wts, abc)
+                device_only[name] = lambda: run(state, 0, len(abc))
             line["plain_ms"] = time_ms(torch, lambda: sweep.solve_level_plain(depth_t, mask_t, wts, abc), 3)
         print(f"{name}: {json.dumps(line)}")
         line["case"] = (depth_t, mask_t, wts, abc)
@@ -378,16 +410,45 @@ def main() -> None:
         err = require_equal(torch, name, got, want)
         if not torch.equal(got[mask_t], depth_t[mask_t]):
             raise AssertionError(f"{name}: scribble pixels moved")
+        u0, run, _ = rb_sweep.chunks_cuda(depth_t, mask_t, wts, om)
         line = {"shape": list(depth_t.shape), "iterations": len(om), "max_abs_err": err,
                 "ms": time_ms(torch, lambda: rb_sweep.solve_level_rb_cuda(
                     depth_t, mask_t, wts, om), 10),
                 "plain_ms": time_ms(torch, lambda: rb_sweep.solve_level_rb_plain(
                     depth_t, mask_t, wts, om), 3)}
+        if kernel_name == "rb_sweep_tiles":  # K5 is one launch: nothing to pace
+            device_only[name] = lambda: run(u0, 0, len(om))
         print(f"{name}: {json.dumps(line)}")
         return line
 
     k4_l0 = check_rb_level("K4 L0", 0, "rb_sweep_tiles")
     k4_l1 = check_rb_level("K4 L1", 1, "rb_sweep_tiles")
+
+    def k4_tile_ms(level):
+        """K4 over a level's iterations under each CTA shape (threads
+        across, down, rows, columns a thread) at k = 2, 4 and 8, each
+        checked against the plain version; median ms by shape and k."""
+        depth_t, mask_t, wts, _ = level_case(gray_pyr, level)
+        om = rb_omegas(fast_cfg.level_iterations(n_levels, level), fast_cfg)
+        om_d = torch.from_numpy(om).to(dev)
+        planes = (wts.wr.contiguous(), wts.wd.contiguous(), wts.inv_count.contiguous(),
+                  mask_t.to(torch.uint8))
+        want = rb_sweep.solve_level_rb_plain(depth_t, mask_t, wts, om)
+        out = {}
+        for tile in ((32, 16, 4, 2), (64, 8, 8, 1), (64, 8, 8, 2), (32, 16, 8, 2), (64, 8, 4, 2)):
+            for k in (2, 4, 8):
+                if min(rb_sweep.rb_tile_extent(tile)) <= 4 * k:
+                    continue
+                run = lambda k=k, tile=tile: rb_sweep._tiles_chunk(  # noqa: E731
+                    depth_t.clone(), *planes, om_d, 0, len(om), k, tile)
+                require_equal(torch, f"K4 L{level} tile {tile} k={k}", run(), want)
+                out[f"{tile} k={k}"] = time_ms(torch, run, 5)
+                device_only[f"K4 L{level} tile {tile} k={k}"] = run
+        return out
+
+    k4_tiles = {f"L{lv}_ms": k4_tile_ms(lv) for lv in (0, 1)}
+    print(f"K4 by CTA shape and k (route: {rb_sweep.rb_tile_config(rb_sweep.RB_TILE_ITERS)} at "
+          f"k={rb_sweep.RB_TILE_ITERS}): {json.dumps(k4_tiles)}")
     if not rb_sweep.rb_resident_fits(*gray_pyr[L].shape):
         raise AssertionError(f"L4 {tuple(gray_pyr[L].shape)} does not fit K5")
     k5 = check_rb_level("K5 L4", L, "rb_sweep_resident")
@@ -580,6 +641,27 @@ def main() -> None:
             raise AssertionError(f"fast path never launched {name}")
     if fast_launches["jc_sweep_fused"] or fast_launches["jc_sweep_tiles"]:
         raise AssertionError("the fast path launched a Jacobi kernel")
+
+    def exit_chunks(e, every):
+        """The iterations of each chunk a level ran: full chunks of
+        ``every`` between two probes, then what was left of its cap."""
+        full, rest = divmod(e["iters"], every)
+        return [every] * full + [rest] * (rest > 0)
+
+    # The routes' launches: per chunk of a level, one K5 launch where the
+    # level fits one CTA, else one K4 launch per k iterations; K3 once.
+    want_fast = collections.Counter(defocus_box=len(fast_frames))
+    for *_, log in fast_frames:
+        for e in log:
+            chunks = exit_chunks(e, fast_cfg.residual_check_every)
+            if rb_sweep.rb_resident_fits(*e["shape"]):
+                want_fast["rb_sweep_resident"] += len(chunks)
+            else:
+                want_fast["rb_sweep_tiles"] += sum(-(-n // rb_sweep.RB_TILE_ITERS)
+                                                   for n in chunks)
+    print(f"fast path: launches by the routes and the exit log {json.dumps(want_fast)}")
+    if {k: v for k, v in fast_launches.items() if v} != dict(want_fast):
+        raise AssertionError(f"3 fast frames launched {fast_launches}, not {dict(want_fast)}")
     for i, (depth0, out, m_d, v_d, log) in enumerate(fast_frames):
         if not bool(torch.isfinite(depth0).all()):
             raise AssertionError(f"fast frame {i}: depth is not finite")
@@ -645,9 +727,14 @@ def main() -> None:
             if timed and k > 1:
                 line[f"ms_k{k}"] = time_ms(torch, lambda: fused_sweep.solve_level_fused_cuda(
                     depth_t, mask_t, g, abc, level, top4, cfg, k), 10)
+                state, run, _ = fused_sweep.fused_chunks_cuda(depth_t, mask_t, g, abc, level,
+                                                              top4, cfg, k)
+                device_only[f"{name} k={k}"] = lambda run=run, state=state: run(state, 0, len(abc))
         if timed:
             line["k1_ms"] = time_ms(torch, lambda: sweep.solve_level_cuda(
                 depth_t, mask_t, wts, abc), 10)
+            k1_state, k1_run, _ = sweep.chunks_cuda(depth_t, mask_t, wts, abc)
+            device_only[f"K1 on {name}"] = lambda: k1_run(k1_state, 0, len(abc))
             line["k1_with_weights_ms"] = time_ms(torch, lambda: sweep.solve_level_cuda(
                 depth_t, mask_t, edge_weights(g, depth_t, level, top4, cfg), abc), 10)
             line["plain_ms"] = time_ms(torch, lambda: fused_sweep.solve_level_fused_plain(
@@ -655,7 +742,7 @@ def main() -> None:
         print(f"{name}: {json.dumps(line)}")
         return line
 
-    fused_ks = sorted({8, 12, fused_sweep.FUSED_SWEEPS, 1})
+    fused_ks = sorted({1, 8, 12, 16, fused_sweep.FUSED_SWEEPS})
     k6_l0 = check_fused("K6 4K L0", 0, fused_ks, timed=True)
     k6_l1 = check_fused("K6 4K L1 shape", 1, fused_ks, timed=True)
     k6_ms = k6_l0[f"ms_k{fused_sweep.FUSED_SWEEPS}"]
@@ -840,6 +927,25 @@ def main() -> None:
             lambda u: u[ew_rb:-ew_rb, ew_rb:-ew_rb], whole_rb[oy:oy + hb, ox:ox + wb],
             px_e * 21, px_e * halo * RB_OPS)
 
+    # The sharded fast step's launch: the blocks of a card in one stack,
+    # each with the parity of its origin (4 blocks on mesh (1, 2, 2)).
+    origins = ((hb, wb), (hb - 1, wb), (0, 0), (hb, wb - 1))
+    pars = [(oy + ox) & 1 for oy, ox in origins]
+    stk = [torch.stack([extended(t, oy, ox, ew_rb) for oy, ox in origins])
+           for t in (depth_t, *planes)]
+    got_stk = rb_sweep.halo_block_rb_sweeps(*stk, pars, om_k_d)
+    want_stk = rb_sweep.halo_block_rb_sweeps_plain(*stk, pars, om_k)
+    torch.cuda.synchronize()
+    k4_stack_err = require_equal(torch, "K4 stack of 4 halo blocks", got_stk, want_stk)
+    for i, par in enumerate(pars):
+        require_equal(torch, f"K4 stack of 4, block {i} alone", got_stk[i],
+                      rb_sweep.halo_block_rb_sweeps(*(t[i] for t in stk), par, om_k_d))
+    k4_stack_ms = time_ms(torch, lambda: rb_sweep.halo_block_rb_sweeps(*stk, pars, om_k_d), 10)
+    k4_stack_bound = bound(4 * px_e * 21, 4 * px_e * halo * RB_OPS)[0]
+    print(f"K4 over a stack of 4 such blocks, parities {pars}, in one launch: "
+          f"{k4_stack_ms:.3f} ms (bound {k4_stack_bound:.4f}), max_abs_err {k4_stack_err}")
+    del stk, got_stk, want_stk
+
     ew = defocus.block_ring(H, W, cfg)
     half_fx = defocus.defocus_half_widths(depth_fx, H, W, cfg)
     whole_fx = defocus.defocus_box(rgb_t, depth_fx, cfg)
@@ -943,8 +1049,14 @@ def main() -> None:
     torch.cuda.synchronize()
     fast_step_s = time.perf_counter() - t0
     fast_halo = {k: v for k, v in ops.launch_counts().items() if v}
-    if set(fast_halo) != {"rb_sweep_tiles", "defocus_block"}:
-        raise AssertionError(f"the sharded fast step launched {fast_halo}")
+    # One K4 launch per exchange (k iterations of a chunk) on each card
+    # that holds slots; every 1080p level is sharded on this mesh.
+    exchanges = sum(-(-n // halo) for e in flog
+                    for n in exit_chunks(e, fast_cfg.residual_check_every))
+    want_halo = {"rb_sweep_tiles": len(set(mesh4.devices.values())) * exchanges,
+                 "defocus_block": mesh4.shape["dy"] * mesh4.shape["dx"]}
+    if fast_halo != want_halo:
+        raise AssertionError(f"the sharded fast step launched {fast_halo}, not {want_halo}")
     rmse = float(torch.sqrt(torch.mean(((fdepth[0] - f1) / 255.0) ** 2)))
     levels = [{"shape": list(e["shape"]), "iterations": e["iters"], "single_device": se["iters"],
                "probes": [round(q, 6) for q in e["probes"]]} for e, se in zip(flog, slog)]
@@ -980,6 +1092,12 @@ def main() -> None:
     print(f"dryrun_multichip(8): {json.dumps(dryrun.dryrun_multichip(8, device='cuda'))}")
     phase_done("7 (the multi-device step)")
 
+    # -- 8. device time alone ----------------------------------------------------------
+    device_ms = {label: graph_ms(torch, fn, 5) for label, fn in device_only.items()}
+    print(f"device time alone (launches replayed from a CUDA graph, median ms): "
+          f"{json.dumps(device_ms)}")
+    phase_done("8 (device time alone)")
+
     px0, px4, px4k = H * W, int(gray_pyr[L].numel()), H4 * W4
 
     def bounded(entry, n_bytes, n_ops, n_int=0):
@@ -995,7 +1113,8 @@ def main() -> None:
                  "launches": launches["jc_sweep_tiles"],
                  "max_abs_err": max(k1_l0["max_abs_err"], k1_l1["max_abs_err"], k1_k),
                  "ms": k1_l0["ms"], "plain_ms": k1_l0["plain_ms"],
-                 "l1_ms": k1_l1["ms"], "tiles_ms": k1_tiles,
+                 "device_ms": device_ms["K1 L0"], "l1_ms": k1_l1["ms"],
+                 "l1_device_ms": device_ms["K1 L1"], "tiles_ms": k1_tiles,
                  "halo_launches": step_launches["jc_sweep_tiles"],
                  "halo_max_abs_err": max(b_k1["max_abs_err"], step_err),
                  "halo_ms": b_k1["ms"], "halo_plain_ms": b_k1["plain_ms"],
@@ -1031,9 +1150,13 @@ def main() -> None:
                  "launches": fast_launches["rb_sweep_tiles"],
                  "max_abs_err": max(k4_l0["max_abs_err"], k4_l1["max_abs_err"]),
                  "ms": k4_l0["ms"], "plain_ms": k4_l0["plain_ms"],
+                 "device_ms": device_ms["K4 L0"], "l1_ms": k4_l1["ms"],
+                 "l1_device_ms": device_ms["K4 L1"], "tiles_ms": k4_tiles,
+                 "tiles_device_ms": {k: v for k, v in device_ms.items() if " tile " in k},
                  "halo_launches": fast_halo["rb_sweep_tiles"],
-                 "halo_max_abs_err": max(b["max_abs_err"] for b in b_k4.values()),
-                 "halo_ms": b_k4[1]["ms"], "halo_plain_ms": b_k4[1]["plain_ms"]},
+                 "halo_max_abs_err": max(k4_stack_err, *(b["max_abs_err"] for b in b_k4.values())),
+                 "halo_ms": b_k4[1]["ms"], "halo_plain_ms": b_k4[1]["plain_ms"],
+                 "halo_stack4_ms": k4_stack_ms, "halo_stack4_bound_ms": k4_stack_bound},
                 px0 * 21, px0 * k4_l0["iterations"] * RB_OPS),
         bounded({"name": "rb_sweep_resident", "route": "cuda",
                  "source": "realtimedepthdiffusion_tpu_torch/csrc/rb_sweep.cu",
@@ -1044,7 +1167,13 @@ def main() -> None:
                  "source": "realtimedepthdiffusion_tpu_torch/csrc/fused_sweep.cu",
                  "replaces": f"{TPU_SWEEP}:394", "launches": launches4["jc_sweep_fused"],
                  "max_abs_err": max(k6_l0["max_abs_err"], k6_l1["max_abs_err"]),
-                 "ms": k6_ms, "plain_ms": k6_l0["plain_ms"]},
+                 "ms": k6_ms, "plain_ms": k6_l0["plain_ms"],
+                 "by_k_ms": {k: v for k, v in k6_l0.items() if k.startswith("ms_k")},
+                 "device_ms": device_ms[f"K6 4K L0 k={fused_sweep.FUSED_SWEEPS}"],
+                 "by_k_device_ms": {k: v for k, v in device_ms.items()
+                                    if k.startswith("K6 4K L0 k=")},
+                 "k1_device_ms": device_ms["K1 on K6 4K L0"],
+                 "k1_ms": k6_l0["k1_ms"], "k1_with_weights_ms": k6_l0["k1_with_weights_ms"]},
                 px4k * 15, px4k * (k6_l0["sweeps"] * JC_OPS + K6_DERIVE_OPS)),
     ]
     print(f"frames: default {frame['ms']:.3f} ms (plain {frame['plain_ms']:.3f}), "

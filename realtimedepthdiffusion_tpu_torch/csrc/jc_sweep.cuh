@@ -1,5 +1,6 @@
 // One Jacobi-Chebyshev update of one pixel, shared by the sweep kernels K1
-// (jc_sweep_tiles) and K2 (jc_sweep_resident) in sweep.cu.
+// (jc_sweep_tiles) and K2 (jc_sweep_resident) in sweep.cu and K6
+// (jc_sweep_fused) in fused_sweep.cu.
 //
 // It computes what the TPU sweep computes
 // (realtimedepthdiffusion_tpu/ops/pallas_sweep.py:_sweep_full, :80-100):

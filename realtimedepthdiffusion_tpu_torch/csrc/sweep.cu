@@ -21,7 +21,8 @@
 // latency of one sweep and its barrier.
 //
 // What the designs do about it.
-// K1 blocks in time. A CTA of bx x by threads owns an extended tile of
+// K1 blocks in time; its tile and sweep loop are jc_tiles.cuh, which K6
+// (fused_sweep.cu) shares. A CTA of bx x by threads owns an extended tile of
 // (by*R) x bx pixels: thread (tx, ty) owns the R pixels of column tx from
 // row ty*R down. Before the sweep loop each thread loads its pixels' u,
 // prev and weights (wl, bh, bv, inv, a mask bit) from device memory into
@@ -58,7 +59,7 @@
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
-#include "jc_sweep.cuh"
+#include "jc_tiles.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -83,34 +84,18 @@ jc_sweep_tiles_kernel(const float* __restrict__ u_in, const float* __restrict__ 
   const int ew = blockDim.x;
   const int eh = blockDim.y * R;
   const int pitch = ew + 2;
-  const int np = (eh + 2) * pitch;
-  const int tid = threadIdx.y * ew + threadIdx.x;
-  const int nt = ew * blockDim.y;
-  // Two buffers of u: a sweep reads one and writes the other.
   float* cur = smem;
-  float* nxt = smem + np;
+  float* nxt = smem + (eh + 2) * pitch;
   const int y0 = blockIdx.y * (eh - 2 * k) - k;  // the extended tile's origin
   const int x0 = blockIdx.x * (ew - 2 * k) - k;
   const size_t off = (size_t)blockIdx.z * h * w;
   u_in += off;
   p_in += off;
-  u_out += off;
-  p_out += off;
   bh += off;
   bv += off;
   inv += off;
   mask += off;
-
-  // The zero ring around both buffers.
-  for (int i = tid; i < pitch; i += nt) {
-    cur[i] = nxt[i] = 0.0f;
-    cur[np - pitch + i] = nxt[np - pitch + i] = 0.0f;
-  }
-  for (int i = tid; i < eh; i += nt) {
-    const int row = (i + 1) * pitch;
-    cur[row] = nxt[row] = 0.0f;
-    cur[row + ew + 1] = nxt[row + ew + 1] = 0.0f;
-  }
+  jc_zero_ring(cur, nxt, eh, ew);
 
   const int tx = threadIdx.x;
   const int ly0 = threadIdx.y * R;  // the thread's first row in the tile
@@ -136,49 +121,9 @@ jc_sweep_tiles_kernel(const float* __restrict__ u_in, const float* __restrict__ 
     iv[r] = in ? inv[g] : 0.0f;
     msk |= (unsigned)(in ? mask[g] != 0 : 1) << r;
   }
-  const int c0 = (ly0 + 1) * pitch + tx + 1;  // the first pixel in the buffers
-#pragma unroll
-  for (int r = 0; r < R; ++r) cur[c0 + r * pitch] = u[r];
-  __syncthreads();
-
-  // The sweep's (a, b, c) are loaded one sweep ahead, off the critical path.
-  float a = __ldg(abc + 3 * base), b = __ldg(abc + 3 * base + 1), c = __ldg(abc + 3 * base + 2);
-  for (int s = 0; s < n_active; ++s) {
-    const int next = 3 * (base + (s + 1 < n_active ? s + 1 : s));
-    const float na = __ldg(abc + next), nb = __ldg(abc + next + 1), nc = __ldg(abc + next + 2);
-    float above = cur[c0 - pitch];
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      const int li = c0 + r * pitch;
-      const float uc = u[r];
-      const float below = r + 1 < R ? u[r + 1] : cur[li + pitch];
-      const float wu = r > 0 ? wd[r - 1] : wu0;
-      const float nu = jc_point(cur[li - 1], cur[li + 1], above, below, uc, pv[r], wl[r],
-                                wr[r], wu, wd[r], iv[r], (msk >> r) & 1u, a, b, c);
-      nxt[li] = nu;
-      above = uc;
-      pv[r] = uc;
-      u[r] = nu;
-    }
-    __syncthreads();
-    float* t = cur;
-    cur = nxt;
-    nxt = t;
-    a = na;
-    b = nb;
-    c = nc;
-  }
-
-  if (tx < k || tx >= ew - k || gx >= w) return;
-#pragma unroll
-  for (int r = 0; r < R; ++r) {
-    const int ly = ly0 + r;
-    const int gy = y0 + ly;
-    if (ly < k || ly >= eh - k || gy >= h) continue;
-    const size_t g = (size_t)gy * w + gx;
-    u_out[g] = u[r];
-    p_out[g] = pv[r];
-  }
+  jc_column_sweeps<R>(u, pv, wl, wr, wd, iv, wu0, msk, cur, nxt, (ly0 + 1) * pitch + tx + 1,
+                      pitch, abc, base, n_active);
+  jc_column_store<R>(u, pv, u_out + off, p_out + off, y0, ly0, gx, eh, ew, k, h, w);
 }
 
 __global__ void __launch_bounds__(RESIDENT_MAX_W)
@@ -311,7 +256,7 @@ static int launch_tiles(const float* u_in, const float* p_in, float* u_out, floa
                         int base, int n_active, int k, int bx, int by, cudaStream_t stream) {
   const int eh = by * R;
   if (bx * by > MAXT || bx - 2 * k < 1 || eh - 2 * k < 1) return (int)cudaErrorInvalidValue;
-  const size_t smem = 2 * sizeof(float) * (size_t)(eh + 2) * (bx + 2);
+  const size_t smem = jc_tile_smem(bx, by, R);
   int err = set_smem((const void*)jc_sweep_tiles_kernel<R, MAXT>, smem);
   if (err) return err;
   const dim3 grid((w + bx - 2 * k - 1) / (bx - 2 * k), (h + eh - 2 * k - 1) / (eh - 2 * k), nb);

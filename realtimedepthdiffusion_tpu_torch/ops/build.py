@@ -48,14 +48,14 @@ SIGNATURES = {
     "jc_sweep_resident": (P, P, P, P, P, P, P, I, I, I, I, I, P),
     # int* out
     "jc_resident_max_cluster": (ctypes.POINTER(I),),
-    # u_in, u_out, bh, bv, inv, mask, om, h, w, base, n_active, k, tile_h,
-    # tile_w, parity, stream
-    "rb_sweep_tiles": (P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, P),
+    # u_in, u_out, bh, bv, inv, mask, om, nb, h, w, base, n_active, k, bx,
+    # by, rows, cols, parity_bits (64 bits, one per plane), stream
+    "rb_sweep_tiles": (P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, I, ctypes.c_uint64, P),
     # u (in/out), bh, bv, inv, mask, om, h, w, base, n, stream
     "rb_sweep_resident": (P, P, P, P, P, P, I, I, I, I, P),
     # u_in, p_in, u_out, p_out, gray, mask, d8, abc, etab, h, w, base,
-    # n_active, k, thr, use_depth_rule, stream
-    "jc_sweep_fused": (P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, P),
+    # n_active, k, thr, use_depth_rule, bx, by, rows_per_thread, stream
+    "jc_sweep_fused": (P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, I, P),
     # rgb, depth, half (out), sat (scratch), out, h, w, k, max_half,
     # approx, exact_upto, stride, stream
     "defocus_box": (P, P, P, P, P, I, I, I, I, I, I, I, P),

@@ -23,6 +23,7 @@ import torch
 
 from ..config import DiffusionConfig
 from . import build
+from .sweep import _same_device
 
 
 def resolved_defocus_quality(cfg: DiffusionConfig, max_half: int) -> str:
@@ -176,10 +177,11 @@ def defocus_block(chw_e: torch.Tensor, half: torch.Tensor, oy: int, ox: int,
     CUDA tensors."""
     if chw_e.device.type == "cpu":
         return defocus_block_sat(chw_e, half, oy, ox, full_h, full_w, cfg)
-    if not (chw_e.is_cuda and half.device == chw_e.device):
+    if not (chw_e.is_cuda and half.is_cuda):
         raise ValueError(
             f"defocus_block: expected CUDA tensors, got {chw_e.device} and {half.device}"
         )
+    _same_device("defocus_block", chw_e=chw_e, half=half)
     ew = _check_block(chw_e, half, full_h, full_w, cfg)
     hb, wb = half.shape
     chw_e = chw_e.contiguous()
@@ -211,6 +213,7 @@ def defocus_box(rgb: torch.Tensor, depth: torch.Tensor,
         raise ValueError(
             f"defocus_box: expected CUDA tensors, got {rgb.device} and {depth.device}"
         )
+    _same_device("defocus_box", rgb=rgb, depth=depth)
     if rgb.dtype != torch.uint8 or tuple(rgb.shape) != (h, w, 3):
         raise ValueError(f"defocus_box: rgb must be ({h}, {w}, 3) uint8, got "
                          f"{tuple(rgb.shape)} {rgb.dtype}")
@@ -227,11 +230,13 @@ def defocus_box(rgb: torch.Tensor, depth: torch.Tensor,
     sat = torch.empty((3, h + 1, w + 1), dtype=torch.int32, device=depth.device)
     out = torch.empty((h, w, 3), dtype=torch.uint8, device=depth.device)
     lib = build.load_library()
-    err = lib.defocus_box(
-        rgb.data_ptr(), depth.data_ptr(), half.data_ptr(), sat.data_ptr(),
-        out.data_ptr(), h, w, k, max_half, int(snap is not None), t, q,
-        torch.cuda.current_stream(depth.device).cuda_stream,
-    )
+    # The launch goes to the current device: make it the tensors' one.
+    with torch.cuda.device(depth.device):
+        err = lib.defocus_box(
+            rgb.data_ptr(), depth.data_ptr(), half.data_ptr(), sat.data_ptr(),
+            out.data_ptr(), h, w, k, max_half, int(snap is not None), t, q,
+            torch.cuda.current_stream(depth.device).cuda_stream,
+        )
     build.check("defocus_box", err)
     defocus_box.launches += 1
     return out

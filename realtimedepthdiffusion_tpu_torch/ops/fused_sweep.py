@@ -6,9 +6,11 @@ Counterpart of ``_strip_mega_kernel_uarena``
 ``solve_level_strips_early_exit``:
 
 - ``jc_sweep_fused`` (K6) runs up to k Jacobi-Chebyshev sweeps over the
-  whole level, as K1 does, but takes u8 gray, mask and d8 planes and the
-  256-entry table of ``weight_exp_table`` in place of K1's f32 weight
-  planes, and derives each tile's weights in shared memory once per launch.
+  whole level, as K1 does and in K1's CTA shapes (``ops/sweep.py:
+  tile_config``), but takes u8 gray, mask and d8 planes and the 256-entry
+  table of ``weight_exp_table`` in place of K1's f32 weight planes: each
+  thread derives the weights of its own pixels into registers, once per
+  launch.
 - ``derive_weights_plain`` is that derivation in torch; with
   ``ops/sweep.py:chunks_plain`` it makes ``fused_chunks_plain`` and
   ``solve_level_fused_plain``, which the CPU runs and K6 is held to on the
@@ -28,22 +30,24 @@ import torch
 from ..config import DiffusionConfig
 from ..core.weights import _TINY, EdgeWeights, depth_threshold, level_d8, weights_from_base
 from . import build
-from .sweep import SMEM_PER_CTA, _check, _check_table, _first, _stream, chunks_plain, ping_pong
+from .sweep import (MAX_TILE_SWEEPS, _check, _check_table, _first, _same_device, _stream,
+                    chunks_plain, ping_pong, tile_config)
 
 # Sweeps per K6 launch: the ring of halo each tile carries and over which
-# one derivation of the tile's weights is spent. k = 8 beat the TPU's 12 at
-# 4K L0 in every turn on an NVIDIA H100 80GB HBM3 at its 700 W limit
-# (2.02-2.05 against 2.17-2.23 ms): the deeper ring's halo costs more than
-# the derivations it saves.
+# one derivation of the tile's weights is spent. k = 8 beat 12 and 16 at 4K
+# L0 in every run on an NVIDIA H100 80GB HBM3 at its 700 W limit (1.29
+# against 1.51-1.53 and 1.88-1.89 ms of device time): the deeper ring's
+# halo costs more than the derivations it saves.
 FUSED_SWEEPS = 8
-FUSED_TILE_H, FUSED_TILE_W = 32, 64
-# K6's shared memory per tile pixel: u, prev, bh, bv, inv (f32) and mask (u8).
-FUSED_BYTES_PER_PX = 21
+# K6's shared memory per pixel of the extended tile and its one-pixel ring:
+# the two f32 buffers of u. The weights live in registers.
+FUSED_BYTES_PER_PX = 8
 
 
 def fused_smem_bytes(k: int) -> int:
-    """K6's shared memory at ring k."""
-    return (FUSED_TILE_H + 2 * k) * (FUSED_TILE_W + 2 * k) * FUSED_BYTES_PER_PX
+    """K6's shared memory at ring k, in K1's CTA shape for that ring."""
+    bx, by, rows = tile_config(k)
+    return (by * rows + 2) * (bx + 2) * FUSED_BYTES_PER_PX
 
 
 def weight_exp_table(cfg: DiffusionConfig, device) -> torch.Tensor:
@@ -95,20 +99,25 @@ def jc_sweep_fused(u_in, p_in, u_out, p_out, gray, mask_u8, d8, abc_dev, etab,
         _check(name, t, torch.uint8, (h, w))
     _check_table("abc", abc_dev, 3)
     _check("etab", etab, torch.float32, (256,))
-    if k < 1 or fused_smem_bytes(k) > SMEM_PER_CTA:
-        raise ValueError(f"k={k}: K6 needs 1 <= k and {fused_smem_bytes(k)} bytes of "
-                         f"shared memory, of {SMEM_PER_CTA}")
+    _same_device("jc_sweep_fused", u_in=u_in, p_in=p_in, u_out=u_out, p_out=p_out, gray=gray,
+                 mask=mask_u8, d8=d8, abc=abc_dev, etab=etab)
+    if not 1 <= k <= MAX_TILE_SWEEPS:
+        raise ValueError(f"k={k}: K6's tiles carry a ring of 1..{MAX_TILE_SWEEPS}")
     if not 1 <= n_active <= k or base < 0 or base + n_active > abc_dev.shape[0]:
         raise ValueError(
             f"sweeps {base}..{base + n_active - 1} with k={k} do not fit a "
             f"table of {abc_dev.shape[0]}"
         )
+    bx, by, rows = tile_config(k)
     lib = build.load_library()
-    err = lib.jc_sweep_fused(
-        u_in.data_ptr(), p_in.data_ptr(), u_out.data_ptr(), p_out.data_ptr(),
-        gray.data_ptr(), mask_u8.data_ptr(), d8.data_ptr(), abc_dev.data_ptr(),
-        etab.data_ptr(), h, w, base, n_active, k, thr, int(use_depth_rule), _stream(u_in),
-    )
+    # The launch goes to the current device: make it the tensors' one.
+    with torch.cuda.device(u_in.device):
+        err = lib.jc_sweep_fused(
+            u_in.data_ptr(), p_in.data_ptr(), u_out.data_ptr(), p_out.data_ptr(),
+            gray.data_ptr(), mask_u8.data_ptr(), d8.data_ptr(), abc_dev.data_ptr(),
+            etab.data_ptr(), h, w, base, n_active, k, thr, int(use_depth_rule), bx, by, rows,
+            _stream(u_in),
+        )
     build.check("jc_sweep_fused", err)
     jc_sweep_fused.launches += 1
 

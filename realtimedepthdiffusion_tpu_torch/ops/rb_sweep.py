@@ -4,9 +4,11 @@ Counterpart of the red-black section of
 ``realtimedepthdiffusion_tpu/ops/pallas_sweep.py`` (``:1170-1926``):
 
 - ``rb_sweep_tiles`` (K4) runs up to k red-black iterations over the whole
-  level in temporally blocked tiles; it replaces ``_rb_strip_mega_kernel``,
-  the chunked ``_strip_rb_kernel`` and the quadrant-compacted
-  ``_rb_compact_mega_kernel``, which all compute the same iterate.
+  level, or over a stack of equally shaped planes with a checkerboard
+  parity each, in temporally blocked tiles; it replaces
+  ``_rb_strip_mega_kernel``, the chunked ``_strip_rb_kernel`` and the
+  quadrant-compacted ``_rb_compact_mega_kernel``, which all compute the
+  same iterate. ``rb_tile_config`` picks its CTA shape.
 - ``rb_sweep_resident`` (K5) runs n iterations of a level that fits one
   CTA's shared memory in one launch; it replaces ``_resident_rb_kernel``.
 - ``rb_iter_plain`` / ``solve_level_rb_plain`` compute the same thing with
@@ -20,10 +22,11 @@ Counterpart of the red-black section of
   the residual early exit (``core/solver.py:_chunked_early_exit``); on the
   card each chunk is one K5 launch or ceil(n/k) K4 launches.
 - ``halo_block_rb_sweeps`` runs the iterations between two halo exchanges
-  of the sharded step on one halo-extended block: one K4 launch whose
-  ``parity`` argument keeps the whole image's checkerboard, in place of the
-  TPU's ``_halo_block_rb_kernel`` and its u8 colour plane.
-  ``halo_block_rb_sweeps_plain`` is its plain version.
+  of the sharded step on a stack of halo-extended blocks: one K4 launch
+  over the whole stack, whose ``parity`` per block keeps the whole image's
+  checkerboard, in place of the TPU's ``_halo_block_rb_kernel`` per block
+  and its u8 colour plane. ``halo_block_rb_sweeps_plain`` is its plain
+  version.
 
 Each kernel wrapper counts its launches in ``<wrapper>.launches``.
 """
@@ -34,14 +37,33 @@ import numpy as np
 import torch
 
 from . import build
-from .sweep import SMEM_PER_CTA, _check, _check_table, _stream, left_up_weights, relax_plain
+from .sweep import (SMEM_PER_CTA, _check, _check_table, _same_device, _stream,
+                    left_up_weights, relax_plain)
 
 # Iterations per K4 launch. One iteration is two half-sweeps, each of which
-# widens the dependency cone by a pixel, so a tile carries a ring of 2k.
+# widens the dependency cone by a pixel, so a tile carries a ring of 2k. On
+# an NVIDIA H100 80GB HBM3 at its 700 W limit k = 4 took less device time
+# than k = 8 (1080p L0: 0.47 against 0.69-0.70 ms; L1: 0.29 against 0.38)
+# but twice the launches, which the host paces at L1 (1.4-1.5 against
+# 0.76-0.95 ms as launched), and the fast frame is bound by the host.
 RB_TILE_ITERS = 8
-# The largest k K4 accepts: its buffer is (32 + 4k) x (64 + 4k) floats.
-MAX_RB_TILE_ITERS = 32
-RB_TILE_H, RB_TILE_W = 32, 64
+# K4's CTA shapes (threads across, threads down, rows, columns): each
+# thread owns a patch of rows x columns pixels, so the extended tile is
+# (down * rows) x (across * columns) and its interior that less 4k each
+# way. Both sides of the tile are even, which puts every tile's origin on
+# a red cell. The kernel has the patches 4x2, 8x1 (K1's column) and 8x2.
+# 4x2 won at k = 8 over 8x1, whose lanes idle through the other colour's
+# half-sweep (L0: 0.69-0.70 against 1.15 ms of device time), and lost 0.1 ms
+# at L0 to 8x2 on 64 x 128, which ties it at L1 and runs one CTA per SM.
+RB_TILE_SHALLOW = (32, 16, 4, 2)  # 64 x 64: k <= 15
+RB_TILE_DEEP = (48, 10, 8, 2)  # 80 x 96: the rings of k = 16 to 19
+RB_TILE_PATCHES = ((4, 2), (8, 1), (8, 2))
+RB_TILE_MAX_THREADS = 512
+# The largest k a shape carries.
+MAX_RB_TILE_ITERS = 19
+# K4 takes at most this many planes per launch: their parities are the
+# bits of one 64-bit word.
+RB_TILE_MAX_PLANES = 64
 # K5's need per pixel of the level padded by a one-pixel ring: u, bh, bv,
 # inv (f32) and mask (u8).
 RB_RESIDENT_BYTES_PER_PX = 17
@@ -94,43 +116,94 @@ def solve_level_rb_plain(depth: torch.Tensor, mask: torch.Tensor, wts,
     return run(u, 0, om.shape[0])
 
 
-def _check_planes(h, w, bh, bv, inv, mask_u8, om_dev, base, n):
+def _check_planes(fn, shape, u, u_out, bh, bv, inv, mask_u8, om_dev, base, n):
     for name, t in (("bh", bh), ("bv", bv), ("inv", inv)):
-        _check(name, t, torch.float32, (h, w))
-    _check("mask", mask_u8, torch.uint8, (h, w))
+        _check(name, t, torch.float32, shape)
+    _check("mask", mask_u8, torch.uint8, shape)
     _check_table("om", om_dev, 2)
+    _same_device(fn, u=u, u_out=u_out, bh=bh, bv=bv, inv=inv, mask=mask_u8, om=om_dev)
     if n < 1 or base < 0 or base + n > om_dev.shape[0]:
         raise ValueError(
             f"iterations {base}..{base + n - 1} do not fit a table of {om_dev.shape[0]}"
         )
 
 
+def rb_tile_extent(tile):
+    """(rows, columns) of the extended tile of the CTA shape ``tile``."""
+    bx, by, rows, cols = tile
+    return by * rows, bx * cols
+
+
+def rb_smem_bytes(tile) -> int:
+    """K4's shared memory: one f32 buffer of u, every row split into its
+    ``cols`` de-interleaved sub-planes with an end slot each side, and a
+    row above and below."""
+    bx, by, rows, cols = tile
+    return 4 * (by * rows + 2) * cols * (bx + 2)
+
+
+def rb_tile_config(k: int):
+    """K4's (threads across, threads down, rows, columns) at k iterations
+    per launch: the first of its shapes whose interior is positive."""
+    for tile in (RB_TILE_SHALLOW, RB_TILE_DEEP):
+        if min(rb_tile_extent(tile)) > 4 * k:
+            return tile
+    raise ValueError(f"k must be in 1..{MAX_RB_TILE_ITERS}, got {k}")
+
+
+def _check_rb_tile(tile, k: int):
+    bx, by, rows, cols = tile
+    eh, ew = rb_tile_extent(tile)
+    if ((rows, cols) not in RB_TILE_PATCHES or bx * by > RB_TILE_MAX_THREADS or ew % 2
+            or min(eh, ew) <= 4 * k or rb_smem_bytes(tile) > SMEM_PER_CTA):
+        raise ValueError(f"tile {tuple(tile)} cannot carry a ring of {2 * k} (k={k})")
+    return bx, by, rows, cols
+
+
+def _parities(parity, nb: int):
+    """``parity`` as one 0/1 per plane: an int stands for every plane."""
+    if isinstance(parity, (int, np.integer)):
+        return [parity & 1] * nb
+    parity = [int(q) & 1 for q in parity]
+    if len(parity) != nb:
+        raise ValueError(f"parity: expected {nb} values, one per plane, got {len(parity)}")
+    return parity
+
+
 def rb_sweep_tiles(u_in, u_out, bh, bv, inv, mask_u8, om_dev, base: int, n_active: int,
-                   k: int = RB_TILE_ITERS, tile=(RB_TILE_H, RB_TILE_W), parity: int = 0) -> None:
+                   k: int = RB_TILE_ITERS, tile=None, parity=0) -> None:
     """K4: iterations base .. base+n_active-1 of the (iters, 2) device
-    omega table ``om_dev``, reading ``u_in`` and writing ``u_out``, in
-    tiles of ``tile`` = (rows, cols), with red at (y + x + parity) even."""
-    h, w = u_in.shape
-    _check("u_in", u_in, torch.float32, (h, w))
-    _check("u_out", u_out, torch.float32, (h, w))
-    _check_planes(h, w, bh, bv, inv, mask_u8, om_dev, base, n_active)
+    omega table ``om_dev``, reading ``u_in`` and writing ``u_out``: (h, w)
+    planes, or (nb, h, w) stacks of nb independent planes, one launch for
+    every 64 of them. Red is where (y + x + parity) is even; ``parity`` is
+    one int, or one per plane. ``tile`` overrides ``rb_tile_config(k)``."""
+    if u_in.dim() not in (2, 3):
+        raise ValueError(f"u_in: expected (h, w) or (nb, h, w), got {tuple(u_in.shape)}")
+    shape = tuple(u_in.shape)
+    nb, h, w = (1, *shape) if len(shape) == 2 else shape
+    _check("u_in", u_in, torch.float32, shape)
+    _check("u_out", u_out, torch.float32, shape)
+    _check_planes("rb_sweep_tiles", shape, u_in, u_out, bh, bv, inv, mask_u8, om_dev, base,
+                  n_active)
     if not 1 <= k <= MAX_RB_TILE_ITERS:
         raise ValueError(f"k must be in 1..{MAX_RB_TILE_ITERS}, got {k}")
     if n_active > k:
         raise ValueError(f"n_active {n_active} exceeds k={k}")
-    tile_h, tile_w = tile
-    if min(tile) < 1 or (tile_h + 4 * k) * (tile_w + 4 * k) * 4 > SMEM_PER_CTA:
-        raise ValueError(f"a {tile_h}x{tile_w} tile with k={k} does not fit shared memory")
+    bx, by, rows, cols = _check_rb_tile(tile or rb_tile_config(k), k)
+    parity = _parities(parity, nb)
     lib = build.load_library()
+    planes = (u_in, u_out, bh, bv, inv, mask_u8)
     # The launch goes to the current device: make it the tensors' one.
     with torch.cuda.device(u_in.device):
-        err = lib.rb_sweep_tiles(
-            u_in.data_ptr(), u_out.data_ptr(), bh.data_ptr(), bv.data_ptr(), inv.data_ptr(),
-            mask_u8.data_ptr(), om_dev.data_ptr(), h, w, base, n_active, k, tile_h, tile_w,
-            parity, _stream(u_in),
-        )
-    build.check("rb_sweep_tiles", err)
-    rb_sweep_tiles.launches += 1
+        for z in range(0, nb, RB_TILE_MAX_PLANES):
+            bits = sum(q << i for i, q in enumerate(parity[z:z + RB_TILE_MAX_PLANES]))
+            err = lib.rb_sweep_tiles(
+                *(t.data_ptr() + z * h * w * t.element_size() for t in planes),
+                om_dev.data_ptr(), min(RB_TILE_MAX_PLANES, nb - z), h, w, base, n_active, k,
+                bx, by, rows, cols, bits, _stream(u_in),
+            )
+            build.check("rb_sweep_tiles", err)
+            rb_sweep_tiles.launches += 1
 
 
 rb_sweep_tiles.launches = 0
@@ -146,14 +219,16 @@ def rb_sweep_resident(u, bh, bv, inv, mask_u8, om_dev, base: int, n: int) -> Non
     ``om_dev`` on the level ``u``, in place."""
     h, w = u.shape
     _check("u", u, torch.float32, (h, w))
-    _check_planes(h, w, bh, bv, inv, mask_u8, om_dev, base, n)
+    _check_planes("rb_sweep_resident", (h, w), u, u, bh, bv, inv, mask_u8, om_dev, base, n)
     if not rb_resident_fits(h, w):
         raise ValueError(f"a {h}x{w} level does not fit one CTA's shared memory")
     lib = build.load_library()
-    err = lib.rb_sweep_resident(
-        u.data_ptr(), bh.data_ptr(), bv.data_ptr(), inv.data_ptr(), mask_u8.data_ptr(),
-        om_dev.data_ptr(), h, w, base, n, _stream(u),
-    )
+    # The launch goes to the current device: make it the tensors' one.
+    with torch.cuda.device(u.device):
+        err = lib.rb_sweep_resident(
+            u.data_ptr(), bh.data_ptr(), bv.data_ptr(), inv.data_ptr(), mask_u8.data_ptr(),
+            om_dev.data_ptr(), h, w, base, n, _stream(u),
+        )
     build.check("rb_sweep_resident", err)
     rb_sweep_resident.launches += 1
 
@@ -161,7 +236,7 @@ def rb_sweep_resident(u, bh, bv, inv, mask_u8, om_dev, base: int, n: int) -> Non
 rb_sweep_resident.launches = 0
 
 
-def _tiles_chunk(u, bh, bv, inv, m8, om_dev, base, n, k, tile=(RB_TILE_H, RB_TILE_W)):
+def _tiles_chunk(u, bh, bv, inv, m8, om_dev, base, n, k, tile=None):
     """Iterations base .. base+n-1 in ceil(n/k) K4 launches; u ping-pongs
     between the given buffer and a new one. Returns the one that holds the
     result."""
@@ -205,25 +280,31 @@ def solve_level_rb_cuda(depth: torch.Tensor, mask: torch.Tensor, wts, om: np.nda
     return run(u, 0, om.shape[0])
 
 
-def halo_block_rb_sweeps_plain(u_e, bh_e, bv_e, inv_e, m_e, parity: int, om):
+def halo_block_rb_sweeps_plain(u_e, bh_e, bv_e, inv_e, m_e, parity, om):
     """Plain version of ``halo_block_rb_sweeps``: ``rb_iter_plain`` once per
-    row of ``om``, on the block alone."""
+    row of ``om``, on each block alone."""
     wl, wu = left_up_weights(bh_e, bv_e)
     mask = m_e.to(torch.bool)
-    red = red_black_parity(*u_e.shape, device=u_e.device, parity=parity)
+    h, w = u_e.shape[-2:]
+    if u_e.dim() == 2:
+        red = red_black_parity(h, w, device=u_e.device, parity=_parities(parity, 1)[0])
+    else:
+        red = torch.stack([red_black_parity(h, w, device=u_e.device, parity=q)
+                           for q in _parities(parity, u_e.shape[0])])
     u = u_e
     for om_r, om_b in om.tolist():
         u = rb_iter_plain(u, wl, bh_e, wu, bv_e, inv_e, mask, red, om_r, om_b)
     return u
 
 
-def halo_block_rb_sweeps(u_e, bh_e, bv_e, inv_e, m_e, parity: int, om):
-    """The (n, 2) omegas ``om`` on one halo-extended (h, w) block of the
-    sharded step, red where (y + x + parity) is even in block coordinates:
-    parity is that of the block's global origin. Plain torch for CPU
-    tensors, one K4 launch with n_active = k = n for CUDA tensors. The
-    caller's halo is at least 2n wide (each iteration reads two rings) and
-    it crops them."""
+def halo_block_rb_sweeps(u_e, bh_e, bv_e, inv_e, m_e, parity, om):
+    """The (n, 2) omegas ``om`` on a halo-extended (h, w) block of the
+    sharded step, or on an (nb, h, w) stack of them, red where (y + x +
+    parity) is even in block coordinates: ``parity`` is that of the block's
+    global origin, one int per block of a stack. Plain torch for CPU
+    tensors, one K4 launch over the whole stack with n_active = k = n for
+    CUDA tensors; the result is a new tensor. The caller's halo is at
+    least 2n wide (each iteration reads two rings) and it crops them."""
     if u_e.device.type == "cpu":
         return halo_block_rb_sweeps_plain(u_e, bh_e, bv_e, inv_e, m_e, parity, om)
     if not u_e.is_cuda:

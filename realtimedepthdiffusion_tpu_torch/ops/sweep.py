@@ -138,6 +138,15 @@ def _check(name, t, dtype, shape):
         raise ValueError(f"{name}: expected a contiguous tensor")
 
 
+def _same_device(fn: str, **tensors) -> None:
+    """Raise unless every tensor lies on the first one's device: a kernel
+    launches on one card and reads every pointer there."""
+    (first, t0), *rest = tensors.items()
+    for name, t in rest:
+        if t.device != t0.device:
+            raise ValueError(f"{fn}: {name} is on {t.device} but {first} on {t0.device}")
+
+
 def _check_table(name, t, cols):
     if t.dim() != 2 or t.shape[1] != cols:
         raise ValueError(f"{name}: expected shape (iters, {cols}), got {tuple(t.shape)}")
@@ -168,6 +177,8 @@ def jc_sweep_tiles(u_in, p_in, u_out, p_out, bh, bv, inv, mask_u8, abc_dev,
         _check(name, t, torch.float32, shape)
     _check("mask", mask_u8, torch.uint8, shape)
     _check_table("abc", abc_dev, 3)
+    _same_device("jc_sweep_tiles", u_in=u_in, p_in=p_in, u_out=u_out, p_out=p_out, bh=bh, bv=bv,
+                 inv=inv, mask=mask_u8, abc=abc_dev)
     if not 1 <= k <= MAX_TILE_SWEEPS:
         raise ValueError(f"k must be in 1..{MAX_TILE_SWEEPS}, got {k}")
     if not 1 <= n_active <= k or base < 0 or base + n_active > abc_dev.shape[0]:
@@ -251,6 +262,7 @@ def jc_sweep_resident(u, p, bh, bv, inv, mask_u8, abc_dev, base: int, n: int,
         _check(name, t, torch.float32, (h, w))
     _check("mask", mask_u8, torch.uint8, (h, w))
     _check_table("abc", abc_dev, 3)
+    _same_device("jc_sweep_resident", u=u, p=p, bh=bh, bv=bv, inv=inv, mask=mask_u8, abc=abc_dev)
     if n < 1 or base < 0 or base + n > abc_dev.shape[0]:
         raise ValueError(f"sweeps {base}..{base + n - 1} do not fit a table of {abc_dev.shape[0]}")
     if cluster not in CLUSTER_SIZES or cluster > resident_max_cluster(u.device):

@@ -3,10 +3,10 @@
 Each image is cut into a dy x dx grid of blocks, one per slot of a
 ``SlotMesh`` (``parallel/mesh.py``). Every k sweeps the slots exchange a
 k-wide halo (``parallel/halo.py``) and run k sweeps on their extended
-blocks: for Jacobi-Chebyshev one K1 launch per device over a stack of
-every block the device holds, for red-black one K4 launch per block with
-the block's checkerboard parity (2k-wide halo, since an iteration reads
-two rings), and one K3 launch per block for the defocus, behind a ring of
+blocks: one launch per device over a stack of every block the device
+holds, K1 for Jacobi-Chebyshev and K4 for red-black, with each block's
+checkerboard parity (2k-wide halo, since an iteration reads two rings),
+and one K3 launch per block for the defocus, behind a ring of
 max_half + 1. The 'batch' axis splits a batch of images over the slots.
 Levels whose blocks would be thinner than the exchange run replicated,
 through the single-device ``core/solver.py:solve_level`` per image, on the
@@ -133,8 +133,8 @@ class _ShardedLevel:
 
     The extended blocks of every slot on a device lie in one (N, h+2w,
     w+2w) stack per device, slot after slot (``at``), so one kernel launch
-    serves all of a device's blocks; ``bh_e`` and the rest are per-slot
-    views of the weight stacks."""
+    serves all of a device's blocks; ``bh_e``, ``bv_e`` and ``inv_e`` are
+    per-slot views of the weight stacks."""
 
     def __init__(self, mesh, u, planes, m, width, plain):
         self.mesh, self.width, self.plain = mesh, width, plain
@@ -149,7 +149,7 @@ class _ShardedLevel:
             self.stack_len[d] += self.nb
         self.canvas = None
         self.stacks = [self.stack(mesh.scatter(p)) for p in (*planes, m)]
-        self.bh_e, self.bv_e, self.inv_e, self.m_e = (self.views(st) for st in self.stacks)
+        self.bh_e, self.bv_e, self.inv_e = (self.views(st) for st in self.stacks[:3])
         # The planes extended by one ring, for the probe.
         c = width - 1
         ring1 = (lambda a: a[..., c:-c, c:-c]) if c else (lambda a: a)  # noqa: E731
@@ -157,9 +157,6 @@ class _ShardedLevel:
             s: (*left_up_weights(ring1(self.bh_e[s]), ring1(self.bv_e[s])), ring1(self.bh_e[s]),
                 ring1(self.bv_e[s]), ring1(self.inv_e[s]))
             for s in mesh.slots}
-
-    def ext(self, blocks, k=None):
-        return extend_with_halo(self.mesh, blocks, k or self.width)
 
     def views(self, stacks):
         """Each slot's blocks in the per-device ``stacks``."""
@@ -209,7 +206,7 @@ class _ShardedLevel:
         return {d: host if self.plain else host.to(d) for d in self.stack_len}
 
     def residual(self, us, cfg) -> float:
-        u1 = self.ext(us, 1)
+        u1 = extend_with_halo(self.mesh, us, 1)
         d = {}
         for s in self.mesh.slots:
             wl, wu, bh, bv, inv = self.probe_planes[s]
@@ -240,19 +237,6 @@ class _ShardedLevel:
         if exit_log is not None:
             exit_log.append({"shape": shape, "iters": i, "probes": probes, "tol": tol})
         return state, i, res
-
-    def blocks_of(self, k, fn, *blocks):
-        """``fn(slot, *image_blocks)`` on every image of every slot's
-        extended blocks, each result cropped by k and stacked back per slot;
-        a tuple of such dicts where ``fn`` returns a tuple."""
-        res = {s: [fn(s, *(b[s][n] for b in blocks)) for n in range(blocks[0][s].shape[0])]
-               for s in self.mesh.slots}
-        crop = lambda r: r[k:-k, k:-k]  # noqa: E731
-        if isinstance(res[self.mesh.home_slot][0], tuple):
-            parts = range(len(res[self.mesh.home_slot][0]))
-            return tuple({s: torch.stack([crop(r[t]) for r in rs]) for s, rs in res.items()}
-                         for t in parts)
-        return {s: torch.stack([crop(r) for r in rs]) for s, rs in res.items()}
 
 
 def _one_device(mesh) -> bool:
@@ -293,24 +277,32 @@ def _rb_level(mesh, u, planes, m, iters, cfg, k, blocks, exit_log, shape):
     ew = exchange_width("red_black", k)
     lv = _ShardedLevel(mesh, u, planes, m, ew, blocks.plain)
     tables = lv.tables(rb_omegas(iters, cfg))
-    # The checkerboard parity of each block's global origin; the extended
-    # block's origin is ew rows up and ew columns left, which keeps it.
-    parity = {(p, i, j): (i * lv.hb + j * lv.wb) & 1 for p, i, j in mesh.slots}
+    weights = {d: tuple(st[d] for st in lv.stacks) for d in lv.stack_len}
+    # The checkerboard parity of each block's global origin, in the order of
+    # its device's stack; the extended block's origin is ew rows up and ew
+    # columns left, which keeps it.
+    parity = {d: [] for d in lv.stack_len}
+    for (_, i, j), (d, _) in lv.at.items():
+        parity[d] += [(i * lv.hb + j * lv.wb) & 1] * lv.nb
+    u_e = lv.stack(lv.u0)
 
-    def exchange(us, base, n):
-        """One 2k-halo exchange, then n <= k iterations per block."""
-        u_e = lv.ext(us)
-        block_calls["red_black"] += sum(b.shape[0] for b in u_e.values())
-        return lv.blocks_of(ew, lambda s, ue, bh, bv, inv, me: blocks.rb(
-            ue, bh, bv, inv, me, parity[s], tables[mesh.devices[s]][base:base + n]),
-            u_e, lv.bh_e, lv.bv_e, lv.inv_e, lv.m_e)
+    def exchange(state, base, n):
+        """One 2k-halo exchange of u into each device's stack, then n <= k
+        iterations over each stack in one call. The state is each device's
+        stack of u with a ring, which only the interiors of matter. A call
+        writes a new tensor, so no stack is both its input and its output."""
+        lv.refill(state, u_e)
+        block_calls["red_black"] += lv.n_blocks
+        return {d: blocks.rb(u_e[d], *weights[d], parity[d], tables[d][base:base + n])
+                for d in weights}
 
-    def run(us, base, n):
+    def run(state, base, n):
         for b0 in range(base, base + n, k):
-            us = exchange(us, b0, min(k, base + n - b0))
-        return us
+            state = exchange(state, b0, min(k, base + n - b0))
+        return state
 
-    return lv.solve(lv.u0, run, lambda us: us, iters, cfg, exit_log, shape)
+    state, done, res = lv.solve(lv.stack(lv.u0), run, lv.crop, iters, cfg, exit_log, shape)
+    return lv.crop(state), done, res
 
 
 def solve_level_sharded(depth, mask, gray, level: int, max_level: int, iters: int,

@@ -1,9 +1,11 @@
 """The port's CUDA kernels against their plain versions on the card, at
 shapes the 1080p run does not reach: single rows, levels smaller than one
-tile, ragged tiles, every ring width k, stacks of planes in one K1 launch,
-K2 on every cluster-held level shape from a base > 0, tiles that start on a black cell,
-chunks that start past iteration 0, large apertures, K6 at every level rule
-and the 4K routes and SAT sums. Every comparison is exact.
+tile, ragged tiles, every ring width k, stacks of planes in one K1 or K4
+launch, K2 on every cluster-held level shape from a base > 0, K4 under
+each of its CTA shapes and both checkerboard parities, chunks that start
+past iteration 0, large apertures, K6 at every level rule and the 4K
+routes and SAT sums, and pipelines on a second card. Every comparison is
+exact.
 
 Needs a CUDA device and nvcc; skips without them. This file imports no JAX,
 so it runs on a machine without it:
@@ -153,22 +155,73 @@ def _rb_planes(wts, mask):
             mask.to(torch.uint8))
 
 
-# Tiles of 7x9 put tile origins on both colours of the checkerboard (the
-# default 32x64 tiles all start on red).
+# Every CTA shape of K4 (rb_sweep.cu): the patches 4x2, 8x1 and 8x2, and a
+# small tile of many CTAs per level. Parity 1 puts every tile's origin on a
+# black cell, as a block of a sharded image with an odd origin has it.
+RB_TILES = [(32, 16, 4, 2), (64, 8, 8, 1), (64, 8, 8, 2), (48, 10, 8, 2), (12, 6, 4, 2)]
+
+
 @pytest.mark.parametrize("h,w", [(1, 70), (5, 3), (33, 65), (70, 130), (135, 240)])
-@pytest.mark.parametrize("k", [1, 3, 8, 16])
+@pytest.mark.parametrize("k", [1, 3, 8, 15])
 @pytest.mark.parametrize("iters", [1, 7, 20])
-@pytest.mark.parametrize("tile", [(32, 64), (7, 9)])
-def test_rb_tiles_kernel_equals_plain(dev, h, w, k, iters, tile):
+@pytest.mark.parametrize("parity", [0, 1])
+def test_rb_tiles_kernel_equals_plain(dev, h, w, k, iters, parity):
+    """K4 on its route's shape at k, and on every other shape that carries
+    k, against the plain iterations with the same checkerboard."""
     depth, mask, wts, _ = _level(dev, h, w, iters, seed=h * w + k)
     om = rb_omegas(iters, DiffusionConfig())
+    planes = _rb_planes(wts, mask)
+    om_dev = torch.from_numpy(om).to(dev)
+    want = rb_sweep.halo_block_rb_sweeps_plain(depth, *planes, parity, om)
+    tiles = [None] + [t for t in RB_TILES if min(rb_sweep.rb_tile_extent(t)) > 4 * k]
+    for tile in tiles:
+        before = rb_sweep.rb_sweep_tiles.launches
+        us = [depth.clone(), torch.empty_like(depth)]
+        for blk, b in enumerate(range(0, iters, k)):
+            rb_sweep.rb_sweep_tiles(us[blk % 2], us[1 - blk % 2], *planes, om_dev, b,
+                                    min(k, iters - b), k, tile, parity)
+        torch.cuda.synchronize()
+        assert torch.equal(us[-(-iters // k) % 2], want), tile
+        assert rb_sweep.rb_sweep_tiles.launches - before == -(-iters // k)
+    if parity == 0:
+        assert torch.equal(rb_sweep._tiles_chunk(depth.clone(), *planes, om_dev, 0, iters, k),
+                           rb_sweep.solve_level_rb_plain(depth, mask, wts, om))
+
+
+@pytest.mark.parametrize("nb", [1, 3, 16])
+@pytest.mark.parametrize("h,w", [(37, 53), (76, 136)])
+@pytest.mark.parametrize("k", [1, 8])
+def test_stacked_rb_tiles_kernel_equals_blocks_plain(dev, nb, h, w, k):
+    """K4 over an (nb, h, w) stack with mixed parities in one launch equals
+    the plain stack and each block's plain iterations alone."""
+    blocks = [_halo_block(dev, h, w, seed=h + k + i) for i in range(nb)]
+    stack = [torch.stack(t).contiguous() for t in zip(*blocks)]
+    del stack[1]  # prev: red-black carries none
+    parity = [(i * 5 // 3) & 1 for i in range(nb)]
+    om = rb_omegas(k + 3, DiffusionConfig())[3:]
     before = rb_sweep.rb_sweep_tiles.launches
-    got = rb_sweep._tiles_chunk(depth.clone(), *_rb_planes(wts, mask),
-                                torch.from_numpy(om).to(dev), 0, iters, k, tile)
-    want = rb_sweep.solve_level_rb_plain(depth, mask, wts, om)
+    got = rb_sweep.halo_block_rb_sweeps(*stack, parity, torch.from_numpy(om).to(dev))
     torch.cuda.synchronize()
-    assert torch.equal(got, want)
-    assert rb_sweep.rb_sweep_tiles.launches - before == -(-iters // k)
+    assert rb_sweep.rb_sweep_tiles.launches == before + 1
+    assert got.data_ptr() != stack[0].data_ptr()
+    assert torch.equal(got, rb_sweep.halo_block_rb_sweeps_plain(*stack, parity, om))
+    for i, (u, _, bh, bv, inv, m) in enumerate(blocks):
+        assert torch.equal(got[i], rb_sweep.halo_block_rb_sweeps_plain(u, bh, bv, inv, m,
+                                                                        parity[i], om))
+
+
+def test_rb_tiles_stack_beyond_one_launch(dev):
+    """70 planes are two launches (64 parities fit one word), each right."""
+    blocks = [_halo_block(dev, 9, 11, seed=i) for i in range(70)]
+    stack = [torch.stack(t).contiguous() for t in zip(*blocks)]
+    del stack[1]
+    parity = [i % 3 == 0 for i in range(70)]
+    om = rb_omegas(4, DiffusionConfig())
+    before = rb_sweep.rb_sweep_tiles.launches
+    got = rb_sweep.halo_block_rb_sweeps(*stack, parity, torch.from_numpy(om).to(dev))
+    torch.cuda.synchronize()
+    assert rb_sweep.rb_sweep_tiles.launches == before + 2
+    assert torch.equal(got, rb_sweep.halo_block_rb_sweeps_plain(*stack, parity, om))
 
 
 @pytest.mark.parametrize("h,w", [(1, 1), (5, 7), (67, 120)])
@@ -232,6 +285,12 @@ def test_wrappers_reject_bad_arguments(dev):
         rb_sweep.rb_sweep_tiles(f, f, f, f, f, m, om, 3, 2)
     with pytest.raises(ValueError, match="om"):
         rb_sweep.rb_sweep_resident(f, f, f, f, m, abc, 0, 1)
+    with pytest.raises(ValueError, match="k must be"):
+        rb_sweep.rb_sweep_tiles(f, f, f, f, f, m, om, 0, 2, k=20)
+    with pytest.raises(ValueError, match="ring"):
+        rb_sweep.rb_sweep_tiles(f, f, f, f, f, m, om, 0, 2, k=8, tile=(64, 8, 4, 1))
+    with pytest.raises(ValueError, match="parity"):
+        rb_sweep.rb_sweep_tiles(f, f, f, f, f, m, om, 0, 2, parity=[0, 1])
     with pytest.raises(ValueError, match="shared memory"):
         rb_sweep.rb_sweep_resident(torch.zeros((200, 300), device=dev), *[
             torch.zeros((200, 300), device=dev)] * 3, torch.zeros((200, 300),
@@ -254,8 +313,8 @@ def _fused_case(dev, h, w, seed):
     return seed_depth(depth, mask, value), mask, gray
 
 
-@pytest.mark.parametrize("h,w", [(37, 53), (100, 203), (257, 515)])
-@pytest.mark.parametrize("k", [1, 3, 8, 12])
+@pytest.mark.parametrize("h,w", [(37, 53), (100, 203), (257, 515), (33, 65), (70, 130), (90, 20)])
+@pytest.mark.parametrize("k", [1, 8, 16, 20])
 @pytest.mark.parametrize("level,max_level", [(0, 3), (1, 3), (3, 3)])
 def test_fused_kernel_equals_plain(dev, h, w, k, level, max_level):
     depth, mask, gray = _fused_case(dev, h, w, seed=h + w + k + level)
@@ -339,7 +398,7 @@ def test_fused_wrapper_rejects_bad_arguments(dev):
                                    0, True)
     with pytest.raises(ValueError, match="do not fit"):
         fused_sweep.jc_sweep_fused(f, f, f, f, m, m, m, abc, etab, 2, 4, 0, True)
-    with pytest.raises(ValueError, match="shared memory"):
+    with pytest.raises(ValueError, match="ring"):
         fused_sweep.jc_sweep_fused(f, f, f, f, m, m, m, abc, etab, 0, 1, 0, True, k=40)
 
 
@@ -474,3 +533,55 @@ def test_sharded_step_across_cards_equals_one_card(dev, solver_name):
     assert torch.equal(runs[0][0], runs[1][0]) and torch.equal(runs[0][2], runs[1][2])
     assert all(torch.equal(a, b) for a, b in zip(runs[0][1], runs[1][1]))
     assert [e["iters"] for e in runs[0][3]] == [e["iters"] for e in runs[1][3]]
+
+
+@pytest.mark.parametrize("name,rows,cols,cfg_kw", [
+    ("default", 1080, 1920, {}),
+    # What flags.py resolves --profile fast to.
+    ("fast", 1080, 1920, {"solver": "red_black", "early_exit": True, "tolerance": 1e-3,
+                          "residual_metric": "rms"}),
+    ("4K", 2160, 3840, {}),
+])
+def test_pipeline_on_second_card_equals_first(dev, name, rows, cols, cfg_kw):
+    """A frame of ``DepthPipeline(..., device="cuda:1")`` (K1, K2, K3 and K6,
+    or K4, K5 and K3) equals the same frame on ``cuda:0``: every kernel
+    launches on its tensors' card, not on the current one. Skips with
+    fewer than two cards."""
+    import warnings
+
+    from realtimedepthdiffusion_tpu_torch import DepthPipeline
+    from realtimedepthdiffusion_tpu_torch.core import effects as fx
+
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two or more CUDA devices")
+    r = np.random.default_rng(rows)
+    rgb = r.integers(0, 256, (rows, cols, 3), dtype=np.uint8)
+    mask = np.zeros((rows, cols), bool)
+    value = np.zeros((rows, cols), np.uint8)
+    mask[rows // 4:rows // 4 + 40, cols // 4:cols // 4 + 60] = True
+    value[rows // 4:rows // 4 + 40, cols // 4:cols // 4 + 60] = 254
+    mask[3 * rows // 4:3 * rows // 4 + 40, 3 * cols // 4:3 * cols // 4 + 60] = True
+    cfg = DiffusionConfig(**cfg_kw)
+    frames = []
+    for device in ("cuda:0", "cuda:1"):
+        pipe = DepthPipeline(rows, cols, cfg, device=device)
+        rgb_d, gpyr = pipe.prepare_image(rgb)
+        ops.reset_launch_counts()
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", RuntimeWarning)  # 4K: 'auto' defocus -> approx
+            depth, _, out = pipe.solve_and_effect(
+                fx.EFFECT_DEFOCUS, gpyr, rgb_d, torch.from_numpy(mask).to(device),
+                torch.from_numpy(value).to(device), pipe.initial_state())
+        torch.cuda.synchronize(device)
+        assert depth.device == torch.device(device)
+        frames.append((depth.cpu(), out.cpu(), ops.launch_counts()))
+    assert frames[0][2] == frames[1][2] and sum(frames[0][2].values()) > 0
+    assert torch.equal(frames[0][0], frames[1][0]) and torch.equal(frames[0][1], frames[1][1])
+    # A wrapper refuses arguments that lie on two cards.
+    f0, f1 = torch.zeros((8, 9), device="cuda:0"), torch.zeros((8, 9), device="cuda:1")
+    m0 = torch.zeros((8, 9), dtype=torch.uint8, device="cuda:0")
+    with pytest.raises(ValueError, match="cuda:1.*cuda:0"):
+        sweep.jc_sweep_tiles(f0, f0, f0, f0, f1, f0, f0, m0, torch.zeros((4, 3), device="cuda:0"),
+                             0, 4)
+    with pytest.raises(ValueError, match="cuda:1.*cuda:0"):
+        defocus.defocus_box(torch.zeros((8, 9, 3), dtype=torch.uint8, device="cuda:0"), f1)

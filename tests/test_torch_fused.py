@@ -212,6 +212,21 @@ def test_state_prefetch_level_equals_default():
     assert torch.equal(got, solver.solve_level(*args, DiffusionConfig()))
 
 
+@pytest.mark.parametrize("k", [1, 8, 12, 16, 17, 32])
+def test_fused_tile_shapes_fit(k):
+    """K6 runs in K1's CTA shape for its ring: a positive interior, and two
+    f32 buffers of the extended tile and its one-pixel ring, 8 bytes a
+    pixel, within one CTA's shared memory (35 KB for the 64x64 tile)."""
+    bx, by, rows = sweep.tile_config(k)
+    assert bx * by <= (512 if rows == 8 else 1024)
+    assert bx - 2 * k > 0 and by * rows - 2 * k > 0
+    want = (by * rows + 2) * (bx + 2) * fused_sweep.FUSED_BYTES_PER_PX
+    assert fused_sweep.FUSED_BYTES_PER_PX == 8
+    assert fused_sweep.fused_smem_bytes(k) == want <= sweep.SMEM_PER_CTA
+    if k <= 16:
+        assert want == 66 * 66 * 8
+
+
 def test_fused_wrapper_refuses_cpu_tensors():
     ops.reset_launch_counts()
     f = torch.zeros((8, 9))

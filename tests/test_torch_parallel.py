@@ -186,6 +186,32 @@ def test_halo_block_rb_sweeps_plain_matches_pallas():
                        got)
 
 
+@pytest.mark.parametrize("nb", [1, 3])
+def test_stacked_halo_block_rb_sweeps_equal_blocks_and_pallas(nb):
+    """A stack of nb extended blocks with a parity each in one call equals
+    each block alone (bit for bit), and each block JAX's red-black
+    halo-block kernel in interpret mode fed that block's colour plane
+    (atol 5e-3 inside the ring of 8, the bar of the single-block test)."""
+    blocks = [_block(6 + i) for i in range(nb)]
+    stack = [torch.stack(t) for t in zip(*blocks)]
+    del stack[1]  # prev: red-black carries none
+    parity = [1, 0, 1][:nb]
+    om = solver.rb_omegas(12, DiffusionConfig())[8:12]
+    got = rb_sweep.halo_block_rb_sweeps_plain(*stack, parity, om)
+    assert got.shape == (nb, 24, 40)
+    for i, (u, _, bh, bv, inv, m) in enumerate(blocks):
+        one = rb_sweep.halo_block_rb_sweeps_plain(u, bh, bv, inv, m, parity[i], om)
+        assert torch.equal(got[i], one)
+        red = rb_sweep.red_black_parity(24, 40, parity=parity[i])
+        want = jps.halo_block_rb_sweeps(
+            *(jnp.asarray(t.numpy()) for t in (u, bh, bv, inv, m, red)), om, interpret=True)
+        np.testing.assert_allclose(got[i].numpy()[8:-8, 8:-8], np.asarray(want)[8:-8, 8:-8],
+                                   atol=5e-3, rtol=0)
+    assert torch.equal(rb_sweep.halo_block_rb_sweeps(*stack, parity, torch.from_numpy(om)), got)
+    with pytest.raises(ValueError, match="parity"):
+        rb_sweep.halo_block_rb_sweeps_plain(*stack, parity + [0], om)
+
+
 @pytest.mark.parametrize("oy,ox,hb,wb", [(40, 60, 40, 50), (0, 0, 30, 45), (80, 110, 40, 50)],
                          ids=["inner", "top-left", "bottom-right"])
 def test_defocus_block_matches_pallas_and_whole_image(oy, ox, hb, wb):
@@ -259,6 +285,42 @@ def test_sharded_jacobi_level_one_call_per_device_and_exchange(monkeypatch, batc
     assert sharded.block_calls["jacobi_chebyshev"] == 6 * n_blocks
     images = zip(depth, mask, gray) if batch else [(depth, mask, gray)]
     want = [solver.solve_level(d, mk, g, 1, 1, 21, DiffusionConfig()) for d, mk, g in images]
+    assert torch.equal(got, torch.stack(want) if batch else want[0])
+
+
+@pytest.mark.parametrize("batch", [None, 2])
+@pytest.mark.parametrize("canvas", [True, False])
+def test_sharded_red_black_level_one_call_per_device_and_exchange(monkeypatch, batch, canvas):
+    """The red-black level runs every block of a device in one block-route
+    call per exchange: ceil(21 / 4) = 6 calls on the one CPU device, each
+    over a stack of all slots' blocks behind a ring of 2k = 8, with the
+    parity of each block's origin (block (1, 0) of 33x49 blocks starts on
+    an odd row); a call never writes the stack it reads; the level equals
+    the single-device level bit for bit, through the canvas or strip by
+    strip."""
+    if not canvas:
+        monkeypatch.setattr(sharded, "_one_device", lambda m: False)
+    calls = []
+    real = sharded._KERNELS.rb
+
+    def spy(u_e, bh, bv, inv, m_e, parity, om):
+        out = real(u_e, bh, bv, inv, m_e, parity, om)
+        calls.append((tuple(u_e.shape), list(parity), out.data_ptr() != u_e.data_ptr()))
+        return out
+
+    monkeypatch.setattr(sharded, "_KERNELS", sharded._KERNELS._replace(rb=spy))
+    gray, mask, depth = _level_case(11, 65, 97, batch)
+    cfg = DiffusionConfig(solver="red_black")
+    m = mesh.make_mesh(8, device="cpu")
+    sharded.block_calls.clear()
+    got = sharded.solve_level_sharded(depth, mask, gray, 1, 1, 21, m, cfg, halo=4)
+    n_img = 1 if batch is None else 2
+    # Slots in stack order: (image, i, j) with the origin (33 i, 49 j).
+    parity = [(33 * i + 49 * j) & 1 for _ in range(n_img) for i in (0, 1) for j in (0, 1)]
+    assert calls == [((4 * n_img, 33 + 16, 49 + 16), parity, True)] * 6
+    assert sharded.block_calls["red_black"] == 6 * 4 * n_img
+    images = zip(depth, mask, gray) if batch else [(depth, mask, gray)]
+    want = [solver.solve_level(d, mk, g, 1, 1, 21, cfg) for d, mk, g in images]
     assert torch.equal(got, torch.stack(want) if batch else want[0])
 
 

@@ -27,7 +27,7 @@ from realtimedepthdiffusion_tpu_torch import ops
 from realtimedepthdiffusion_tpu_torch.config import DiffusionConfig
 from realtimedepthdiffusion_tpu_torch.core import solver
 from realtimedepthdiffusion_tpu_torch.core.weights import edge_weights
-from realtimedepthdiffusion_tpu_torch.ops import rb_sweep
+from realtimedepthdiffusion_tpu_torch.ops import rb_sweep, sweep
 
 RB = {"solver": "red_black"}
 
@@ -266,6 +266,57 @@ def test_rb_resident_fit_rule():
     assert rb_sweep.rb_resident_fits(67, 120)
     assert (67 + 2) * (120 + 2) * rb_sweep.RB_RESIDENT_BYTES_PER_PX == 143106
     assert not rb_sweep.rb_resident_fits(135, 240)
+
+
+@pytest.mark.parametrize("tile", [rb_sweep.RB_TILE_SHALLOW, rb_sweep.RB_TILE_DEEP,
+                                  (64, 8, 8, 1), (64, 8, 8, 2), (32, 16, 8, 2), (64, 8, 4, 2)])
+def test_rb_tile_shapes_and_refusals(tile):
+    """Every CTA shape K4 is offered, at every k it carries: a positive
+    interior, tile origins on red cells (even y + x, so that a pixel's
+    colour is that of its tile coordinates), a patch the kernel has and a
+    buffer that fits one CTA's shared memory. Beyond that k the shape is
+    refused."""
+    bx, by, rows, cols = tile
+    eh, ew = rb_sweep.rb_tile_extent(tile)
+    assert (eh, ew) == (by * rows, bx * cols) and eh % 2 == 0 and ew % 2 == 0
+    assert rows % 2 == 0 and (rows, cols) in rb_sweep.RB_TILE_PATCHES
+    assert bx * by <= rb_sweep.RB_TILE_MAX_THREADS
+    assert rb_sweep.rb_smem_bytes(tile) == 4 * (eh + 2) * cols * (bx + 2) <= sweep.SMEM_PER_CTA
+    k_max = (min(eh, ew) - 1) // 4
+    for k in range(1, k_max + 1):
+        assert rb_sweep._check_rb_tile(tile, k) == tile
+        ih, iw = eh - 4 * k, ew - 4 * k
+        assert ih > 0 and iw > 0
+        for ty, tx in ((0, 0), (1, 0), (0, 1), (3, 5)):
+            assert (ty * ih - 2 * k + tx * iw - 2 * k) % 2 == 0
+    with pytest.raises(ValueError, match="ring"):
+        rb_sweep._check_rb_tile(tile, k_max + 1)
+
+
+def test_rb_tile_config_routes_and_refusals():
+    """``rb_tile_config`` serves every k up to ``MAX_RB_TILE_ITERS`` with a
+    shape that carries it, the route's k with the shallow one; no shape
+    carries more, an odd tile width or a patch the kernel lacks."""
+    for k in range(1, rb_sweep.MAX_RB_TILE_ITERS + 1):
+        assert rb_sweep._check_rb_tile(rb_sweep.rb_tile_config(k), k)
+    assert rb_sweep.rb_tile_config(rb_sweep.RB_TILE_ITERS) == rb_sweep.RB_TILE_SHALLOW
+    assert rb_sweep.rb_tile_config(rb_sweep.MAX_RB_TILE_ITERS) == rb_sweep.RB_TILE_DEEP
+    with pytest.raises(ValueError, match="k must be"):
+        rb_sweep.rb_tile_config(rb_sweep.MAX_RB_TILE_ITERS + 1)
+    for bad in ((33, 8, 8, 1), (64, 8, 6, 1), (64, 16, 4, 2)):
+        with pytest.raises(ValueError, match="ring"):
+            rb_sweep._check_rb_tile(bad, 1)
+    assert rb_sweep._parities(1, 3) == [1, 1, 1] and rb_sweep._parities([0, 3, True], 3) == [0, 1, 1]
+    with pytest.raises(ValueError, match="parity"):
+        rb_sweep._parities([0, 1], 3)
+
+
+def test_wrappers_refuse_tensors_on_two_devices():
+    """One helper, used by every kernel wrapper, names both devices."""
+    a, b = torch.zeros(2), torch.zeros(2, device="meta")
+    sweep._same_device("k", u=a, bh=a)
+    with pytest.raises(ValueError, match="k: bh is on meta but u on cpu"):
+        sweep._same_device("k", u=a, bh=b)
 
 
 def test_unknown_solver_raises():
