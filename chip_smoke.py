@@ -12,8 +12,13 @@ Phases, each printed on its own lines; any failure raises and exits non-zero:
    main paths give it, with inputs from a numpy seed: K1 on L0 and L1 (and
    timed there under four CTA shapes) and at k=1 against its default k; K2
    on 1080p L4, L3 and L2 and 4K L3, each timed beside K1 on the same
-   level; K3 exact and approx; K4 on L0 and L1 (and timed there under its
-   CTA shapes at k = 2, 4 and 8) and K5 on L4 with the red-black omegas.
+   level; K3 exact and approx on the route the aperture takes (tiles, each
+   with its table in shared memory) and on the other one (a table of the
+   whole image), and at an aperture past the tile route's limit, beside the
+   two ``torch.cumsum`` calls that give the table alone; K4 on L0 and L1
+   (and timed there under its CTA shapes at k = 2, 4 and 8) and K5 on L4
+   with the red-black omegas, whole and in split runs from a base, beside
+   K4 on the same level.
    Every comparison must be exact (max abs difference 0).
 4. Drives the default path: ``DepthPipeline(1080, 1920, device="cuda")`` and
    three ``solve_and_effect(EFFECT_DEFOCUS, ...)`` updates with a scribble
@@ -36,8 +41,10 @@ Phases, each printed on its own lines; any failure raises and exits non-zero:
    times; three ``solve_and_effect(EFFECT_DEFOCUS, ...)`` frames that must
    launch exactly K2 x3, K1 x24, K6 x4 and K3 each, with ``auto`` resolved to
    approx; a kernel frame and a Jacobi-Chebyshev early-exit frame against
-   the plain frames; K3 at DCI 4K (2160x4096), where the summed-area
-   table's largest entry passes 2^31 - 1; and the TPU-only variants the
+   the plain frames; K3 at 2160x3840 approx on both routes, by max_half
+   on every route that holds it, and on all-blurred input; K3 at DCI 4K
+   (2160x4096), where a whole image's summed-area table passes 2^31 - 1,
+   on both routes; and the TPU-only variants the
    port maps onto K1 and K3 (state prefetch, stacked and coldiff defocus),
    each equal to the default output.
 7. Drives the multi-device step (``parallel/``) on a slot mesh whose slots
@@ -56,9 +63,9 @@ Phases, each printed on its own lines; any failure raises and exits non-zero:
    same step's unprofiled time, is the step's device busy share; so do the
    timed default, fast and 4K frames of phases 4-6.
 
-8. Takes the device time alone of K1, K4 and K6 at the shapes above: the
-   launches of a level are captured once into a CUDA graph and replayed,
-   so that the host paces nothing between them.
+8. Takes the device time alone of K1, K3, K4, K5 and K6 at the shapes
+   above: the launches of a level or an effect are captured once into a
+   CUDA graph and replayed, so that the host paces nothing between them.
 
 Each phase prints its seconds. The line before the last is a JSON object
 of the kernels, each with its launches on its main path, its largest
@@ -114,7 +121,9 @@ JC_OPS, RB_OPS, K6_DERIVE_OPS = 16, 16, 20
 # the image the SAT is taken over, a row and a column add per channel; per
 # output pixel, the window (4 adds, 4 clips), the count (4 adds, 4 clips, 2
 # subtracts, a multiply, a convert), and per channel 3 adds, 2 converts and
-# a divide.
+# a divide. The bound counts the table once per pixel of the image, as the
+# function needs it; that the tile route scans a tile's neighbourhood again
+# in every tile is its design's cost. So counted, K3 is bound by bytes.
 K3_HALF, K3_SAT, K3_GATHER = (4, 2), (0, 6), (10, 28)
 
 
@@ -416,13 +425,14 @@ def main() -> None:
                     depth_t, mask_t, wts, om), 10),
                 "plain_ms": time_ms(torch, lambda: rb_sweep.solve_level_rb_plain(
                     depth_t, mask_t, wts, om), 3)}
-        if kernel_name == "rb_sweep_tiles":  # K5 is one launch: nothing to pace
-            device_only[name] = lambda: run(u0, 0, len(om))
+        device_only[name] = lambda: run(u0, 0, len(om))
         print(f"{name}: {json.dumps(line)}")
+        line["case"] = (depth_t, mask_t, wts, om)
         return line
 
     k4_l0 = check_rb_level("K4 L0", 0, "rb_sweep_tiles")
     k4_l1 = check_rb_level("K4 L1", 1, "rb_sweep_tiles")
+    del k4_l0["case"], k4_l1["case"]
 
     def k4_tile_ms(level):
         """K4 over a level's iterations under each CTA shape (threads
@@ -452,6 +462,30 @@ def main() -> None:
     if not rb_sweep.rb_resident_fits(*gray_pyr[L].shape):
         raise AssertionError(f"L4 {tuple(gray_pyr[L].shape)} does not fit K5")
     k5 = check_rb_level("K5 L4", L, "rb_sweep_resident")
+    # K5 in the split runs from a base that the early exit makes of it, and
+    # K4 on the same level beside it.
+    k5_depth, mask_t, wts, om = k5.pop("case")
+    k5_args = (wts.wr.contiguous(), wts.wd.contiguous(), wts.inv_count.contiguous(),
+               mask_t.to(torch.uint8), torch.from_numpy(om).to(dev))
+    want = rb_sweep.solve_level_rb_plain(k5_depth, mask_t, wts, om)
+    every = fast_cfg.residual_check_every
+    k5_u = k5_depth.clone()
+    for base in range(0, len(om), every):
+        rb_sweep.rb_sweep_resident(k5_u, *k5_args, base, min(every, len(om) - base))
+    torch.cuda.synchronize()
+    k5["cta"] = list(rb_sweep.rb_resident_config(*k5_depth.shape))
+    k5["split_max_abs_err"] = require_equal(torch, f"K5 L4 in chunks of {every}", k5_u, want)
+    # In place on the solved level: the same work whatever the values.
+    device_only[f"K5 L4 chunk of {every}"] = lambda: rb_sweep.rb_sweep_resident(
+        k5_u, *k5_args, 0, every)
+    k4_on_l4 = lambda n=len(om): rb_sweep._tiles_chunk(k5_depth.clone(), *k5_args, 0, n,  # noqa: E731
+                                                       rb_sweep.RB_TILE_ITERS)
+    require_equal(torch, "K4 on K5's L4", k4_on_l4(), want)
+    k5["k4_ms"] = time_ms(torch, k4_on_l4, 5)
+    device_only["K4 on K5's L4"] = k4_on_l4
+    print(f"K5 L4 {tuple(k5_depth.shape)}, {len(om)} iterations: CTA {k5['cta']} (threads "
+          f"across, down, rows, columns), in chunks of {every} max_abs_err "
+          f"{k5['split_max_abs_err']}; K4 on the same level {k5['k4_ms']:.3f} ms")
 
     ramp = np.linspace(0.0, 255.0, W, dtype=np.float32)[None, :].repeat(H, 0)
     ramp = np.clip(ramp + rng.normal(0.0, 6.0, (H, W)).astype(np.float32), 0.0, 255.0)
@@ -461,19 +495,64 @@ def main() -> None:
     max_half = cfg.defocus_kernel_size(H, W) // 2
     if halves != list(range(max_half + 1)):
         raise AssertionError(f"K3 depth covers halves {halves}, not 0..{max_half}")
+    def other_route(m):
+        """The route K3 does not take at max_half ``m``, forced."""
+        return defocus.defocus_route(m, "table" if defocus.defocus_route(m)[0] == "tile"
+                                     else "tile")
+
+    def check_k3(name, img, depth, c, routes, reps=20):
+        """K3 on each of ``routes`` (None: the one the wrapper picks) against
+        ``defocus_sat``; ms as launched by route, and the plain ms."""
+        want = defocus.defocus_sat(img, depth, c)
+        line = {"max_abs_err": 0.0, "ms": {}}
+        for r in routes:
+            run = lambda r=r: defocus.defocus_box(img, depth, c, route=r)  # noqa: E731
+            got = run()
+            torch.cuda.synchronize()
+            line["max_abs_err"] = max(line["max_abs_err"],
+                                      require_equal(torch, f"{name} route {r}", got, want))
+            line["ms"][str(r)] = time_ms(torch, run, reps)
+            device_only[f"{name} route {r}"] = run
+        line["plain_ms"] = time_ms(torch, lambda: defocus.defocus_sat(img, depth, c), 5)
+        print(f"{name}: {json.dumps(line)}")
+        return line
+
+    k3_route = defocus.defocus_route(max_half)
+    if k3_route[0] != "tile":
+        raise AssertionError(f"K3 at max_half {max_half} takes {k3_route}, not the tile route")
     k3 = {}
     for quality in ("exact", "approx"):
         qcfg = DiffusionConfig(pallas_defocus_quality=quality)
-        got = defocus.defocus_box(rgb_t, depth_fx, qcfg)
-        want = defocus.defocus_sat(rgb_t, depth_fx, qcfg)
-        torch.cuda.synchronize()
-        err = require_equal(torch, f"K3 {quality}", got, want)
-        k3[quality] = {
-            "max_abs_err": err,
-            "ms": time_ms(torch, lambda: defocus.defocus_box(rgb_t, depth_fx, qcfg), 20),
-            "plain_ms": time_ms(torch, lambda: defocus.defocus_sat(rgb_t, depth_fx, qcfg), 5),
-        }
-        print(f"K3 {quality} {H}x{W} max_half {max_half}: {json.dumps(k3[quality])}")
+        k3[quality] = check_k3(f"K3 {quality} {H}x{W} max_half {max_half}", rgb_t, depth_fx, qcfg,
+                               (None, other_route(max_half)))
+    # The tile route keeps no table of the whole image (25 MB here) in
+    # device memory: a call allocates its output and nothing of that size.
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    defocus.defocus_box(rgb_t, depth_fx, cfg)
+    torch.cuda.synchronize()
+    k3_peak = torch.cuda.max_memory_allocated() - before
+    print(f"K3 {H}x{W} on {k3_route}: peak allocation {k3_peak} bytes over its inputs "
+          f"(output {H * W * 3}, a table would be {3 * (H + 1) * (W + 1) * 4})")
+    if k3_peak > 2 * H * W * 3:
+        raise AssertionError(f"K3's tile route allocated {k3_peak} bytes")
+    # The two torch.cumsum calls that give the table alone, in int32 (which
+    # holds 255*h*w at 1080p): a yardstick for the scan stage only.
+    chw_t = rgb_t.permute(2, 0, 1).contiguous()
+    k3_sat_library_ms = time_ms(torch, lambda: torch.cumsum(torch.cumsum(
+        chw_t, dim=1, dtype=torch.int32), dim=2, dtype=torch.int32), 10)
+    print(f"torch.cumsum twice over (3, {H}, {W}) u8 -> int32, the table alone: "
+          f"{k3_sat_library_ms:.3f} ms")
+    # An aperture past the tile route's limit takes the table route.
+    wide_half = 100
+    wide_cfg = DiffusionConfig(defocus_aperture=(2 * wide_half + 0.5) / float(np.hypot(H, W)),
+                               pallas_defocus_quality="exact")
+    if (wide_cfg.defocus_kernel_size(H, W) // 2 != wide_half
+            or defocus.defocus_route(wide_half) != ("table", None)):
+        raise AssertionError(f"max_half {wide_half} routes to {defocus.defocus_route(wide_half)}")
+    k3_wide = check_k3(f"K3 exact {H}x{W} max_half {wide_half} (past the tile route's "
+                       f"{defocus.DEFOCUS_TILE_MAX_HALF})", rgb_t, depth_fx, wide_cfg, (None,), 10)
     phase_done("3 (kernels against plain)")
 
     # -- 4. the main path ------------------------------------------------------
@@ -812,24 +891,67 @@ def main() -> None:
         [{"shape": list(e["shape"]), "iterations": e["iters"],
           "probes": [round(p, 6) for p in e["probes"]]} for e in log4]))
 
-    # K3 at DCI 4K, where 255*h*w passes 2^31 - 1.
+    def ramp_depth(h, w, noise=rng):
+        """Depth rising from 0 to 255 across the image, with noise."""
+        return torch.from_numpy(np.clip(
+            np.linspace(0.0, 255.0, w, dtype=np.float32)[None, :].repeat(h, 0)
+            + noise.normal(0.0, 6.0, (h, w)).astype(np.float32), 0.0, 255.0)).to(dev)
+
+    # K3 at the 4K frame's aperture, approx as 'auto' resolves it, on the
+    # route it takes and on the other one.
+    k3_uhd_route = defocus.defocus_route(max_half4)
+    if k3_uhd_route[0] != "tile":
+        raise AssertionError(f"K3 at max_half {max_half4} takes {k3_uhd_route}")
+    k3_uhd = check_k3(f"K3 approx {H4}x{W4} max_half {max_half4}", rgb4_d,
+                      ramp_depth(H4, W4, np.random.default_rng(SEED + 6)),
+                      DiffusionConfig(pallas_defocus_quality="approx"),
+                      (None, other_route(max_half4)), 10)
+
+    # What defocus_route's thresholds rest on: K3 at this size by max_half,
+    # on every route that holds it (device times in phase 8), and the two
+    # frames' apertures on an all-blurred input (depth 255: every tile scans
+    # its whole neighbourhood).
+    sweep_depth = ramp_depth(H4, W4, np.random.default_rng(SEED + 7))
+    for m in (27, 52, 55, 72, 88):
+        c = DiffusionConfig(defocus_aperture=(2 * m + 0.5) / float(np.hypot(H4, W4)),
+                            pallas_defocus_quality="exact")
+        want = defocus.defocus_sat(rgb4_d, sweep_depth, c)
+        for r in (("tile", 64), ("tile", 96), ("table", None)):
+            if r[0] == "tile" and defocus.defocus_tile_smem(r[1], m) > sweep.SMEM_PER_CTA:
+                continue
+            run = lambda c=c, r=r: defocus.defocus_box(rgb4_d, sweep_depth, c, route=r)  # noqa: E731
+            require_equal(torch, f"K3 {H4}x{W4} max_half {m} route {r}", run(), want)
+            device_only[f"K3 sweep max_half {m} route {r}"] = run
+    for name, img, c in (("1080p exact", rgb_t, DiffusionConfig(pallas_defocus_quality="exact")),
+                         ("4K approx", rgb4_d, DiffusionConfig(pallas_defocus_quality="approx"))):
+        far = torch.full(img.shape[:2], 255.0, device=dev)
+        run = lambda img=img, far=far, c=c: defocus.defocus_box(img, far, c)  # noqa: E731
+        require_equal(torch, f"K3 {name} all-blurred", run(), defocus.defocus_sat(img, far, c))
+        device_only[f"K3 all-blurred {name}"] = run
+    print("K3 by max_half and route, and on all-blurred input: exact against plain")
+
+    # K3 at DCI 4K, where 255*h*w passes 2^31 - 1: the table route's sums
+    # wrap, a tile's stay below 2^24.
     hd, wd = 2160, 4096
-    depth_d = torch.from_numpy(np.clip(
-        np.linspace(0.0, 255.0, wd, dtype=np.float32)[None, :].repeat(hd, 0)
-        + rng.normal(0.0, 6.0, (hd, wd)).astype(np.float32), 0.0, 255.0)).to(dev)
+    depth_d = ramp_depth(hd, wd)
+    max_half_d = cfg.defocus_kernel_size(hd, wd) // 2
     k3_dci = 0.0
     with warnings.catch_warnings():
         warnings.simplefilter("ignore", RuntimeWarning)
         for label, img in (("seeded", seeded_image(rng, hd, wd)),
                            ("all-255", np.full((hd, wd, 3), 255, np.uint8))):
             img_d = torch.from_numpy(img).to(dev)
-            got = defocus.defocus_box(img_d, depth_d, cfg)
             want = defocus.defocus_sat(img_d, depth_d, cfg)
-            torch.cuda.synchronize()
-            k3_dci = max(k3_dci, require_equal(torch, f"K3 {hd}x{wd} {label}", got, want))
-            if label == "all-255" and not bool((got == 255).all()):
-                raise AssertionError("K3 at DCI 4K: an all-255 image did not stay 255")
-            print(f"K3 {hd}x{wd} {label}: max_abs_err {k3_dci}")
+            for r in (None, other_route(max_half_d)):
+                got = defocus.defocus_box(img_d, depth_d, cfg, route=r)
+                torch.cuda.synchronize()
+                k3_dci = max(k3_dci, require_equal(torch, f"K3 {hd}x{wd} {label} route {r}",
+                                                   got, want))
+                if label == "all-255" and not bool((got == 255).all()):
+                    raise AssertionError("K3 at DCI 4K: an all-255 image did not stay 255")
+            print(f"K3 {hd}x{wd} {label}, max_half {max_half_d}, on "
+                  f"{defocus.defocus_route(max_half_d)} and {other_route(max_half_d)}: "
+                  f"max_abs_err {k3_dci}")
 
     # TPU kernels that are config variants of one output: the port runs K1
     # and K3 under their config values and must give the default output.
@@ -949,17 +1071,20 @@ def main() -> None:
     ew = defocus.block_ring(H, W, cfg)
     half_fx = defocus.defocus_half_widths(depth_fx, H, W, cfg)
     whole_fx = defocus.defocus_box(rgb_t, depth_fx, cfg)
-    chw_t = rgb_t.permute(2, 0, 1)
     b_k3 = {}
     for oy, ox in ((hb, wb), (0, 0)):
         chw_e = extended(chw_t, oy, ox, ew)
         half_b = half_fx[oy:oy + hb, ox:ox + wb].contiguous()
-        b_k3[(oy, ox)] = check_block(
-            f"K3 block ({oy}, {ox}) of {H}x{W}, k={cfg.defocus_kernel_size(H, W)}, ring {ew}",
-            lambda: defocus.defocus_block(chw_e, half_b, oy, ox, H, W, cfg),
-            lambda: defocus.defocus_block_sat(chw_e, half_b, oy, ox, H, W, cfg),
-            lambda o: o, whole_fx[oy:oy + hb, ox:ox + wb],
-            3 * chw_e[0].numel() + hb * wb * 4, *k3_ops(chw_e[0].numel(), hb * wb, False))
+        for r in (None, other_route(ew - 1)):
+            run = lambda r=r, a=(chw_e, half_b, oy, ox): defocus.defocus_block(  # noqa: E731
+                *a, H, W, cfg, route=r)
+            b_k3[(oy, ox, r)] = check_block(
+                f"K3 block ({oy}, {ox}) of {H}x{W}, k={cfg.defocus_kernel_size(H, W)}, ring {ew}, "
+                f"route {r or defocus.defocus_route(ew - 1)}", run,
+                lambda: defocus.defocus_block_sat(chw_e, half_b, oy, ox, H, W, cfg),
+                lambda o: o, whole_fx[oy:oy + hb, ox:ox + wb],
+                3 * chw_e[0].numel() + hb * wb * 4, *k3_ops(chw_e[0].numel(), hb * wb, False))
+            device_only[f"K3 block ({oy}, {ox}) route {r}"] = run
 
     # The step at full width: the README's --multichip --batch 4 --effect b
     # on the 8-slot mesh (2, 2, 2), every slot on this card.
@@ -1100,6 +1225,10 @@ def main() -> None:
 
     px0, px4, px4k = H * W, int(gray_pyr[L].numel()), H4 * W4
 
+    def k3_device(prefix):
+        """K3's device ms by route, of the cases whose name starts so."""
+        return {k.split(" route ")[1]: v for k, v in device_ms.items() if k.startswith(prefix)}
+
     def bounded(entry, n_bytes, n_ops, n_int=0):
         entry["bound_ms"], entry["bound_by"] = bound(n_bytes, n_ops, n_int)
         entry["library_ms"] = None  # no PyTorch call computes a per-pixel-weight stencil
@@ -1137,11 +1266,33 @@ def main() -> None:
                  "also_replaces": [f"{TPU_DEFOCUS}:126", f"{TPU_DEFOCUS}:49",
                                    f"{TPU_DEFOCUS}:569"],
                  "launches": launches["defocus_box"],
-                 "max_abs_err": max(k3_dci, *(v["max_abs_err"] for v in k3.values())),
-                 "ms": k3["exact"]["ms"], "plain_ms": k3["exact"]["plain_ms"],
+                 "max_abs_err": max(k3_dci, k3_wide["max_abs_err"], k3_uhd["max_abs_err"],
+                                    *(v["max_abs_err"] for v in k3.values())),
+                 "ms": k3["exact"]["ms"]["None"], "plain_ms": k3["exact"]["plain_ms"],
+                 "device_ms": k3_device(f"K3 exact {H}x{W} max_half {max_half} ")["None"],
+                 "route_taken": list(k3_route),
+                 "by_route_ms": k3["exact"]["ms"], "by_route_device_ms": k3_device(f"K3 exact {H}x{W} max_half {max_half} "),
+                 "approx_ms": k3["approx"]["ms"], "approx_device_ms": k3_device(f"K3 approx {H}x{W} max_half {max_half} "),
+                 # The two torch.cumsum calls that give the table alone: a
+                 # yardstick for the scan stage, not for the function.
+                 "sat_library_ms": k3_sat_library_ms,
+                 "wide_max_half": wide_half, "wide_ms": k3_wide["ms"]["None"],
+                 "wide_device_ms": k3_device(f"K3 exact {H}x{W} max_half {wide_half}")["None"],
+                 "wide_plain_ms": k3_wide["plain_ms"],
+                 "uhd_route_taken": list(k3_uhd_route), "uhd_ms": k3_uhd["ms"],
+                 "uhd_device_ms": k3_device(f"K3 approx {H4}x{W4}"),
+                 "uhd_plain_ms": k3_uhd["plain_ms"],
                  "halo_launches": step_launches["defocus_block"],
                  "halo_max_abs_err": max(step_err, *(b["max_abs_err"] for b in b_k3.values())),
-                 "halo_ms": b_k3[(hb, wb)]["ms"], "halo_plain_ms": b_k3[(hb, wb)]["plain_ms"]},
+                 "halo_route_taken": list(defocus.defocus_route(ew - 1)),
+                 "halo_ms": b_k3[(hb, wb, None)]["ms"],
+                 "halo_plain_ms": b_k3[(hb, wb, None)]["plain_ms"],
+                 "halo_by_route_device_ms": k3_device(f"K3 block ({hb}, {wb}) "),
+                 "uhd_by_max_half_device_ms": {k[len("K3 sweep "):]: v for k, v in device_ms.items()
+                                               if k.startswith("K3 sweep ")},
+                 "all_blurred_device_ms": {k[len("K3 all-blurred "):]: v
+                                           for k, v in device_ms.items()
+                                           if k.startswith("K3 all-blurred ")}},
                 px0 * 10, *k3_ops(px0, px0, True)),
         bounded({"name": "rb_sweep_tiles", "route": "cuda",
                  "source": "realtimedepthdiffusion_tpu_torch/csrc/rb_sweep.cu",
@@ -1161,7 +1312,12 @@ def main() -> None:
         bounded({"name": "rb_sweep_resident", "route": "cuda",
                  "source": "realtimedepthdiffusion_tpu_torch/csrc/rb_sweep.cu",
                  "replaces": f"{TPU_SWEEP}:1209", "launches": fast_launches["rb_sweep_resident"],
-                 "max_abs_err": k5["max_abs_err"], "ms": k5["ms"], "plain_ms": k5["plain_ms"]},
+                 "max_abs_err": max(k5["max_abs_err"], k5["split_max_abs_err"]),
+                 "ms": k5["ms"], "plain_ms": k5["plain_ms"], "device_ms": device_ms["K5 L4"],
+                 "cta": k5["cta"],
+                 "chunk_device_ms": {k: v for k, v in device_ms.items()
+                                     if k.startswith("K5 L4 chunk")},
+                 "k4_ms": k5["k4_ms"], "k4_device_ms": device_ms["K4 on K5's L4"]},
                 px4 * 21, px4 * k5["iterations"] * RB_OPS),
         bounded({"name": "jc_sweep_fused", "route": "cuda",
                  "source": "realtimedepthdiffusion_tpu_torch/csrc/fused_sweep.cu",

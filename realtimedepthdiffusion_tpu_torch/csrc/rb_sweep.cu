@@ -71,18 +71,23 @@
 // weights and the mask from device memory for every pixel and half-sweep,
 // behind an integer divide and four bounds tests; PERF.md has both forms'
 // times.)
-// K5 keeps a whole level (u, bh, bv, inv as f32 and mask as u8, with a
-// one-pixel ring: 17 bytes per padded pixel) in one CTA's shared memory
-// and runs n iterations from row base of the omega table in one launch. At
-// 1080p that holds L4 (67 x 120); L3 (137 x 242 padded, 564 KB) does not
-// fit. It visits only the pixels of the colour being relaxed: a thread's
-// index walks the half-width columns of one colour in each row.
+// K5 is K4's register-blocked half-sweep on one tile that is the whole
+// level: one CTA whose threads' patches cover it (60 x 17 threads of 4 x 2
+// pixels hold the 67 x 120 of 1080p L4), with no ring to spoil, so it runs
+// n iterations from row base of the omega table in one launch, in place,
+// and writes every pixel back. The loop is K4's (rb_tile_sweeps): weights
+// and mask bits in registers, one shared buffer of u, one barrier per
+// half-sweep, no divide and no weight load. What bounds it is the one SM
+// it runs on, whose schedulers are busy throughout (about 0.5 us a
+// half-sweep of a 67 x 120 level), and that barrier: a level of a few
+// thousand pixels is too small to pay a cluster's barrier (K2's costs
+// ~1.6 us a sweep). (A first form kept u, bh, bv, inv and the mask of the level in
+// shared memory, 17 bytes a pixel, and paid an integer divide, a mask load
+// and ten shared loads for every point; PERF.md has both forms' times.)
 
 #include <cuda_runtime.h>
 
 #include "rb_sweep.cuh"
-
-#define RB_RESIDENT_THREADS 1024
 
 // One half-sweep of colour S on a thread's R x C patch: the pixels with
 // (r + c) & 1 == S, where S already counts the patch origin's colour. li0
@@ -116,33 +121,25 @@ __device__ __forceinline__ void rb_half_sweep(float (&u)[R][C], const float (&wr
   }
 }
 
-// K4: R x C pixels per thread (R even, R * C <= 32), at most MAXT threads
-// per CTA (the register budget per thread is 65536 / MAXT).
-template <int R, int C, int MAXT>
-__global__ void __launch_bounds__(MAXT)
-rb_sweep_tiles_kernel(const float* __restrict__ u_in, float* __restrict__ u_out,
-                      const float* __restrict__ bh, const float* __restrict__ bv,
-                      const float* __restrict__ inv,
-                      const unsigned char* __restrict__ mask,
-                      const float* __restrict__ om, int h, int w, int base,
-                      int n_active, int k, unsigned long long parity_bits) {
+// The work of one CTA of bx x by threads on the extended tile of (by*R) x
+// (bx*C) pixels whose origin is (y0, x0) in the h x w plane: load it, run
+// iterations base .. base+n-1, and write back the tile less ring pixels
+// each way. u_in and u_out may be one plane when the tile holds all of it.
+template <int R, int C>
+__device__ __forceinline__ void rb_tile_sweeps(const float* u_in, float* u_out,
+                                               const float* __restrict__ bh,
+                                               const float* __restrict__ bv,
+                                               const float* __restrict__ inv,
+                                               const unsigned char* __restrict__ mask,
+                                               const float* __restrict__ om, int h, int w,
+                                               int base, int n, int y0, int x0, int ring,
+                                               int parity) {
   extern __shared__ float su[];
   const int bx = blockDim.x;
   const int ew = bx * C;
   const int eh = blockDim.y * R;
   const int sub = bx + 2;
   const int pitch = C * sub;
-  const int ring = 2 * k;
-  const int y0 = blockIdx.y * (eh - 2 * ring) - ring;  // the extended tile's origin
-  const int x0 = blockIdx.x * (ew - 2 * ring) - ring;
-  const int parity = (int)((parity_bits >> blockIdx.z) & 1ull);
-  const size_t off = (size_t)blockIdx.z * h * w;
-  u_in += off;
-  u_out += off;
-  bh += off;
-  bv += off;
-  inv += off;
-  mask += off;
   const int tid = threadIdx.y * bx + threadIdx.x;
   const int nt = bx * blockDim.y;
 
@@ -193,7 +190,7 @@ rb_sweep_tiles_kernel(const float* __restrict__ u_in, float* __restrict__ u_out,
 
   // Whether the patch's first pixel is black: ly0 is even, as R is.
   const int first = (tx * C + parity) & 1;
-  for (int j = 0; j < 2 * n_active; ++j) {
+  for (int j = 0; j < 2 * n; ++j) {
     // Row base + j/2 of the (iters, 2) table, column j & 1: 0 red, 1 black.
     const float omj = __ldg(om + 2 * base + j);
     if ((j ^ first) & 1)
@@ -218,58 +215,34 @@ rb_sweep_tiles_kernel(const float* __restrict__ u_in, float* __restrict__ u_out,
   }
 }
 
-__global__ void __launch_bounds__(RB_RESIDENT_THREADS)
-rb_sweep_resident_kernel(float* __restrict__ u, const float* __restrict__ bh,
+// K4: R x C pixels per thread (R even, R * C <= 32), at most MAXT threads
+// per CTA (the register budget per thread is 65536 / MAXT).
+template <int R, int C, int MAXT>
+__global__ void __launch_bounds__(MAXT)
+rb_sweep_tiles_kernel(const float* __restrict__ u_in, float* __restrict__ u_out,
+                      const float* __restrict__ bh, const float* __restrict__ bv,
+                      const float* __restrict__ inv,
+                      const unsigned char* __restrict__ mask,
+                      const float* __restrict__ om, int h, int w, int base,
+                      int n_active, int k, unsigned long long parity_bits) {
+  const int ring = 2 * k;
+  // The extended tile's origin.
+  const int y0 = blockIdx.y * (blockDim.y * R - 2 * ring) - ring;
+  const int x0 = blockIdx.x * (blockDim.x * C - 2 * ring) - ring;
+  const int parity = (int)((parity_bits >> blockIdx.z) & 1ull);
+  const size_t off = (size_t)blockIdx.z * h * w;
+  rb_tile_sweeps<R, C>(u_in + off, u_out + off, bh + off, bv + off, inv + off, mask + off, om,
+                       h, w, base, n_active, y0, x0, ring, parity);
+}
+
+// K5: the one tile is the whole level, red at even y + x.
+template <int R, int C, int MAXT>
+__global__ void __launch_bounds__(MAXT)
+rb_sweep_resident_kernel(float* u, const float* __restrict__ bh,
                          const float* __restrict__ bv, const float* __restrict__ inv,
                          const unsigned char* __restrict__ mask,
-                         const float* __restrict__ om, int h, int w, int base,
-                         int n) {
-  extern __shared__ float smem[];
-  // Every plane carries a one-pixel ring of zeros (mask 1 there), so
-  // neighbour reads need no bounds checks: wl = bh one pixel to the left,
-  // wu = bv one row up, and both are 0 on the ring.
-  const int pw = w + 2;
-  const int np = (h + 2) * pw;
-  float* su = smem;
-  float* sbh = su + np;
-  float* sbv = sbh + np;
-  float* sinv = sbv + np;
-  unsigned char* sm = reinterpret_cast<unsigned char*>(sinv + np);
-
-  for (int i = threadIdx.x; i < np; i += blockDim.x) {
-    const int py = i / pw;
-    const int y = py - 1;
-    const int x = i - py * pw - 1;
-    const bool in = y >= 0 && y < h && x >= 0 && x < w;
-    const size_t g = (size_t)y * w + x;
-    su[i] = in ? u[g] : 0.0f;
-    sbh[i] = in ? bh[g] : 0.0f;
-    sbv[i] = in ? bv[g] : 0.0f;
-    sinv[i] = in ? inv[g] : 0.0f;
-    sm[i] = in ? mask[g] : 1;
-  }
-  __syncthreads();
-
-  const int half = (w + 1) / 2;
-  for (int j = 0; j < 2 * n; ++j) {
-    const int colour = j & 1;
-    const float omj = __ldg(om + 2 * base + j);
-    for (int i = threadIdx.x; i < h * half; i += blockDim.x) {
-      const int y = i / half;
-      const int x = ((y ^ colour) & 1) + 2 * (i - y * half);
-      if (x >= w) continue;
-      const int pi = (y + 1) * pw + x + 1;
-      if (sm[pi]) continue;
-      su[pi] = rb_point(su[pi], su[pi - 1], su[pi + 1], su[pi - pw], su[pi + pw],
-                        sbh[pi - 1], sbh[pi], sbv[pi - pw], sbv[pi], sinv[pi], omj);
-    }
-    __syncthreads();
-  }
-
-  for (int i = threadIdx.x; i < h * w; i += blockDim.x) {
-    const int y = i / w;
-    u[i] = su[(y + 1) * pw + (i - y * w) + 1];
-  }
+                         const float* __restrict__ om, int h, int w, int base, int n) {
+  rb_tile_sweeps<R, C>(u, u, bh, bv, inv, mask, om, h, w, base, n, 0, 0, 0, 0);
 }
 
 static int set_smem(const void* kernel, size_t bytes) {
@@ -318,15 +291,25 @@ extern "C" int rb_sweep_tiles(const float* u_in, float* u_out, const float* bh,
   return (int)cudaErrorInvalidValue;
 }
 
-extern "C" int rb_sweep_resident(float* u, const float* bh, const float* bv,
-                                 const float* inv, const unsigned char* mask,
-                                 const float* om, int h, int w, int base, int n,
-                                 void* stream) {
-  const size_t np = (size_t)(h + 2) * (w + 2);
-  const size_t smem = np * (4 * sizeof(float) + 1);
-  int err = set_smem((const void*)rb_sweep_resident_kernel, smem);
+template <int R, int C, int MAXT>
+static int launch_rb_resident(float* u, const float* bh, const float* bv, const float* inv,
+                              const unsigned char* mask, const float* om, int h, int w,
+                              int base, int n, int bx, int by, cudaStream_t stream) {
+  if (bx * by > MAXT || bx * C < w || by * R < h) return (int)cudaErrorInvalidValue;
+  const size_t smem = sizeof(float) * (size_t)(by * R + 2) * C * (bx + 2);
+  int err = set_smem((const void*)rb_sweep_resident_kernel<R, C, MAXT>, smem);
   if (err) return err;
-  rb_sweep_resident_kernel<<<1, RB_RESIDENT_THREADS, smem, (cudaStream_t)stream>>>(
+  rb_sweep_resident_kernel<R, C, MAXT><<<1, dim3(bx, by), smem, stream>>>(
       u, bh, bv, inv, mask, om, h, w, base, n);
   return (int)cudaGetLastError();
+}
+
+// One CTA of bx x by threads, each with a patch of 4 x 2 pixels: up to 1024
+// threads at 64 registers each.
+extern "C" int rb_sweep_resident(float* u, const float* bh, const float* bv,
+                                 const float* inv, const unsigned char* mask,
+                                 const float* om, int h, int w, int base, int n, int bx,
+                                 int by, void* stream) {
+  return launch_rb_resident<4, 2, 1024>(u, bh, bv, inv, mask, om, h, w, base, n, bx, by,
+                                        (cudaStream_t)stream);
 }

@@ -51,17 +51,18 @@ SIGNATURES = {
     # u_in, u_out, bh, bv, inv, mask, om, nb, h, w, base, n_active, k, bx,
     # by, rows, cols, parity_bits (64 bits, one per plane), stream
     "rb_sweep_tiles": (P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, I, ctypes.c_uint64, P),
-    # u (in/out), bh, bv, inv, mask, om, h, w, base, n, stream
-    "rb_sweep_resident": (P, P, P, P, P, P, I, I, I, I, P),
+    # u (in/out), bh, bv, inv, mask, om, h, w, base, n, bx, by, stream
+    "rb_sweep_resident": (P, P, P, P, P, P, I, I, I, I, I, I, P),
     # u_in, p_in, u_out, p_out, gray, mask, d8, abc, etab, h, w, base,
     # n_active, k, thr, use_depth_rule, bx, by, rows_per_thread, stream
     "jc_sweep_fused": (P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, I, P),
-    # rgb, depth, half (out), sat (scratch), out, h, w, k, max_half,
-    # approx, exact_upto, stride, stream
-    "defocus_box": (P, P, P, P, P, I, I, I, I, I, I, I, P),
-    # chw_e, half, sat (scratch), out, hb, wb, ring, oy, ox, full_h, full_w,
-    # stream
-    "defocus_block": (P, P, P, P, I, I, I, I, I, I, I, P),
+    # rgb, depth, half, sat, tot (scratch of the table route, else null),
+    # out, h, w, k, max_half, approx, exact_upto, stride, tile (0: the table
+    # route), stream
+    "defocus_box": (P, P, P, P, P, P, I, I, I, I, I, I, I, I, P),
+    # chw_e, half, sat, tot (scratch of the table route, else null), out,
+    # hb, wb, ring, oy, ox, full_h, full_w, max_half, tile, stream
+    "defocus_block": (P, P, P, P, P, I, I, I, I, I, I, I, I, I, P),
 }
 
 _lock = threading.Lock()

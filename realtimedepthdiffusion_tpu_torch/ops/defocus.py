@@ -13,6 +13,14 @@ ring of neighbour pixels, with the block's global origin and the whole
 image's size; it replaces ``defocus_block_pallas`` and keeps its layout.
 ``defocus_block_sat`` is its plain version. A whole image is the block
 with ring 0, origin (0, 0) and its own size.
+
+K3 has two routes, picked by ``defocus_route`` from the aperture's
+max_half. The tile route is one launch and keeps no table in device
+memory: each CTA takes the summed-area table of its own tile's
+neighbourhood in shared memory. Where that neighbourhood outgrows one
+CTA's shared memory, the table route scans a table of the whole image in
+device memory and gathers from it. ``box_blur_tiles_plain`` computes the
+tile route's geometry in plain torch, tile by tile, for the CPU tests.
 """
 
 from __future__ import annotations
@@ -23,7 +31,26 @@ import torch
 
 from ..config import DiffusionConfig
 from . import build
-from .sweep import _same_device
+from .sweep import SMEM_PER_CTA, _same_device
+
+# The tile sides K3's tile route has an instance for (csrc/defocus.cu): 64
+# on 512 threads, 96 on 768.
+DEFOCUS_TILES = (64, 96)
+# The tile route serves apertures up to this max_half, the last whose
+# 96-tile's table fits one CTA's shared memory; the table route serves the
+# ones above it. A 64-tile's table fits up to max_half 88, but scans 14
+# times the tile there. On an NVIDIA H100 80GB HBM3 at its 700 W limit, at
+# 2160x3840 (chip_smoke.py's sweep, device time): at max_half 88, 64-tiles
+# 0.690 ms against the table route's 0.617; at 72, 96-tiles 0.391 against
+# 0.575.
+DEFOCUS_TILE_MAX_HALF = 72
+# While two CTAs of 64-tiles share an SM (max_half <= 52) they beat
+# 96-tiles, which scan less of their region twice but run one CTA an SM:
+# 0.340 against 0.358 ms at max_half 52, and 0.539 against 0.361 at 55,
+# where one CTA of 64-tiles is left (the same sweep).
+_TWO_CTAS = SMEM_PER_CTA // 2
+# Rows per band of the table route's column scan (csrc/defocus.cu).
+SAT_BAND_ROWS = 64
 
 
 def resolved_defocus_quality(cfg: DiffusionConfig, max_half: int) -> str:
@@ -92,6 +119,48 @@ def defocus_half_widths(depth: torch.Tensor, full_h: int, full_w: int,
     return snap_half_widths(half, k // 2, cfg).to(torch.uint8)
 
 
+def defocus_tile_smem(tile: int, max_half: int) -> int:
+    """The tile route's shared memory: the 32-bit table of a tile's
+    neighbourhood, tile + 2*max_half a side, behind a zero row and column."""
+    return 4 * (tile + 2 * max_half + 1) ** 2
+
+
+def defocus_route(max_half: int, force: str | None = None):
+    """K3's route at an aperture of ``max_half``: ("tile", T) while T x T
+    tiles' neighbourhoods fit one CTA's shared memory and max_half <=
+    ``DEFOCUS_TILE_MAX_HALF``, else ("table", None). ``force`` ("tile" or
+    "table") picks the route instead; a forced tile route that does not
+    fit raises."""
+    if force not in (None, "tile", "table"):
+        raise ValueError(f"defocus_route: force must be 'tile' or 'table', got {force!r}")
+    fits = [t for t in DEFOCUS_TILES if defocus_tile_smem(t, max_half) <= SMEM_PER_CTA]
+    if force == "table" or (force is None and (not fits or max_half > DEFOCUS_TILE_MAX_HALF)):
+        return "table", None
+    if not fits:
+        raise ValueError(f"defocus_route: no tile holds max_half {max_half} in "
+                         f"{SMEM_PER_CTA} bytes of shared memory")
+    if defocus_tile_smem(fits[0], max_half) <= _TWO_CTAS:
+        return "tile", fits[0]
+    return "tile", fits[-1]
+
+
+def _check_route(route, max_half: int):
+    kind, tile = route
+    if kind == "table" and tile is None:
+        return 0
+    if (kind != "tile" or tile not in DEFOCUS_TILES
+            or defocus_tile_smem(tile, max_half) > SMEM_PER_CTA):
+        raise ValueError(f"route {route!r} does not serve max_half {max_half}")
+    return tile
+
+
+def _table_scratch(he: int, we: int, device):
+    """The table route's scratch: the 32-bit table (K3 reads and writes it
+    as unsigned) and the column scan's totals per band of rows."""
+    return [torch.empty((3, he + 1, we + 1), dtype=torch.int32, device=device),
+            torch.empty((3, -(-he // SAT_BAND_ROWS), we + 1), dtype=torch.int32, device=device)]
+
+
 def _box_blur_plain(chw: torch.Tensor, half: torch.Tensor, ring: int, oy: int, ox: int,
                     full_h: int, full_w: int) -> torch.Tensor:
     """The blur of the (hb, wb) interior at (ring, ring) of the (3, hb+2*ring,
@@ -124,6 +193,45 @@ def _box_blur_plain(chw: torch.Tensor, half: torch.Tensor, ring: int, oy: int, o
     centre = chw[:, ring:ring + hb, ring:ring + wb]
     out = torch.where(hv > 0, box.to(torch.float32) / cnt, centre.to(torch.float32))
     return out.to(torch.uint8).permute(1, 2, 0).contiguous()
+
+
+def box_blur_tiles_plain(chw: torch.Tensor, half: torch.Tensor, ring: int, oy: int, ox: int,
+                         full_h: int, full_w: int, tile: int) -> torch.Tensor:
+    """``_box_blur_plain`` the way K3's tile route computes it: every
+    tile x tile tile of outputs from the table of its own region alone, the
+    tile plus its largest half-width each way, clipped to ``chw``. Sums are
+    int32: a region's total stays below 2^24."""
+    hb, wb = half.shape
+    he, we = hb + 2 * ring, wb + 2 * ring
+    dev = half.device
+    out = torch.empty((hb, wb, 3), dtype=torch.uint8, device=dev)
+    for y0 in range(0, hb, tile):
+        for x0 in range(0, wb, tile):
+            th, tw = min(tile, hb - y0), min(tile, wb - x0)
+            hv = half[y0:y0 + th, x0:x0 + tw].to(torch.int64)
+            margin = int(hv.max())
+            ty0, tx0 = y0 + ring, x0 + ring
+            ry0, rx0 = max(ty0 - margin, 0), max(tx0 - margin, 0)
+            region = chw[:, ry0:min(ty0 + th + margin, he), rx0:min(tx0 + tw + margin, we)]
+            sat = torch.cumsum(torch.cumsum(region, dim=1, dtype=torch.int32), dim=2,
+                               dtype=torch.int32)
+            sat = torch.nn.functional.pad(sat, (1, 0, 1, 0))
+            ly = torch.arange(th, device=dev)[:, None] + ty0
+            lx = torch.arange(tw, device=dev)[None, :] + tx0
+            blur = hv > 0
+            # half 0 is the pixel itself: the 1 x 1 box, undivided.
+            ya = torch.clamp_min(ly - hv, 0) - ry0
+            yb = torch.where(blur, torch.clamp_max(ly + hv, he), ly + 1) - ry0
+            xa = torch.clamp_min(lx - hv, 0) - rx0
+            xb = torch.where(blur, torch.clamp_max(lx + hv, we), lx + 1) - rx0
+            box = sat[:, yb, xb] - sat[:, ya, xb] - sat[:, yb, xa] + sat[:, ya, xa]
+            gy, gx = ly - ring + oy, lx - ring + ox
+            cnt = ((torch.clamp_max(gy + hv, full_h) - torch.clamp_min(gy - hv, 0))
+                   * (torch.clamp_max(gx + hv, full_w) - torch.clamp_min(gx - hv, 0)))
+            cnt = torch.where(blur, cnt, torch.ones_like(cnt)).to(torch.float32)
+            val = (box.to(torch.float32) / cnt).to(torch.uint8)
+            out[y0:y0 + th, x0:x0 + tw] = val.permute(1, 2, 0)
+    return out
 
 
 def defocus_sat(rgb: torch.Tensor, depth: torch.Tensor,
@@ -166,7 +274,7 @@ def defocus_block_sat(chw_e: torch.Tensor, half: torch.Tensor, oy: int, ox: int,
 
 def defocus_block(chw_e: torch.Tensor, half: torch.Tensor, oy: int, ox: int,
                   full_h: int, full_w: int,
-                  cfg: DiffusionConfig = DiffusionConfig()) -> torch.Tensor:
+                  cfg: DiffusionConfig = DiffusionConfig(), route=None) -> torch.Tensor:
     """The defocus of one block of a sharded full_h x full_w image, in
     ``defocus_block_pallas``' layout: ``chw_e`` is the (3, hb+2*ew, wb+2*ew)
     uint8 block with an ew = ``block_ring`` ring of neighbour pixels (zeros
@@ -174,7 +282,9 @@ def defocus_block(chw_e: torch.Tensor, half: torch.Tensor, oy: int, ox: int,
     ``defocus_half_widths`` on the whole image, (oy, ox) the interior's
     global origin. Returns the interior's (hb, wb, 3) uint8 blur, equal to
     that crop of the whole image's. Plain torch for CPU tensors, K3 for
-    CUDA tensors."""
+    CUDA tensors, on ``route`` or else on ``defocus_route`` of the whole
+    image's max_half, ew - 1: the ring is exactly the neighbourhood the
+    tile route's edge tiles need."""
     if chw_e.device.type == "cpu":
         return defocus_block_sat(chw_e, half, oy, ox, full_h, full_w, cfg)
     if not (chw_e.is_cuda and half.is_cuda):
@@ -184,17 +294,18 @@ def defocus_block(chw_e: torch.Tensor, half: torch.Tensor, oy: int, ox: int,
     _same_device("defocus_block", chw_e=chw_e, half=half)
     ew = _check_block(chw_e, half, full_h, full_w, cfg)
     hb, wb = half.shape
+    tile = _check_route(route or defocus_route(ew - 1), ew - 1)
     chw_e = chw_e.contiguous()
     half = half.contiguous()
-    sat = torch.empty((3, hb + 2 * ew + 1, wb + 2 * ew + 1), dtype=torch.int32,
-                      device=chw_e.device)
+    scratch = [] if tile else _table_scratch(hb + 2 * ew, wb + 2 * ew, chw_e.device)
+    sat, tot = [t.data_ptr() for t in scratch] or [None] * 2
     out = torch.empty((hb, wb, 3), dtype=torch.uint8, device=chw_e.device)
     lib = build.load_library()
     # The launch goes to the current device: make it the tensors' one.
     with torch.cuda.device(chw_e.device):
         err = lib.defocus_block(
-            chw_e.data_ptr(), half.data_ptr(), sat.data_ptr(), out.data_ptr(), hb, wb, ew,
-            int(oy), int(ox), full_h, full_w,
+            chw_e.data_ptr(), half.data_ptr(), sat, tot, out.data_ptr(), hb, wb, ew,
+            int(oy), int(ox), full_h, full_w, ew - 1, tile,
             torch.cuda.current_stream(chw_e.device).cuda_stream,
         )
     build.check("defocus_block", err)
@@ -206,8 +317,9 @@ defocus_block.launches = 0
 
 
 def defocus_box(rgb: torch.Tensor, depth: torch.Tensor,
-                cfg: DiffusionConfig = DiffusionConfig()) -> torch.Tensor:
-    """K3: the defocus of (H,W,3) uint8 ``rgb`` by float32 ``depth`` on the card."""
+                cfg: DiffusionConfig = DiffusionConfig(), route=None) -> torch.Tensor:
+    """K3: the defocus of (H,W,3) uint8 ``rgb`` by float32 ``depth`` on the
+    card, on ``route`` or else on ``defocus_route`` of the aperture."""
     h, w = depth.shape
     if not (rgb.is_cuda and depth.is_cuda):
         raise ValueError(
@@ -225,16 +337,18 @@ def defocus_box(rgb: torch.Tensor, depth: torch.Tensor,
     max_half = k // 2
     snap = _snap_params(cfg, max_half)
     t, q = snap if snap is not None else (0, 0)
-    half = torch.empty((h, w), dtype=torch.uint8, device=depth.device)
-    # Scratch for K3's SAT, which it reads and writes as unsigned 32-bit.
-    sat = torch.empty((3, h + 1, w + 1), dtype=torch.int32, device=depth.device)
+    tile = _check_route(route or defocus_route(max_half), max_half)
+    # The table route's scratch: the half-widths, the table and its totals.
+    scratch = [] if tile else [torch.empty((h, w), dtype=torch.uint8, device=depth.device),
+                               *_table_scratch(h, w, depth.device)]
+    half, sat, tot = [t.data_ptr() for t in scratch] or [None] * 3
     out = torch.empty((h, w, 3), dtype=torch.uint8, device=depth.device)
     lib = build.load_library()
     # The launch goes to the current device: make it the tensors' one.
     with torch.cuda.device(depth.device):
         err = lib.defocus_box(
-            rgb.data_ptr(), depth.data_ptr(), half.data_ptr(), sat.data_ptr(),
-            out.data_ptr(), h, w, k, max_half, int(snap is not None), t, q,
+            rgb.data_ptr(), depth.data_ptr(), half, sat, tot, out.data_ptr(), h, w, k,
+            max_half, int(snap is not None), t, q, tile,
             torch.cuda.current_stream(depth.device).cuda_stream,
         )
     build.check("defocus_box", err)

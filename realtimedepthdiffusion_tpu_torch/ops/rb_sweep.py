@@ -9,8 +9,9 @@ Counterpart of the red-black section of
   ``_rb_strip_mega_kernel``, the chunked ``_strip_rb_kernel`` and the
   quadrant-compacted ``_rb_compact_mega_kernel``, which all compute the
   same iterate. ``rb_tile_config`` picks its CTA shape.
-- ``rb_sweep_resident`` (K5) runs n iterations of a level that fits one
-  CTA's shared memory in one launch; it replaces ``_resident_rb_kernel``.
+- ``rb_sweep_resident`` (K5) runs n iterations of a level that one CTA's
+  threads hold in registers, a patch of pixels each, in one launch; it
+  replaces ``_resident_rb_kernel``. ``rb_resident_config`` picks its CTA.
 - ``rb_iter_plain`` / ``solve_level_rb_plain`` compute the same thing with
   torch ops in ``_rb_iter_full``'s order. The CPU runs them, and on the
   card they are what the kernels are held to, bit for bit.
@@ -64,9 +65,11 @@ MAX_RB_TILE_ITERS = 19
 # K4 takes at most this many planes per launch: their parities are the
 # bits of one 64-bit word.
 RB_TILE_MAX_PLANES = 64
-# K5's need per pixel of the level padded by a one-pixel ring: u, bh, bv,
-# inv (f32) and mask (u8).
-RB_RESIDENT_BYTES_PER_PX = 17
+# K5's patch (rows, columns) and the most threads of its one CTA: a thread
+# keeps its patch's u, weights and mask bits in registers, 64 of them, so
+# the CTA holds 1024 x 4 x 2 pixels.
+RB_RESIDENT_PATCH = (4, 2)
+RB_RESIDENT_MAX_THREADS = 1024
 
 
 def red_black_parity(h: int, w: int, device=None, parity: int = 0) -> torch.Tensor:
@@ -135,9 +138,10 @@ def rb_tile_extent(tile):
 
 
 def rb_smem_bytes(tile) -> int:
-    """K4's shared memory: one f32 buffer of u, every row split into its
-    ``cols`` de-interleaved sub-planes with an end slot each side, and a
-    row above and below."""
+    """K4's and K5's shared memory: one f32 buffer of u, every row split
+    into its ``cols`` de-interleaved sub-planes with an end slot each side,
+    and a row above and below. A CTA of K5 stays below 100 KB of it
+    whatever its shape."""
     bx, by, rows, cols = tile
     return 4 * (by * rows + 2) * cols * (bx + 2)
 
@@ -209,9 +213,17 @@ def rb_sweep_tiles(u_in, u_out, bh, bv, inv, mask_u8, om_dev, base: int, n_activ
 rb_sweep_tiles.launches = 0
 
 
+def rb_resident_config(h: int, w: int):
+    """K5's (threads across, threads down, rows, columns) for an (h, w)
+    level, one patch a thread, or None where one CTA does not cover it."""
+    rows, cols = RB_RESIDENT_PATCH
+    bx, by = -(-w // cols), -(-h // rows)
+    return (bx, by, rows, cols) if bx * by <= RB_RESIDENT_MAX_THREADS else None
+
+
 def rb_resident_fits(h: int, w: int) -> bool:
-    """Whether K5 can hold an (h, w) level in one CTA's shared memory."""
-    return (h + 2) * (w + 2) * RB_RESIDENT_BYTES_PER_PX <= SMEM_PER_CTA
+    """Whether one CTA of K5 holds an (h, w) level."""
+    return rb_resident_config(h, w) is not None
 
 
 def rb_sweep_resident(u, bh, bv, inv, mask_u8, om_dev, base: int, n: int) -> None:
@@ -220,14 +232,16 @@ def rb_sweep_resident(u, bh, bv, inv, mask_u8, om_dev, base: int, n: int) -> Non
     h, w = u.shape
     _check("u", u, torch.float32, (h, w))
     _check_planes("rb_sweep_resident", (h, w), u, u, bh, bv, inv, mask_u8, om_dev, base, n)
-    if not rb_resident_fits(h, w):
-        raise ValueError(f"a {h}x{w} level does not fit one CTA's shared memory")
+    shape = rb_resident_config(h, w)
+    if shape is None:
+        raise ValueError(f"a {h}x{w} level does not fit one CTA of "
+                         f"{RB_RESIDENT_MAX_THREADS} threads, {RB_RESIDENT_PATCH} pixels each")
     lib = build.load_library()
     # The launch goes to the current device: make it the tensors' one.
     with torch.cuda.device(u.device):
         err = lib.rb_sweep_resident(
             u.data_ptr(), bh.data_ptr(), bv.data_ptr(), inv.data_ptr(), mask_u8.data_ptr(),
-            om_dev.data_ptr(), h, w, base, n, _stream(u),
+            om_dev.data_ptr(), h, w, base, n, *shape[:2], _stream(u),
         )
     build.check("rb_sweep_resident", err)
     rb_sweep_resident.launches += 1
@@ -251,8 +265,8 @@ def _tiles_chunk(u, bh, bv, inv, m8, om_dev, base, n, k, tile=None):
 
 def chunks_cuda(depth: torch.Tensor, mask: torch.Tensor, wts, om: np.ndarray,
                 k: int = RB_TILE_ITERS):
-    """``chunks_plain`` on the card: a chunk is one K5 launch when the level
-    fits one CTA's shared memory, else ceil(n/k) K4 launches."""
+    """``chunks_plain`` on the card: a chunk is one K5 launch when one CTA
+    holds the level, else ceil(n/k) K4 launches."""
     u = depth.to(torch.float32).contiguous().clone()
     om_dev = torch.from_numpy(np.ascontiguousarray(om, np.float32)).to(u.device)
     planes = (wts.wr.contiguous(), wts.wd.contiguous(), wts.inv_count.contiguous(),
@@ -272,8 +286,8 @@ def chunks_cuda(depth: torch.Tensor, mask: torch.Tensor, wts, om: np.ndarray,
 def solve_level_rb_cuda(depth: torch.Tensor, mask: torch.Tensor, wts, om: np.ndarray,
                         k: int = RB_TILE_ITERS) -> torch.Tensor:
     """Every iteration of the (iters, 2) omega table on the card: one K5
-    launch when the level fits one CTA's shared memory, else ceil(iters/k)
-    launches of K4."""
+    launch when one CTA holds the level, else ceil(iters/k) launches of
+    K4."""
     if om.shape[0] == 0:
         return depth.to(torch.float32).contiguous().clone()
     u, run, _ = chunks_cuda(depth, mask, wts, om, k)

@@ -3,9 +3,10 @@ shapes the 1080p run does not reach: single rows, levels smaller than one
 tile, ragged tiles, every ring width k, stacks of planes in one K1 or K4
 launch, K2 on every cluster-held level shape from a base > 0, K4 under
 each of its CTA shapes and both checkerboard parities, chunks that start
-past iteration 0, large apertures, K6 at every level rule and the 4K
-routes and SAT sums, and pipelines on a second card. Every comparison is
-exact.
+past iteration 0, K3 on both of its routes at apertures up to past the
+tile route's limit, K5 on levels of every shape its CTA covers, K6 at every level rule
+and the 4K routes and SAT sums, and pipelines on a second card. Every
+comparison is exact.
 
 Needs a CUDA device and nvcc; skips without them. This file imports no JAX,
 so it runs on a machine without it:
@@ -136,6 +137,21 @@ def test_cluster_query_and_refusals(dev):
         sweep.jc_sweep_tiles(*[f[None, None]] * 7, m[None, None], abc, 0, 4)
 
 
+def _aperture(h, w, max_half):
+    """The ``defocus_aperture`` whose kernel size on (h, w) is 2 * max_half."""
+    return (2 * max_half + 0.5) / float(np.hypot(h, w))
+
+
+def _defocus_case(dev, h, w, seed):
+    """Noise for colour; for depth, noise over blocks of 48 pixels, so that
+    tiles differ in their largest half-width and some are sharp."""
+    r = np.random.default_rng(seed)
+    rgb = torch.from_numpy(r.integers(0, 256, (h, w, 3), dtype=np.uint8)).to(dev)
+    coarse = np.kron(r.random((h // 48 + 1, w // 48 + 1)) * 1.4 - 0.4, np.ones((48, 48)))
+    depth = (coarse[:h, :w] * r.random((h, w)) * 300).astype(np.float32)
+    return rgb, torch.from_numpy(depth).to(dev)
+
+
 @pytest.mark.parametrize("h,w", [(7, 9), (96, 160), (257, 130), (540, 960)])
 @pytest.mark.parametrize("aperture", [0.025, 0.3])
 @pytest.mark.parametrize("quality", ["exact", "approx"])
@@ -148,6 +164,49 @@ def test_defocus_kernel_equals_plain(dev, h, w, aperture, quality):
     want = defocus.defocus_sat(rgb, depth, cfg)
     torch.cuda.synchronize()
     assert got.dtype == torch.uint8 and torch.equal(got, want)
+
+
+@pytest.mark.parametrize("h,w", [(67, 120), (181, 243), (1080, 1920)])
+@pytest.mark.parametrize("route", [("tile", 64), ("tile", 96), ("table", None)],
+                         ids=["tile64", "tile96", "table"])
+@pytest.mark.parametrize("quality", ["exact", "approx"])
+@pytest.mark.parametrize("max_half", [3, 27, 55, 72])
+def test_defocus_routes_equal_plain(dev, h, w, route, quality, max_half):
+    """K3 on each route and tile side, on ragged tiles and on a level
+    smaller than one tile, at apertures up to the largest a 96-tile holds;
+    the route ``defocus_route`` picks gives the same."""
+    cfg = DiffusionConfig(defocus_aperture=_aperture(h, w, max_half),
+                          pallas_defocus_quality=quality)
+    assert cfg.defocus_kernel_size(h, w) // 2 == max_half
+    rgb, depth = _defocus_case(dev, h, w, h + max_half)
+    before = defocus.defocus_box.launches
+    got = defocus.defocus_box(rgb, depth, cfg, route=route)
+    want = defocus.defocus_sat(rgb, depth, cfg)
+    torch.cuda.synchronize()
+    assert defocus.defocus_box.launches == before + 1
+    assert torch.equal(got, want)
+    assert torch.equal(defocus.defocus_box(rgb, depth, cfg), want)
+
+
+@pytest.mark.parametrize("max_half", [72, 73, 88, 89, 120])
+def test_defocus_past_the_tile_limit_equals_plain(dev, max_half):
+    """The last aperture the tile route serves, the first it leaves to the
+    table, the last a forced 64-tile still holds, and apertures past that,
+    which refuse the tile."""
+    h, w = 300, 520
+    cfg = DiffusionConfig(defocus_aperture=_aperture(h, w, max_half))
+    assert cfg.defocus_kernel_size(h, w) // 2 == max_half
+    rgb, depth = _defocus_case(dev, h, w, max_half)
+    want = defocus.defocus_sat(rgb, depth, cfg)
+    assert torch.equal(defocus.defocus_box(rgb, depth, cfg, route=("table", None)), want)
+    assert torch.equal(defocus.defocus_box(rgb, depth, cfg), want)
+    assert defocus.defocus_route(max_half) == (("tile", 96) if max_half == 72
+                                               else ("table", None))
+    if max_half <= 88:
+        assert torch.equal(defocus.defocus_box(rgb, depth, cfg, route=("tile", 64)), want)
+    else:
+        with pytest.raises(ValueError, match="does not serve"):
+            defocus.defocus_box(rgb, depth, cfg, route=("tile", 64))
 
 
 def _rb_planes(wts, mask):
@@ -244,6 +303,31 @@ def test_rb_resident_kernel_equals_plain(dev, h, w, split):
     assert rb_sweep.rb_sweep_resident.launches == before + 1 + (rest > 0)
 
 
+@pytest.mark.parametrize("h,w", [(67, 120), (68, 120), (3, 120), (67, 1), (2, 2000),
+                                 (4096, 2)])
+@pytest.mark.parametrize("split", [(1, 0), (25, 0), (1000, 0), (7, 18)])
+def test_rb_resident_shapes_equal_plain(dev, h, w, split):
+    """K5 on the levels a 1080p and a 4K cascade give it, on levels lower
+    or narrower than one patch and on a single row or column of patches,
+    for 1, 25 and 1000 iterations and in a split run."""
+    first, rest = split
+    iters = first + rest
+    depth, mask, wts, _ = _level(dev, h, w, 1, seed=h + w + iters, level=0)
+    om = rb_omegas(iters, DiffusionConfig())
+    om_dev = torch.from_numpy(om).to(dev)
+    u = depth.clone()
+    rb_sweep.rb_sweep_resident(u, *_rb_planes(wts, mask), om_dev, 0, first)
+    if rest:
+        rb_sweep.rb_sweep_resident(u, *_rb_planes(wts, mask), om_dev, first, rest)
+    # A thousand plain iterations take seconds: K4 is held to them
+    # elsewhere and stands in for them here.
+    want = (rb_sweep.solve_level_rb_plain(depth, mask, wts, om) if iters < 1000 else
+            rb_sweep._tiles_chunk(depth.clone(), *_rb_planes(wts, mask), om_dev, 0, iters, 8))
+    torch.cuda.synchronize()
+    assert torch.equal(u, want)
+    assert torch.equal(u[mask], depth[mask])
+
+
 @pytest.mark.parametrize("h,w", [(40, 56), (135, 240)])
 @pytest.mark.parametrize("solver", ["red_black", "jacobi", "jacobi_chebyshev"])
 def test_early_exit_on_card_equals_plain(dev, h, w, solver):
@@ -280,6 +364,9 @@ def test_wrappers_reject_bad_arguments(dev):
         sweep.jc_sweep_tiles(f, f, f, f, f, f, f, m, abc, 2, 4)
     with pytest.raises(ValueError, match="rgb"):
         defocus.defocus_box(m, f)
+    with pytest.raises(ValueError, match="does not serve"):
+        defocus.defocus_box(torch.zeros((8, 9, 3), dtype=torch.uint8, device=dev), f,
+                            route=("tile", 48))
     om = torch.zeros((4, 2), device=dev)
     with pytest.raises(ValueError, match="do not fit"):
         rb_sweep.rb_sweep_tiles(f, f, f, f, f, m, om, 3, 2)
@@ -291,7 +378,7 @@ def test_wrappers_reject_bad_arguments(dev):
         rb_sweep.rb_sweep_tiles(f, f, f, f, f, m, om, 0, 2, k=8, tile=(64, 8, 4, 1))
     with pytest.raises(ValueError, match="parity"):
         rb_sweep.rb_sweep_tiles(f, f, f, f, f, m, om, 0, 2, parity=[0, 1])
-    with pytest.raises(ValueError, match="shared memory"):
+    with pytest.raises(ValueError, match="does not fit one CTA"):
         rb_sweep.rb_sweep_resident(torch.zeros((200, 300), device=dev), *[
             torch.zeros((200, 300), device=dev)] * 3, torch.zeros((200, 300),
             dtype=torch.uint8, device=dev), om, 0, 1)
@@ -457,6 +544,30 @@ def test_defocus_block_kernel_equals_plain(dev, hb, wb, aperture, at):
     want = defocus.defocus_block_sat(chw_e, half, oy, ox, full_h, full_w, cfg)
     torch.cuda.synchronize()
     assert defocus.defocus_block.launches == before + 1
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("route", [("tile", 64), ("tile", 96), ("table", None)],
+                         ids=["tile64", "tile96", "table"])
+@pytest.mark.parametrize("aperture", [0.05, 0.22])
+@pytest.mark.parametrize("at", [(0, 0), (1, 0), (1, 1), (2, 1)],
+                         ids=["corner", "edge", "interior", "far-corner"])
+def test_defocus_block_routes_equal_plain(dev, route, aperture, at):
+    """K3 on a 135x203 block (ragged tiles) of a 405x406 image on each
+    route: a corner, an edge and an interior block, rings of 15 and 64."""
+    hb, wb = 135, 203
+    full_h, full_w = 3 * hb, 2 * wb
+    oy, ox = at[0] * hb, at[1] * wb
+    r = np.random.default_rng(int(aperture * 100) + at[0] + 3 * at[1])
+    cfg = DiffusionConfig(defocus_aperture=aperture)
+    ew = defocus.block_ring(full_h, full_w, cfg)
+    chw_e = torch.from_numpy(r.integers(0, 256, (3, hb + 2 * ew, wb + 2 * ew), dtype=np.uint8))
+    coarse = np.kron(r.random((hb // 32 + 1, wb // 32 + 1)) * 1.3 - 0.3, np.ones((32, 32)))
+    half = np.clip(coarse[:hb, :wb] * r.random((hb, wb)) * ew, 0, ew - 1).astype(np.uint8)
+    half = torch.from_numpy(half)
+    got = defocus.defocus_block(chw_e.to(dev), half.to(dev), oy, ox, full_h, full_w, cfg, route)
+    want = defocus.defocus_block_sat(chw_e, half, oy, ox, full_h, full_w, cfg)
+    torch.cuda.synchronize()
     assert torch.equal(got.cpu(), want)
 
 

@@ -262,10 +262,34 @@ def test_rb_cpu_solve_launches_no_kernel_and_wrappers_refuse_cpu():
 
 
 def test_rb_resident_fit_rule():
-    """K5 holds L4 of a 1080p cascade (67x120: 143,106 B) and not L3."""
+    """K5 holds L4 of a 1080p cascade (67x120: 60 x 17 threads of 4 x 2
+    pixels) and not L3."""
     assert rb_sweep.rb_resident_fits(67, 120)
-    assert (67 + 2) * (120 + 2) * rb_sweep.RB_RESIDENT_BYTES_PER_PX == 143106
+    assert rb_sweep.rb_resident_config(67, 120) == (60, 17, 4, 2)
     assert not rb_sweep.rb_resident_fits(135, 240)
+
+
+# (h, w) and K5's CTA: 1080p L4, 4K L5, a level four columns too wide,
+# 1080p L3, one pixel, the tallest and the widest level of one patch column
+# or row, and one row more than that.
+@pytest.mark.parametrize("shape,want", [
+    ((67, 120), (60, 17, 4, 2)), ((68, 120), (60, 17, 4, 2)), ((68, 128), None),
+    ((135, 240), None), ((1, 1), (1, 1, 4, 2)), ((4096, 2), (1, 1024, 4, 2)),
+    ((4, 2048), (1024, 1, 4, 2)), ((5, 2048), None),
+])
+def test_rb_resident_config(shape, want):
+    """K5's CTA: one patch of 4 x 2 pixels a thread covers the level with
+    none to spare, within 1024 threads, and the one shared buffer of u fits
+    one CTA's shared memory."""
+    h, w = shape
+    got = rb_sweep.rb_resident_config(h, w)
+    assert got == want and rb_sweep.rb_resident_fits(h, w) == (want is not None)
+    if got is not None:
+        bx, by, rows, cols = got
+        assert (rows, cols) == rb_sweep.RB_RESIDENT_PATCH
+        assert bx * by <= rb_sweep.RB_RESIDENT_MAX_THREADS
+        assert bx * cols >= w > (bx - 1) * cols and by * rows >= h > (by - 1) * rows
+        assert rb_sweep.rb_smem_bytes(got) <= sweep.SMEM_PER_CTA
 
 
 @pytest.mark.parametrize("tile", [rb_sweep.RB_TILE_SHALLOW, rb_sweep.RB_TILE_DEEP,
