@@ -64,8 +64,34 @@ Phases, each printed on its own lines; any failure raises and exits non-zero:
    timed default, fast and 4K frames of phases 4-6.
 
 8. Takes the device time alone of K1, K3, K4, K5 and K6 at the shapes
-   above: the launches of a level or an effect are captured once into a
-   CUDA graph and replayed, so that the host paces nothing between them.
+   above and of phase 9's windows: the launches of a level or an effect are
+   captured once into a CUDA graph and replayed, so that the host paces
+   nothing between them. It runs last, after phase 9.
+9. Drives the paths that run the kernels at other shapes or beside plain
+   torch ops. The windows of the incremental re-solve: K1 on a 384x384
+   level-0 window and K2 on a 192x192 level-1 window (K4 on both under
+   red-black, which one CTA of K5 cannot hold), each with the frozen ring in
+   its mask and the weights of its own crop, cut from the 1080p scene at an
+   inside origin and at clamped corner origins, exact against plain. The
+   incremental path: ``DepthPipeline(1080, 1920,
+   DiffusionConfig(incremental_iterations=120))`` on a photograph-like
+   image under a dense annotation, full frames until the depth stands
+   still, then three ``solve_incremental_and_effect`` frames, each after a scribble
+   uploaded with ``update_annotation_window``: at an inside centre, at
+   (5, 5) and at the far corner, where the window clamps. Each must launch
+   exactly K2 x4, K1 x15, K3 x1, pin its scribbles, move level 0 outside
+   its window by the injected coarse correction alone, equal the same frame
+   on the plain versions bit for bit, and lie within RMSE 3e-2 of a full
+   re-solve; one frame at the default config must launch K2 x4, K1 x125,
+   K3 x1. The V-cycle path: two ``DiffusionConfig(multigrid="vcycle")``
+   frames, whose warm cascade must launch what a default frame launches,
+   with depth in [0, 255] and a fine residual no larger than 1.05 x the
+   cascade's under the cascade's weights; the polish's time, device time
+   and count of device launches; a 270x480 V-cycle against the CPU's and a
+   sharded V-cycle step against the single-device one (RMSE <= 1e-3). A
+   96x128 solve against the NumPy oracle run on the host (RMSE <= 1e-3),
+   the model facade at 540x960, and a 16-bit gray and an RGB PNG through
+   the port's own codec.
 
 Each phase prints its seconds. The line before the last is a JSON object
 of the kernels, each with its launches on its main path, its largest
@@ -135,6 +161,27 @@ def seeded_image(rng, h, w):
     return np.clip(img, 0, 255).astype(np.uint8)
 
 
+def photo_like(rng, h, w):
+    """Smooth shading, a few soft-edged discs and fine noise: neighbouring
+    pixels differ by a few gray levels but at the discs' edges, as in a
+    photograph. A cascade settles on it within two or three solves; on the
+    noisy blocks of ``seeded_image``, whose every cell is all but insulated
+    from the next, it keeps moving for dozens."""
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+    img = np.full((h, w, 3), 128.0, np.float32)
+    for c in range(3):
+        for _ in range(4):
+            fx, fy, ph = rng.uniform(0.5, 3.0), rng.uniform(0.5, 3.0), rng.uniform(0.0, 6.28)
+            img[..., c] += 25.0 * np.sin(6.2832 * (fx * xx / w + fy * yy / h) + ph)
+    for _ in range(8):
+        cy, cx, rad = rng.uniform(0, h), rng.uniform(0, w), rng.uniform(80, 300)
+        off = rng.uniform(-70, 70, 3).astype(np.float32)
+        inside = 1.0 / (1.0 + np.exp(np.clip((np.hypot(yy - cy, xx - cx) - rad) / 2.0, -60, 60)))
+        img += inside[..., None] * off
+    img += rng.integers(-4, 5, (h, w, 3))
+    return np.clip(img, 0, 255).astype(np.uint8)
+
+
 def bench_scribbles(h, w, scale=1):
     """The scribble layout of bench.py: five 40x60 blocks at depths 0..254,
     coordinates and sizes times ``scale``."""
@@ -144,6 +191,20 @@ def bench_scribbles(h, w, scale=1):
         y, x = scale * (120 + 180 * i), scale * (200 + 320 * i)
         mask[y : y + 40 * scale, x : x + 60 * scale] = True
         value[y : y + 40 * scale, x : x + 60 * scale] = d
+    return mask, value
+
+
+def dense_scribbles(h, w):
+    """A dense annotation, as a user leaves it after many strokes: a 4 x 6
+    grid of 30x40 blocks whose depths cycle through 0..254."""
+    mask = np.zeros((h, w), bool)
+    value = np.zeros((h, w), np.uint8)
+    depths = (0, 64, 128, 192, 254)
+    for gy in range(4):
+        for gx in range(6):
+            y, x = h // 11 + gy * (h // 4), w // 16 + gx * (w // 6)
+            mask[y:y + 30, x:x + 40] = True
+            value[y:y + 30, x:x + 40] = depths[(gy + 2 * gx) % 5]
     return mask, value
 
 
@@ -198,11 +259,11 @@ def k3_ops(px_sat, px_out, with_half):
 
 
 def traced(name, fn, unprofiled_ms):
-    """``fn`` run once more under ``torch.profiler``: prints its device ms
-    by kernel (templates merged under their bare names) and its device
-    time over ``unprofiled_ms``, the same work's time without the
-    profiler, as its busy share. Kernels run on one stream, so they never
-    overlap."""
+    """``fn`` run once more under ``torch.profiler``: prints and returns its
+    device ms (by kernel too, templates merged under their bare names), the
+    count of its launches on the device, and its device time over
+    ``unprofiled_ms``, the same work's time without the profiler, as its
+    busy share. Kernels run on one stream, so they never overlap."""
     import torch
 
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
@@ -210,16 +271,21 @@ def traced(name, fn, unprofiled_ms):
         fn()
         torch.cuda.synchronize()
     by_kernel = collections.Counter()
+    n_device = 0
     for e in prof.events():
         if e.device_type == torch.autograd.DeviceType.CUDA:
+            n_device += 1
             bare = re.split(r"[<(]", e.name.replace("(anonymous namespace)::", ""))[0]
             by_kernel[bare.split("::")[-1].removeprefix("void ").strip()] += e.time_range.elapsed_us() / 1e3
     device_ms = sum(by_kernel.values())
     if device_ms <= 0:
         raise AssertionError(f"the profiler saw no device time in the traced {name}")
-    print(f"{name} traced again: {device_ms:.3f} ms of device time over {unprofiled_ms:.3f} ms "
-          f"unprofiled, busy share {device_ms / unprofiled_ms:.4f}; device ms by kernel "
+    print(f"{name} traced again: {device_ms:.3f} ms of device time in {n_device} device "
+          f"launches over {unprofiled_ms:.3f} ms unprofiled, busy share "
+          f"{device_ms / unprofiled_ms:.4f}; device ms by kernel "
           f"{json.dumps({k: round(v, 3) for k, v in by_kernel.most_common(8)})}")
+    return {"device_ms": device_ms, "device_launches": n_device,
+            "busy": device_ms / unprofiled_ms}
 
 
 def max_abs(torch, a, b):
@@ -1217,6 +1283,432 @@ def main() -> None:
     print(f"dryrun_multichip(8): {json.dumps(dryrun.dryrun_multichip(8, device='cuda'))}")
     phase_done("7 (the multi-device step)")
 
+    # -- 9. the incremental re-solve, the V-cycle, the facade, the oracle, the codec ---
+    import tempfile
+    from unittest import mock
+
+    from realtimedepthdiffusion_tpu_torch import io as port_io
+    from realtimedepthdiffusion_tpu_torch import models
+    from realtimedepthdiffusion_tpu_torch.core import incremental
+    from realtimedepthdiffusion_tpu_torch.core.multigrid import (
+        solve_cascade, vcycle_polish, vcycle_warm_config)
+    from realtimedepthdiffusion_tpu_torch.oracle import numpy_ref
+
+    def rmse01(a, b):
+        """Depth RMSE on [0, 1], of tensors or arrays."""
+        a, b = (t.detach().cpu().numpy() if isinstance(t, torch.Tensor) else np.asarray(t)
+                for t in (a, b))
+        return float(np.sqrt(np.mean(((a.astype(np.float64) - b) / 255.0) ** 2)))
+
+    # The windows, cut from the scene of phase 4 (its last depth state and
+    # annotation): K1 and K2 at shapes no frame of phases 4-7 gives them.
+    icfg = DiffusionConfig(incremental_iterations=120)
+    win_masks, _ = build_annotation_pyramids(frames[2][2], frames[2][3], icfg)
+    win_routes = {lv: sweep.strip_route(icfg.incremental_window >> lv,
+                                        icfg.incremental_window >> lv, l2, max_cluster)
+                  for lv in (0, 1)}
+    if win_routes != {0: "K1", 1: "K2"}:
+        raise AssertionError(f"the incremental windows route to {win_routes}, not K1 and K2")
+    if rb_sweep.rb_resident_fits(192, 192) or rb_sweep.rb_resident_fits(384, 384):
+        raise AssertionError("one CTA of K5 holds an incremental window: the red-black "
+                             "windows were expected on K4")
+
+    def window_case(level, center):
+        """The window of ``solve_incremental`` at ``level`` for an edit at
+        ``center``: its clamped origin, the crop of the depth (a view), the
+        mask with the frozen ring, and the weights of the crop."""
+        win = icfg.incremental_window >> level
+        h, w = gpyr[level].shape
+        oy, ox = incremental.clamp_origin((center[0] >> level) - win // 2,
+                                          (center[1] >> level) - win // 2, win, win, h, w)
+        rows, cols = slice(oy, oy + win), slice(ox, ox + win)
+        u_w = state[level][rows, cols]
+        m_w = win_masks[level][rows, cols] | incremental._ring(win, dev)
+        wts = edge_weights(gpyr[level][rows, cols], u_w, level, L, icfg)
+        return (oy, ox), u_w, m_w, wts
+
+    win_centers = {"inside": (600, 1100), "top left, clamped": (5, 5),
+                   "far corner, clamped": (H - 1, W - 1)}
+    windows = {}
+    for level, kernel_name, want_launches in ((0, "jc_sweep_tiles", 15), (1, "jc_sweep_resident", 1)):
+        abc = abc_schedule(max(icfg.incremental_iterations >> level, 1), icfg)
+        om = rb_omegas(len(abc), fast_cfg)
+        line = {"sweeps": len(abc), "max_abs_err": 0.0, "origins": {}}
+        for label, center in win_centers.items():
+            origin, u_w, m_w, wts = window_case(level, center)
+            ops.reset_launch_counts()
+            got = sweep.solve_level_cuda(u_w, m_w, wts, abc)
+            counts = {k: v for k, v in ops.launch_counts().items() if v}
+            if counts != {kernel_name: want_launches}:
+                raise AssertionError(f"L{level} window {label}: launched {counts}, not "
+                                     f"{kernel_name} x{want_launches}")
+            want = sweep.solve_level_plain(u_w, m_w, wts, abc)
+            torch.cuda.synchronize()
+            name = f"{kernel_name} on the L{level} window at {origin} ({label})"
+            line["max_abs_err"] = max(line["max_abs_err"], require_equal(torch, name, got, want))
+            if not torch.equal(got[m_w], u_w[m_w]):
+                raise AssertionError(f"{name}: the frozen ring or a scribble moved")
+            # Red-black on the same window: K4, with the window's own parity.
+            got_rb = rb_sweep.solve_level_rb_cuda(u_w, m_w, wts, om)
+            want_rb = rb_sweep.solve_level_rb_plain(u_w, m_w, wts, om)
+            torch.cuda.synchronize()
+            line["rb_max_abs_err"] = max(line.get("rb_max_abs_err", 0.0), require_equal(
+                torch, f"K4 on the L{level} window at {origin}", got_rb, want_rb))
+            line["origins"][label] = list(origin)
+        origin, u_w, m_w, wts = window_case(level, win_centers["inside"])
+        px = int(u_w.numel())
+        line.update(shape=list(u_w.shape), launches=want_launches,
+                    ms=time_ms(torch, lambda: sweep.solve_level_cuda(u_w, m_w, wts, abc), 10),
+                    plain_ms=time_ms(torch, lambda: sweep.solve_level_plain(u_w, m_w, wts, abc), 3),
+                    bound_ms=bound(px * 29, px * len(abc) * JC_OPS)[0])
+        w_state, w_run, _ = sweep.chunks_cuda(u_w, m_w, wts, abc)
+        device_only[f"window L{level}"] = (
+            lambda run=w_run, st=w_state, n=len(abc): run(st, 0, n))
+        windows[level] = line
+        print(f"incremental window L{level} ({kernel_name}, ring mask, weights of the crop): "
+              f"{json.dumps(line)}")
+
+    # The incremental path at full width.
+    def incremental_launches(c, gp):
+        """The launches of one incremental frame by the routes: a windowed
+        level solves its window (and its global sweeps, if any), every other
+        level itself; one K3."""
+        want = collections.Counter(defocus_box=1)
+        inc = c.incremental_iterations if c.incremental_iterations > 0 else c.max_iterations
+        for level, g in enumerate(gp):
+            h, w = g.shape
+            win = c.incremental_window >> level
+            if level < c.incremental_window_levels and win < min(h, w):
+                iters = max(inc >> level, 1)
+                solves = [((win, win), iters)]
+                if c.incremental_global_smooth > 0:
+                    solves.append(((h, w), min(c.incremental_global_smooth, iters)))
+            else:
+                solves = [((h, w), c.level_iterations(len(gp), level))]
+            for (sh, sw), iters in solves:
+                blocks = -(-iters // sweep.TILE_SWEEPS)
+                want.update({"K2": {"jc_sweep_resident": 1}, "K1": {"jc_sweep_tiles": blocks},
+                             "K6": {"jc_sweep_fused": blocks}}[
+                                 sweep.strip_route(sh, sw, l2, max_cluster)])
+        return want
+
+    want_inc = incremental_launches(icfg, gray_pyr)
+    want_inc_default = incremental_launches(cfg, gray_pyr)
+    print(f"incremental frame: launches per frame {json.dumps(want_inc)}; at the default "
+          f"config {json.dumps(want_inc_default)}")
+    if dict(want_inc) != {"jc_sweep_resident": 4, "jc_sweep_tiles": 15, "defocus_box": 1}:
+        raise AssertionError(f"an incremental 1080p frame launches {dict(want_inc)}")
+    if dict(want_inc_default) != {"jc_sweep_resident": 4, "jc_sweep_tiles": 125,
+                                  "defocus_box": 1}:
+        raise AssertionError(f"a default incremental frame launches {dict(want_inc_default)}")
+
+    def plain_solve_level(depth, mask, gray, level, max_level, iters, c, exit_log=None):
+        return plain_level(c, depth, mask, gray, level, max_level, iters)
+
+    # The scene: a photograph-like image under a dense annotation, on which
+    # a full solve stands still after a few solves. (On the noisy blocks of
+    # phases 3-8 it never does, and an incremental frame then differs from
+    # a full re-solve by what the full solve itself still moves.)
+    ipipe = DepthPipeline(H, W, icfg, device="cuda")
+    irgb_d, igp = ipipe.prepare_image(photo_like(np.random.default_rng(SEED + 8), H, W))
+    imask, ivalue = dense_scribbles(H, W)
+    im_d, iv_d = torch.from_numpy(imask).to(dev), torch.from_numpy(ivalue).to(dev)
+    ops.reset_launch_counts()
+    _, istate, _ = ipipe.solve_and_effect(fx.EFFECT_DEFOCUS, igp, irgb_d, im_d, iv_d,
+                                          ipipe.initial_state())
+    if {k: v for k, v in ops.launch_counts().items() if v} != dict(want_frame):
+        raise AssertionError(f"the full frame before the edits launched {ops.launch_counts()}")
+    # A live session edits a depth that has settled. Only the coarsest
+    # level of a full solve starts warm, so the state moves from solve to
+    # solve until that level has converged; the frames below are held to a
+    # full re-solve, which means something only once the full solve itself
+    # stands still.
+    for n_settle in range(1, 13):
+        settled, new_state = ipipe.solve(igp, im_d, iv_d, istate)
+        moved = rmse01(settled, istate[0])
+        istate = new_state
+        if moved < 1e-3:
+            break
+    else:
+        raise AssertionError(f"the full solve still moves the depth by RMSE {moved} a solve")
+    print(f"incremental path: the state settled after {n_settle} more full solves "
+          f"(the last moved the depth by RMSE {moved:.3e})")
+    win0 = icfg.incremental_window
+    edits = (((600, 1100), (590, 610), (1090, 1110), 64), ((5, 5), (0, 12), (0, 12), 192),
+             ((H - 1, W - 1), (H - 20, H), (W - 20, W), 128))
+    inc_launches, inc_frames = collections.Counter(), []
+    for i, ((cy, cx), (r0, r1), (c0, c1), val) in enumerate(edits):
+        imask[r0:r1, c0:c1], ivalue[r0:r1, c0:c1] = True, val
+        # The session's upload: only the window's bytes cross to the card;
+        # the pipeline clamps the origin as it clamps the solve's window.
+        oy, ox = incremental.clamp_origin(cy - win0 // 2, cx - win0 // 2, win0, win0, H, W)
+        im_d, iv_d = ipipe.update_annotation_window(
+            im_d, iv_d, imask[oy:oy + win0, ox:ox + win0], ivalue[oy:oy + win0, ox:ox + win0],
+            (cy - win0 // 2, cx - win0 // 2))
+        if not (torch.equal(im_d.cpu(), torch.from_numpy(imask))
+                and torch.equal(iv_d.cpu(), torch.from_numpy(ivalue))):
+            raise AssertionError(f"incremental frame {i}: the uploaded window missed the planes")
+        ops.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        depth0, new_state, out = ipipe.solve_incremental_and_effect(
+            fx.EFFECT_DEFOCUS, igp, irgb_d, im_d, iv_d, istate, (cy, cx))
+        torch.cuda.synchronize()
+        host_ms = (time.perf_counter() - t0) * 1e3
+        counts = {k: v for k, v in ops.launch_counts().items() if v}
+        if counts != dict(want_inc):
+            raise AssertionError(f"incremental frame {i} launched {counts}, not {dict(want_inc)}")
+        inc_launches.update(counts)
+        if not bool(torch.isfinite(depth0).all()):
+            raise AssertionError(f"incremental frame {i}: depth is not finite")
+        if not torch.equal(depth0[im_d], iv_d[im_d].to(torch.float32)):
+            raise AssertionError(f"incremental frame {i}: scribble pixels are not pinned")
+        if new_state[0] is not depth0 or len(new_state) != n_levels:
+            raise AssertionError(f"incremental frame {i}: level 0 of the state is not the depth")
+        if tuple(out.shape) != (H, W, 3) or out.dtype != torch.uint8:
+            raise AssertionError(f"incremental frame {i}: effect is {tuple(out.shape)} {out.dtype}")
+        # Outside the window (and on its frozen ring) level 0 is the old
+        # level plus the pyrUp'd correction of level 1, re-seeded.
+        injected = seed_depth(istate[0] + pyr_up(new_state[1] - istate[1], (H, W)), im_d, iv_d)
+        outside = torch.ones((H, W), dtype=torch.bool, device=dev)
+        outside[oy + 1:oy + win0 - 1, ox + 1:ox + win0 - 1] = False
+        if not torch.equal(depth0[outside], injected[outside]):
+            raise AssertionError(f"incremental frame {i}: pixels outside the window at "
+                                 f"({oy}, {ox}) differ from the injected field")
+        if torch.equal(depth0[~outside], injected[~outside]):
+            raise AssertionError(f"incremental frame {i}: the window solve changed nothing")
+        # The same frame on the plain versions, on the card.
+        ops.reset_launch_counts()
+        with mock.patch.object(incremental, "solve_level", plain_solve_level):
+            p_depth, p_state = incremental.solve_incremental(igp, im_d, iv_d, istate, (cy, cx), icfg)
+        p_out = defocus.defocus_sat(irgb_d, torch.clamp(p_depth, 0.0, 255.0), icfg)
+        torch.cuda.synchronize()
+        if any(ops.launch_counts().values()):
+            raise AssertionError(f"the plain incremental frame launched {ops.launch_counts()}")
+        err = max([require_equal(torch, f"incremental frame {i} effect", out, p_out)]
+                  + [require_equal(torch, f"incremental frame {i} state L{lv}", a, b)
+                     for lv, (a, b) in enumerate(zip(new_state, p_state))])
+        # Against a full re-solve of the same annotation from the same state.
+        full_depth, _ = ipipe.solve(igp, im_d, iv_d, istate)
+        rmse = rmse01(depth0, full_depth)
+        print(f"incremental frame {i}: centre ({cy}, {cx}), window at ({oy}, {ox}), "
+              f"{host_ms:.3f} ms (host clock), launches {json.dumps(counts)}, kernels against "
+              f"plain max_abs_err {err}, RMSE against a full re-solve {rmse:.3e} (bar 3e-2)")
+        if not rmse <= 3e-2:
+            raise AssertionError(f"incremental frame {i}: RMSE {rmse} > 3e-2 against a full re-solve")
+        inc_frames.append((istate, im_d, iv_d, (cy, cx)))
+        istate = new_state
+
+    # For the record, no bar: on the scene of phases 3-8 a full solve does
+    # not stand still, so there an incremental frame, even one with no edit
+    # at all, differs from a full re-solve by what the full solve itself
+    # still moves.
+    hard_m, hard_v, hard_state, hard_moves = frames[2][2], frames[2][3], state, []
+    for _ in range(3):
+        hard_depth, hard_new = pipe.solve(gpyr, hard_m, hard_v, hard_state)
+        hard_moves.append(rmse01(hard_depth, hard_state[0]))
+        hard_state = hard_new
+    hard_inc, _ = ipipe.solve_incremental(gpyr, hard_m, hard_v, hard_state, edits[0][0])
+    hard_full, _ = ipipe.solve(gpyr, hard_m, hard_v, hard_state)
+    print(f"on the noisy blocks of phases 3-8 (frames 4-6 of that scene): successive full "
+          f"solves move the depth by RMSE {json.dumps([round(x, 5) for x in hard_moves])}; an "
+          f"incremental frame with no edit differs from a full re-solve by "
+          f"{rmse01(hard_inc, hard_full):.3e}")
+
+    # Times in one call: the first edit's incremental frame, a full frame
+    # from the same state on the same annotation, and the incremental
+    # frame at the default config (1000 sweeps at level 0).
+    t_state, t_m, t_v, t_c = inc_frames[0]
+    inc_run = lambda: ipipe.solve_incremental_and_effect(  # noqa: E731
+        fx.EFFECT_DEFOCUS, igp, irgb_d, t_m, t_v, t_state, t_c)
+    full_run = lambda: ipipe.solve_and_effect(fx.EFFECT_DEFOCUS, igp, irgb_d, t_m, t_v, t_state)  # noqa: E731
+    inc_default_run = lambda: pipe.solve_incremental_and_effect(  # noqa: E731
+        fx.EFFECT_DEFOCUS, igp, irgb_d, t_m, t_v, t_state, t_c)
+    ops.reset_launch_counts()
+    inc_default_run()
+    counts = {k: v for k, v in ops.launch_counts().items() if v}
+    if counts != dict(want_inc_default):
+        raise AssertionError(f"the default incremental frame launched {counts}, not "
+                             f"{dict(want_inc_default)}")
+    inc_line = {"incremental_ms": time_ms(torch, inc_run, 10), "full_ms": time_ms(torch, full_run, 10),
+                "incremental_default_ms": time_ms(torch, inc_default_run, 5),
+                "default_launches": counts}
+    inc_line["incremental_traced"] = traced("incremental frame", inc_run, inc_line["incremental_ms"])
+    inc_line["full_traced"] = traced("full frame beside it", full_run, inc_line["full_ms"])
+    print(f"incremental frame {H}x{W} (incremental_iterations=120) solve+defocus against a full "
+          f"frame, same state and annotation (CUDA events, median): {json.dumps(inc_line)}")
+
+    # The V-cycle path at full width.
+    vcfg = DiffusionConfig(multigrid="vcycle")
+    vpipe = DepthPipeline(H, W, vcfg, device="cuda")
+    vmask, vvalue = bench_scribbles(H, W)
+    vstate = vpipe.initial_state()
+    v_launches = collections.Counter()
+    for i in range(2):
+        if i == 1:
+            add_scribble(vmask, vvalue)
+        vm_d, vv_d = torch.from_numpy(vmask).to(dev), torch.from_numpy(vvalue).to(dev)
+        ops.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        v_depth, v_new, v_out = vpipe.solve_and_effect(fx.EFFECT_DEFOCUS, igp, irgb_d, vm_d, vv_d,
+                                                       vstate)
+        torch.cuda.synchronize()
+        host_ms = (time.perf_counter() - t0) * 1e3
+        counts = {k: v for k, v in ops.launch_counts().items() if v}
+        if counts != dict(want_frame):
+            raise AssertionError(f"V-cycle frame {i} launched {counts}, not its warm cascade's "
+                                 f"{dict(want_frame)}")
+        v_launches.update(counts)
+        if not bool(torch.isfinite(v_depth).all()):
+            raise AssertionError(f"V-cycle frame {i}: depth is not finite")
+        lo, hi = float(v_depth.min()), float(v_depth.max())
+        if lo < 0.0 or hi > 255.0:
+            raise AssertionError(f"V-cycle frame {i}: depth [{lo}, {hi}] left [0, 255]")
+        if not torch.equal(v_depth[vm_d], vv_d[vm_d].to(torch.float32)):
+            raise AssertionError(f"V-cycle frame {i}: scribble pixels are not pinned")
+        if v_new[0] is not v_depth or tuple(v_out.shape) != (H, W, 3) or v_out.dtype != torch.uint8:
+            raise AssertionError(f"V-cycle frame {i}: state or effect malformed")
+        print(f"V-cycle frame {i}: {host_ms:.3f} ms (host clock), launches {json.dumps(counts)}, "
+              f"depth [{lo:.4f}, {hi:.4f}]")
+        v_prev, vstate = vstate, v_new
+    # The polish must not leave the fine level further from converged than
+    # the cascade it starts from, both measured under one operator: the
+    # weights of the cascade's depth, which are the polish's own.
+    u_c, st_c = solve_cascade(igp, vm_d, vv_d, v_prev, vcycle_warm_config(vcfg))
+    wts_c = edge_weights(igp[0], u_c, 0, L, vcfg)
+    v_res = {"cascade_max": float(solver.residual_norm(u_c, vm_d, wts_c)),
+             "vcycle_max": float(solver.residual_norm(v_depth, vm_d, wts_c)),
+             "cascade_rms": float(solver.residual_rms(u_c, vm_d, wts_c)),
+             "vcycle_rms": float(solver.residual_rms(v_depth, vm_d, wts_c))}
+    require_equal(torch, "the V-cycle's polish of the cascade's depth", v_depth,
+                  vcycle_polish(igp, vm_d, vv_d, u_c, vcfg))
+    if not v_res["vcycle_max"] <= 1.05 * v_res["cascade_max"]:
+        raise AssertionError(f"the V-cycle's fine residual grew: {v_res}")
+    v_run = lambda: vpipe.solve_and_effect(fx.EFFECT_DEFOCUS, igp, irgb_d, vm_d, vv_d, v_prev)  # noqa: E731
+    polish_run = lambda: vcycle_polish(igp, vm_d, vv_d, u_c, vcfg)  # noqa: E731
+    ops.reset_launch_counts()
+    polish_run()
+    if any(ops.launch_counts().values()):
+        raise AssertionError(f"the polish launched a kernel of the port: {ops.launch_counts()}")
+    v_line = {"frame_ms": time_ms(torch, v_run, 3), "polish_ms": time_ms(torch, polish_run, 3),
+              "residuals": v_res}
+    v_line["polish_traced"] = traced("V-cycle polish", polish_run, v_line["polish_ms"])
+    v_line["frame_traced"] = traced("V-cycle frame", v_run, v_line["frame_ms"])
+    print(f"V-cycle {H}x{W} ({vcfg.vcycles} cycles, {vcfg.vcycle_pre_smooth}+"
+          f"{vcfg.vcycle_post_smooth} smoothing steps a level, {vcfg.vcycle_coarse_iters} at the "
+          f"coarsest), plain torch ops on the card: {json.dumps(v_line)}")
+
+    def card_vs_cpu(c, name, h, w):
+        """One solve of ``c`` at (h, w) on the card and on the CPU; RMSE."""
+        rgb_s = seeded_image(np.random.default_rng(SEED + 9), h, w)
+        m_s, v_s = bench_scribbles(H, W)
+        m_s = m_s[::H // h, ::W // w][:h, :w].copy()
+        v_s = v_s[::H // h, ::W // w][:h, :w].copy()
+        depths = []
+        for device in ("cuda", "cpu"):
+            sp = DepthPipeline(h, w, c, device=device)
+            _, sg = sp.prepare_image(rgb_s)
+            d, _ = sp.solve(sg, torch.from_numpy(m_s).to(device), torch.from_numpy(v_s).to(device),
+                            sp.initial_state())
+            depths.append(d)
+        rmse = rmse01(*depths)
+        print(f"{name} solve {h}x{w}: card vs CPU depth RMSE {rmse:.3e} (bar 1e-3)")
+        if not rmse <= 1e-3:
+            raise AssertionError(f"{name} solve {h}x{w}: card vs CPU RMSE {rmse} > 1e-3")
+        return rmse
+
+    v_cpu_rmse = card_vs_cpu(vcfg, "V-cycle", h3, w3)
+
+    # The sharded V-cycle: a sharded warm cascade, the polish per image.
+    sv_fn, sv_args = sharded.batched_step(mesh8, h3, w3, vcfg, fx.EFFECT_DEFOCUS)
+    sv_args = sv_args(2)
+    ops.reset_launch_counts()
+    sv_depth, _, sv_out = sv_fn(*sv_args)
+    torch.cuda.synchronize()
+    sv_counts = {k: v for k, v in ops.launch_counts().items() if v}
+    if not sv_counts.get("jc_sweep_tiles") or not sv_counts.get("defocus_block"):
+        raise AssertionError(f"the sharded V-cycle step launched {sv_counts}")
+    sv_pipe = DepthPipeline(h3, w3, vcfg, device="cuda")
+    sv_rmse = 0.0
+    for n in range(2):
+        _, sg = sv_pipe.prepare_image(sv_args[0][n])
+        d1, _ = sv_pipe.solve(sg, sv_args[1][n], sv_args[2][n], tuple(t[n] for t in sv_args[3]))
+        sv_rmse = max(sv_rmse, rmse01(sv_depth[n], d1))
+    print(f"sharded V-cycle {h3}x{w3} step, batch 2 on mesh {mesh8.shape}: launches "
+          f"{json.dumps(sv_counts)}, RMSE {sv_rmse:.3e} against the single-device V-cycle (bar 1e-3)")
+    if not sv_rmse <= 1e-3:
+        raise AssertionError(f"sharded V-cycle: RMSE {sv_rmse} > 1e-3")
+
+    # The NumPy oracle, run here on the host, against a solve on the card.
+    ho, wo = 96, 128
+    orgb = seeded_image(np.random.default_rng(SEED + 10), ho, wo)
+    omask, ovalue = bench_scribbles(H, W)
+    omask, ovalue = omask[::11, ::15][:ho, :wo].copy(), ovalue[::11, ::15][:ho, :wo].copy()
+    opipe = DepthPipeline(ho, wo, cfg, device="cuda")
+    _, ogp = opipe.prepare_image(orgb)
+    o_depth, _ = opipe.solve(ogp, torch.from_numpy(omask).to(dev), torch.from_numpy(ovalue).to(dev),
+                             opipe.initial_state())
+    t0 = time.perf_counter()
+    o_want, _ = numpy_ref.solve_pyramid(numpy_ref.rgb_to_gray(orgb), omask, ovalue, None, cfg)
+    oracle_rmse = rmse01(o_depth, o_want)
+    print(f"oracle: {ho}x{wo} default solve on the card against numpy_ref.solve_pyramid on the "
+          f"host ({time.perf_counter() - t0:.2f} s): RMSE {oracle_rmse:.3e} (bar 1e-3), "
+          f"{int(omask.sum())} scribbled pixels")
+    if not oracle_rmse <= 1e-3 or not omask.any():
+        raise AssertionError(f"card solve against the oracle: RMSE {oracle_rmse} > 1e-3")
+
+    # The facade: numpy in, numpy out, the state on the card.
+    hf, wf = H // 2, W // 2
+    frgb = seeded_image(np.random.default_rng(SEED + 11), hf, wf)
+    fmask, fvalue = (a[::2, ::2].copy() for a in bench_scribbles(H, W))
+    model = models.ChebyshevCascade(device="cuda", incremental_window=192)
+    ops.reset_launch_counts()
+    f_depth, f_art, f_state = model.solve_and_render(frgb, fmask, fvalue, "b")
+    f_counts = {k: v for k, v in ops.launch_counts().items() if v}
+    fmask[300:310, 500:510], fvalue[300:310, 500:510] = True, 96
+    ops.reset_launch_counts()
+    f_depth2, f_state2 = model.solve_incremental(frgb, fmask, fvalue, f_state, (305, 505))
+    f_counts2 = {k: v for k, v in ops.launch_counts().items() if v}
+    for name, d in (("solve_and_render", f_depth), ("solve_incremental", f_depth2)):
+        if not (isinstance(d, np.ndarray) and d.dtype == np.float32 and d.shape == (hf, wf)
+                and np.isfinite(d).all()):
+            raise AssertionError(f"facade {name}: depth malformed")
+    if not (f_art.dtype == np.uint8 and f_art.shape == (hf, wf, 3)):
+        raise AssertionError(f"facade: art is {f_art.dtype} {f_art.shape}")
+    if not np.array_equal(f_depth2[fmask], fvalue[fmask].astype(np.float32)):
+        raise AssertionError("facade solve_incremental: scribble pixels are not pinned")
+    if not all(t.is_cuda for t in f_state2) or not f_counts2.get("jc_sweep_resident"):
+        raise AssertionError(f"facade solve_incremental: state off the card or launches {f_counts2}")
+    if set(f_counts) != {"jc_sweep_resident", "jc_sweep_tiles", "defocus_box"}:
+        raise AssertionError(f"facade solve_and_render launched {f_counts}")
+    print(f"facade ChebyshevCascade(device='cuda', incremental_window=192) at {hf}x{wf}: "
+          f"solve_and_render launches {json.dumps(f_counts)}, solve_incremental "
+          f"{json.dumps(f_counts2)}, moved the depth by RMSE {rmse01(f_depth2, f_depth):.3e}")
+
+    # The codec: a 16-bit depth and an RGB image through PNG files.
+    u16 = port_io.depth_to_u16(f_depth2)
+    if not np.array_equal(u16, opipe.depth_u16(torch.from_numpy(f_depth2).to(dev)).cpu().numpy()):
+        raise AssertionError("io.depth_to_u16 differs from DepthPipeline.depth_u16 on the card")
+    for name, arr in (("depth16", u16), ("art", f_art)):
+        if not np.array_equal(port_io.png_decode(port_io.png_encode(arr, 1)), arr):
+            raise AssertionError(f"codec: {name} did not survive png_encode -> png_decode")
+    with tempfile.TemporaryDirectory() as tmp:
+        p16, prgb, pann = (f"{tmp}/{n}.png" for n in ("depth16", "art", "ann"))
+        port_io.imwrite(p16, u16, png_level=1)
+        port_io.imwrite(prgb, f_art)
+        port_io.save_annotation(pann, fmask, fvalue)
+        with open(p16, "rb") as f:
+            back16 = port_io.png_decode(f.read())
+        m_back, v_back = port_io.load_annotation(pann)
+        if not (np.array_equal(back16, u16) and np.array_equal(port_io.imread_rgb(prgb), f_art)
+                and port_io.image_size(prgb) == (hf, wf) and np.array_equal(m_back, fmask)
+                and np.array_equal(v_back[fmask], fvalue[fmask])):
+            raise AssertionError("codec: a PNG written by io.imwrite did not read back equal")
+    print(f"codec {port_io.codec()!r}: a 16-bit gray and an RGB PNG of {hf}x{wf} and an "
+          f"annotation written and read back equal")
+    phase_done("9 (incremental, V-cycle, facade, oracle, codec)")
+
     # -- 8. device time alone ----------------------------------------------------------
     device_ms = {label: graph_ms(torch, fn, 5) for label, fn in device_only.items()}
     print(f"device time alone (launches replayed from a CUDA graph, median ms): "
@@ -1248,7 +1740,10 @@ def main() -> None:
                  "halo_max_abs_err": max(b_k1["max_abs_err"], step_err),
                  "halo_ms": b_k1["ms"], "halo_plain_ms": b_k1["plain_ms"],
                  "halo_stack16_ms": b_k1["stack16_ms"],
-                 "halo_stack16_bound_ms": b_k1["stack16_bound_ms"]},
+                 "halo_stack16_bound_ms": b_k1["stack16_bound_ms"],
+                 "incremental_launches": inc_launches["jc_sweep_tiles"],
+                 "vcycle_launches": v_launches["jc_sweep_tiles"],
+                 "window": dict(windows[0], device_ms=device_ms["window L0"])},
                 px0 * 29, px0 * k1_l0["sweeps"] * JC_OPS),
         bounded({"name": "jc_sweep_resident", "route": "cuda",
                  "source": "realtimedepthdiffusion_tpu_torch/csrc/sweep.cu",
@@ -1256,6 +1751,9 @@ def main() -> None:
                  "max_abs_err": max(v["max_abs_err"] for v in k2.values()),
                  "ms": k2["L4"]["ms"], "plain_ms": k2["L4"]["plain_ms"],
                  "max_cluster": max_cluster,
+                 "incremental_launches": inc_launches["jc_sweep_resident"],
+                 "vcycle_launches": v_launches["jc_sweep_resident"],
+                 "window": dict(windows[1], device_ms=device_ms["window L1"]),
                  "by_level": {n: {key: v[key] for key in ("shape", "sweeps", "cluster", "ms",
                                                           "bound_ms", "k1_ms")}
                               for n, v in k2.items()}},
@@ -1266,6 +1764,8 @@ def main() -> None:
                  "also_replaces": [f"{TPU_DEFOCUS}:126", f"{TPU_DEFOCUS}:49",
                                    f"{TPU_DEFOCUS}:569"],
                  "launches": launches["defocus_box"],
+                 "incremental_launches": inc_launches["defocus_box"],
+                 "vcycle_launches": v_launches["defocus_box"],
                  "max_abs_err": max(k3_dci, k3_wide["max_abs_err"], k3_uhd["max_abs_err"],
                                     *(v["max_abs_err"] for v in k3.values())),
                  "ms": k3["exact"]["ms"]["None"], "plain_ms": k3["exact"]["plain_ms"],
@@ -1294,6 +1794,11 @@ def main() -> None:
                                            for k, v in device_ms.items()
                                            if k.startswith("K3 all-blurred ")}},
                 px0 * 10, *k3_ops(px0, px0, True)),
+        dict(b_k3[(hb, wb, None)], name="defocus_block", route="cuda",
+             source="realtimedepthdiffusion_tpu_torch/csrc/defocus.cu",
+             replaces=f"{TPU_DEFOCUS}:569", launches=step_launches["defocus_block"],
+             device_ms=device_ms[f"K3 block ({hb}, {wb}) route None"], library_ms=None,
+             border_ms=b_k3[(0, 0, None)]["ms"]),
         bounded({"name": "rb_sweep_tiles", "route": "cuda",
                  "source": "realtimedepthdiffusion_tpu_torch/csrc/rb_sweep.cu",
                  "replaces": f"{TPU_SWEEP}:1327",
@@ -1335,7 +1840,10 @@ def main() -> None:
     print(f"frames: default {frame['ms']:.3f} ms (plain {frame['plain_ms']:.3f}), "
           f"fast {fast_frame['ms']:.3f} ms (plain {fast_frame['plain_ms']:.3f}), "
           f"4K {frame4['ms']:.3f} ms (plain {frame4['plain_ms']:.3f}), "
-          f"sharded 1080p step of 4 {np.median(step_ms):.3f} ms on {card}")
+          f"sharded 1080p step of 4 {np.median(step_ms):.3f} ms, "
+          f"incremental {inc_line['incremental_ms']:.3f} ms beside a full frame's "
+          f"{inc_line['full_ms']:.3f}, V-cycle {v_line['frame_ms']:.3f} ms (polish "
+          f"{v_line['polish_ms']:.3f}) on {card}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                               "count": torch.cuda.device_count()}}))

@@ -1,10 +1,14 @@
-"""The cascadic coarse-to-fine solve (port of ``realtimedepthdiffusion_tpu/core/multigrid.py:31-134``).
+"""The cascadic coarse-to-fine solve and the V-cycle (port of ``realtimedepthdiffusion_tpu/core/multigrid.py``).
 
-The V-cycle (``solve_vcycle``) is not ported yet (ROADMAP A9).
+``solve_cascade`` runs the level solves on the kernels or their plain
+versions, by the tensors' device. The V-cycle's polish (``vcycle_polish``)
+is plain torch ops on every device, as the reference runs plain XLA ops:
+it has no kernel there and none here.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Sequence, Tuple
 
 import torch
@@ -12,7 +16,8 @@ import torch
 from ..config import DiffusionConfig
 from .annotation import annotation_pyr_down, seed_depth
 from .pyramid import pyr_down_gray, pyr_down_gray_ceil, pyr_up
-from .solver import solve_level
+from .solver import jacobi_sweep_raw, solve_level
+from .weights import edge_weights
 
 
 def build_gray_pyramid(gray0: torch.Tensor, cfg: DiffusionConfig) -> Tuple[torch.Tensor, ...]:
@@ -91,3 +96,112 @@ def solve_cascade(
             up = pyr_up(state[level], sizes[level - 1])
             state[level - 1] = seed_depth(up, masks[level - 1], values[level - 1])
     return state[0], tuple(state)
+
+
+def _restrict(r: torch.Tensor, out_shape: Tuple[int, int]) -> torch.Tensor:
+    """2x2 full-weighting restriction onto the floor-size coarse grid: the
+    four pixels of each cell of ``r[:2*oh, :2*ow]`` added in a fixed order,
+    times 0.25, so that every device rounds alike."""
+    oh, ow = out_shape
+    r = r[: 2 * oh, : 2 * ow]
+    s = r[0::2, 0::2] + r[0::2, 1::2]
+    s = s + r[1::2, 0::2]
+    s = s + r[1::2, 1::2]
+    return 0.25 * s
+
+
+def _smooth_error(e, rhs, mask, wts, sweeps: int):
+    """Jacobi on the error equation (I - M) e = rhs, e = 0 on scribbles."""
+    for _ in range(sweeps):
+        e = torch.where(mask, 0.0, jacobi_sweep_raw(e, wts) + rhs)
+    return e
+
+
+def vcycle_warm_config(cfg: DiffusionConfig) -> DiffusionConfig:
+    """The cascade that warm-starts the V-cycle: ``cfg`` as a cascadic
+    config with ``vcycle_warm_fraction`` of the iteration budget, at least
+    four Chebyshev warm-ups."""
+    warm_iters = max(int(cfg.max_iterations * cfg.vcycle_warm_fraction), 4 * cfg.chebyshev_s)
+    return dataclasses.replace(cfg, max_iterations=warm_iters, multigrid="cascadic")
+
+
+def solve_vcycle(
+    gray_pyr: Sequence[torch.Tensor],
+    mask0: torch.Tensor,
+    value0: torch.Tensor,
+    depth_state: Sequence[torch.Tensor],
+    cfg: DiffusionConfig = DiffusionConfig(),
+    exit_log=None,
+) -> Tuple[torch.Tensor, Tuple[torch.Tensor, ...]]:
+    """The V-cycle solve: a cascadic warm start (``vcycle_warm_config``,
+    through ``solve_cascade`` and so through its kernels on a card), then
+    ``cfg.vcycles`` error-correction cycles at the finest level
+    (``vcycle_polish``). Returns (depth0, new_depth_state); only level 0 of
+    the state is polished. ``exit_log`` reports the warm cascade's levels."""
+    _, state = solve_cascade(gray_pyr, mask0, value0, depth_state, vcycle_warm_config(cfg),
+                             exit_log)
+    u = vcycle_polish(gray_pyr, mask0, value0, state[0], cfg)
+    return u, (u,) + tuple(state[1:])
+
+
+def vcycle_polish(
+    gray_pyr: Sequence[torch.Tensor],
+    mask0: torch.Tensor,
+    value0: torch.Tensor,
+    u: torch.Tensor,
+    cfg: DiffusionConfig = DiffusionConfig(),
+) -> torch.Tensor:
+    """``cfg.vcycles`` error-correction V-cycles on a warm fine solution.
+    Each cycle pre-smooths, restricts the residual, solves the linear,
+    unclipped error equation on the coarser grids in turn, prolongs and
+    corrects with the optimal damping, and post-smooths. Scribbled pixels
+    are Dirichlet constraints at every level (the error is 0 there), and u
+    ends each cycle clipped to [0, 255]. Everything stays on the device of
+    ``u``: the damping factors are 0-d tensors, never read by the host."""
+    levels = len(gray_pyr)
+    L = levels - 1
+    sizes = [tuple(g.shape) for g in gray_pyr]
+    masks, _ = build_annotation_pyramids(mask0, value0, cfg)
+
+    # The operator of each level, fixed for all cycles: weights from the
+    # warm fine solution restricted down the pyramid.
+    wts = []
+    d = u
+    for l in range(levels):
+        if l > 0:
+            d = _restrict(d, sizes[l])
+        wts.append(edge_weights(gray_pyr[l], d, l, L, cfg))
+
+    def _apply_A(e, level):
+        """A = I - M off the scribbles (e and A e are 0 on them)."""
+        return torch.where(masks[level], 0.0, e - jacobi_sweep_raw(e, wts[level]))
+
+    def _damped_add(e, corr, rhs_res, level):
+        """e + alpha*corr with alpha = <r, A c> / <A c, A c>, the damping
+        under which the L2 residual cannot grow, although the coarse
+        operator is rediscretized and only approximates the fine one."""
+        corr = torch.where(masks[level], 0.0, corr)
+        ac = _apply_A(corr, level)
+        denom = (ac * ac).sum()
+        alpha = torch.where(denom > 0, (rhs_res * ac).sum() / denom.clamp_min(1e-30), 0.0)
+        return e + alpha * corr
+
+    def cycle_err(rhs, level):
+        """An approximate solution e of (I - M_level) e = rhs."""
+        e = torch.zeros(sizes[level], dtype=torch.float32, device=rhs.device)
+        if level == L:
+            return _smooth_error(e, rhs, masks[level], wts[level], cfg.vcycle_coarse_iters)
+        e = _smooth_error(e, rhs, masks[level], wts[level], cfg.vcycle_pre_smooth)
+        r = rhs - _apply_A(e, level)
+        rc = torch.where(masks[level + 1], 0.0, _restrict(r, sizes[level + 1]))
+        ec = cycle_err(rc, level + 1)
+        e = _damped_add(e, pyr_up(ec, sizes[level]), r, level)
+        return _smooth_error(e, rhs, masks[level], wts[level], cfg.vcycle_post_smooth)
+
+    u = u.to(torch.float32)
+    for _ in range(cfg.vcycles):
+        r = torch.where(masks[0], 0.0, jacobi_sweep_raw(u, wts[0]) - u)
+        e = cycle_err(r, 0)
+        u = _damped_add(u, e, r, 0)
+        u = torch.clamp(u, 0.0, 255.0)
+    return u

@@ -28,7 +28,7 @@ import torch
 from ..config import DiffusionConfig
 from ..ops import dispatch
 from ..ops.rb_sweep import red_black_parity  # noqa: F401 (the solver's API, as in JAX)
-from ..ops.sweep import relax_plain
+from ..ops.sweep import average_plain, relax_plain
 from .weights import EdgeWeights, edge_weights
 
 
@@ -103,6 +103,14 @@ def jacobi_sweep(u: torch.Tensor, wts: EdgeWeights) -> torch.Tensor:
     """One weighted 5-point relaxation, clip((wl*ul + wr*ur + wu*uu +
     wd*ud) * inv_count, 0, 255), in the reference's XLA op order."""
     return relax_plain(u, wts.wl, wts.wr, wts.wu, wts.wd, wts.inv_count)
+
+
+def jacobi_sweep_raw(u: torch.Tensor, wts: EdgeWeights) -> torch.Tensor:
+    """The unclipped weighted average (wl*ul + wr*ur + wu*uu + wd*ud) *
+    inv_count: the linear operator M = D^-1 W that the V-cycle's error
+    equations smooth with (``core/multigrid.py``). Only the primal variable
+    is clipped."""
+    return average_plain(u, wts.wl, wts.wr, wts.wu, wts.wd, wts.inv_count)
 
 
 def residual_norm(u: torch.Tensor, mask: torch.Tensor, wts: EdgeWeights) -> torch.Tensor:

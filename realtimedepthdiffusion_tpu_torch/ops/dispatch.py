@@ -6,8 +6,9 @@ fallback between the two. The solver decides the kernels: the Jacobi
 sweeps (``jacobi_chebyshev`` and ``jacobi``) run K1 and the cluster kernel
 K2 (``ops/sweep.py``), and K6 (``ops/fused_sweep.py``) on levels whose weight
 planes outgrow the card's L2 cache (``fused_level``); red-black runs K4 and
-K5 (``ops/rb_sweep.py``). What the port does not implement yet raises,
-naming the ROADMAP item that will bring it.
+K5 (``ops/rb_sweep.py``). Both multigrid schemes solve their levels
+through these routes; the V-cycle's polish is plain torch ops on every
+device (``core/multigrid.py``).
 """
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ from . import fused_sweep, rb_sweep, sweep
 
 VALID_BACKENDS = ("auto", "xla", "pallas", "pallas_interpret")
 VALID_SOLVERS = ("jacobi", "jacobi_chebyshev", "red_black")
+VALID_MULTIGRIDS = ("cascadic", "vcycle")
 
 # (plain version, kernels) of each solver: every iteration of a level ...
 _FIXED = {
@@ -51,10 +53,9 @@ def check_supported(cfg: DiffusionConfig) -> None:
         raise ValueError(
             f"unknown solver {cfg.solver!r}; expected one of {list(VALID_SOLVERS)}"
         )
-    if cfg.multigrid != "cascadic":
-        raise NotImplementedError(
-            f"multigrid {cfg.multigrid!r} is not ported yet (ROADMAP A9); "
-            "the port runs 'cascadic'"
+    if cfg.multigrid not in VALID_MULTIGRIDS:
+        raise ValueError(
+            f"unknown multigrid {cfg.multigrid!r}; expected one of {VALID_MULTIGRIDS}"
         )
 
 

@@ -69,10 +69,11 @@ H100_MAX_CLUSTER = 16
 WEIGHT_PLANE_BYTES_PER_PX = 13
 
 
-def relax_plain(u, wl, bh, wu, bv, inv):
-    """The weighted 4-neighbour average, clip((wl*ul + bh*ur + wu*uu +
-    bv*ud) * inv, 0, 255), summed left to right over the last two axes; a
-    neighbour outside the image reads as 0."""
+def average_plain(u, wl, bh, wu, bv, inv):
+    """The weighted 4-neighbour average, (wl*ul + bh*ur + wu*uu + bv*ud) *
+    inv, summed left to right over the last two axes; a neighbour outside
+    the image reads as 0. Unclipped: the linear operator of the V-cycle's
+    error equations."""
     ul = F.pad(u[..., :-1], (1, 0))
     ur = F.pad(u[..., 1:], (0, 1))
     uu = F.pad(u[..., :-1, :], (0, 0, 1, 0))
@@ -81,7 +82,13 @@ def relax_plain(u, wl, bh, wu, bv, inv):
     s = s + bh * ur
     s = s + wu * uu
     s = s + bv * ud
-    return torch.clamp(s * inv, 0.0, 255.0)
+    return s * inv
+
+
+def relax_plain(u, wl, bh, wu, bv, inv):
+    """``average_plain`` clipped to [0, 255]: the relaxation of the primal
+    variable, as the kernels compute it."""
+    return torch.clamp(average_plain(u, wl, bh, wu, bv, inv), 0.0, 255.0)
 
 
 def sweep_plain(u, prev, wl, bh, wu, bv, inv, mask, a, b, c):

@@ -33,7 +33,8 @@ from ..config import DiffusionConfig
 from ..core import effects as fx
 from ..core.annotation import annotation_pyr_down, seed_depth
 from ..core.color import rgb_to_gray
-from ..core.multigrid import build_gray_pyramid, initial_depth_state
+from ..core.multigrid import (build_gray_pyramid, initial_depth_state, vcycle_polish,
+                              vcycle_warm_config)
 from ..core.pyramid import pyr_up
 from ..core.solver import abc_schedule, rb_omegas, residual_metric_fn, solve_level
 from ..core.weights import edge_weights
@@ -366,13 +367,7 @@ def solve_cascade_sharded(gray_pyr, mask0, value0, depth_state, mesh: SlotMesh,
 
 
 def _cascade_sharded(gray_pyr, mask0, value0, depth_state, mesh, cfg, halo, blocks, exit_log):
-    if cfg.solver not in _SHARDED_SOLVERS or cfg.multigrid != "cascadic":
-        raise NotImplementedError(
-            f"solve_cascade_sharded implements solvers {_SHARDED_SOLVERS} "
-            f"with multigrid='cascadic', got ({cfg.solver!r}, "
-            f"{cfg.multigrid!r}); the V-cycle is not ported yet (ROADMAP A9), "
-            f"and 'jacobi' runs on the single-chip pipeline"
-        )
+    _check_solver(cfg)
     batched = mask0.dim() == 3
     levels = len(gray_pyr)
     L = levels - 1
@@ -405,10 +400,26 @@ def _cascade_sharded(gray_pyr, mask0, value0, depth_state, mesh, cfg, halo, bloc
     return state[0], tuple(state)
 
 
-def solve_vcycle_sharded(*args, **kwargs):
-    """The sharded V-cycle is not ported: the V-cycle itself is ROADMAP A9."""
-    raise NotImplementedError("the V-cycle is not ported yet (ROADMAP A9); "
-                              "the sharded step runs multigrid='cascadic'")
+def solve_vcycle_sharded(gray_pyr, mask0, value0, depth_state, mesh: SlotMesh,
+                         cfg: DiffusionConfig = DiffusionConfig(), halo: int = DEFAULT_HALO,
+                         *, exit_log=None):
+    """The V-cycle over a mesh: the sharded cascadic warm start
+    (``vcycle_warm_config``; the halo-block kernels on a card), then the
+    error-correction cycles per image on the home device. The polish is
+    plain torch ops and launches no kernel of the port (the reference leaves
+    it to XLA's partitioner), so it has nothing to shard. Single images or
+    batches (a leading axis)."""
+    return _vcycle_sharded(gray_pyr, mask0, value0, depth_state, mesh, cfg, halo, _KERNELS,
+                           exit_log)
+
+
+def _vcycle_sharded(gray_pyr, mask0, value0, depth_state, mesh, cfg, halo, blocks, exit_log):
+    _, state = _cascade_sharded(gray_pyr, mask0, value0, depth_state, mesh,
+                                vcycle_warm_config(cfg), halo, blocks, exit_log)
+    u = _foreach_image(mask0.dim() == 3,
+                       lambda m, v, u0, *gp: vcycle_polish(gp, m, v, u0, cfg),
+                       mask0, value0, state[0], *gray_pyr)
+    return u, (u,) + tuple(state[1:])
 
 
 def sharded_defocus(mesh: SlotMesh, full_h: int, full_w: int,
@@ -466,6 +477,7 @@ def batched_step(mesh: SlotMesh, rows: int, cols: int, cfg: DiffusionConfig = Di
     level would run replicated, which only the kernels' routes solve."""
     _check_solver(cfg)
     blocks = _PLAIN if plain else _KERNELS
+    scheme = _vcycle_sharded if cfg.multigrid == "vcycle" else _cascade_sharded
     if effect == fx.EFFECT_DEFOCUS:
         defocus_apply = _defocus_sharded(mesh, rows, cols, cfg, blocks)
         render = lambda rgb, gray0, depth0: defocus_apply(rgb, depth0)  # noqa: E731
@@ -482,8 +494,8 @@ def batched_step(mesh: SlotMesh, rows: int, cols: int, cfg: DiffusionConfig = Di
                              f"of {mesh.shape['batch']}")
         gray0 = rgb_to_gray(rgb)
         gpyr = tuple(torch.stack(lv) for lv in zip(*(build_gray_pyramid(g, cfg) for g in gray0)))
-        depth0, new_state = _cascade_sharded(gpyr, mask, value, depth_state, mesh, cfg, halo,
-                                             blocks, exit_log)
+        depth0, new_state = scheme(gpyr, mask, value, depth_state, mesh, cfg, halo, blocks,
+                                   exit_log)
         out = render(rgb, gray0, torch.clamp(depth0, 0.0, 255.0))
         return depth0, new_state, out
 

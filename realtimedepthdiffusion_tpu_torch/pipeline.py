@@ -6,7 +6,9 @@ hide: the reference's staged cold start, AOT executables and background
 compiles have no counterpart here. Every tensor lives on the pipeline's
 ``device``; on a CUDA device the sweeps and the defocus run the port's
 kernels, on the CPU their plain versions. Every solver of
-``cfg.solver`` runs, with or without the residual early exit.
+``cfg.solver`` runs, with or without the residual early exit, under both
+multigrid schemes (``cfg.multigrid``: the cascade or the V-cycle), and the
+windowed incremental re-solve of the live loop (``core/incremental.py``).
 """
 
 from __future__ import annotations
@@ -20,8 +22,9 @@ import torch
 from .config import DiffusionConfig
 from .core import effects as fx
 from .core.color import rgb_to_gray
+from .core.incremental import clamp_origin, host_yx, solve_incremental
 from .core.multigrid import (build_annotation_pyramids, build_gray_pyramid,
-                             initial_depth_state, solve_cascade)
+                             initial_depth_state, solve_cascade, solve_vcycle)
 from .core.solver import residual_norm, residual_rms
 from .core.weights import edge_weights
 from .ops import dispatch
@@ -43,12 +46,15 @@ class DepthPipeline:
         self.rows, self.cols, self.cfg = rows, cols, cfg
         self.device = torch.device(device)
         self.levels = cfg.num_levels(rows, cols)
+        self._scheme = solve_vcycle if cfg.multigrid == "vcycle" else solve_cascade
 
     def prepare_image(self, rgb_u8) -> Tuple[torch.Tensor, Tuple[torch.Tensor, ...]]:
-        """Upload the (H,W,3) uint8 image once; returns (rgb, gray_pyramid)."""
+        """Upload the (H,W,3) uint8 image once; returns (rgb, gray_pyramid).
+        The returned rgb is a copy on every device: a later change of the
+        caller's array does not reach it."""
         if isinstance(rgb_u8, np.ndarray):
             rgb_u8 = torch.from_numpy(np.ascontiguousarray(rgb_u8))
-        rgb = rgb_u8.to(device=self.device, dtype=torch.uint8)
+        rgb = rgb_u8.to(device=self.device, dtype=torch.uint8, copy=True)
         return rgb, build_gray_pyramid(rgb_to_gray(rgb), self.cfg)
 
     def initial_state(self) -> Tuple[torch.Tensor, ...]:
@@ -56,10 +62,11 @@ class DepthPipeline:
 
     def solve(self, gray_pyr: Sequence[torch.Tensor], mask0: torch.Tensor,
               value0: torch.Tensor, depth_state: Sequence[torch.Tensor], exit_log=None):
-        """Full cascadic solve; returns (depth0_f32, new_depth_state). Under
-        the early exit, a list given as ``exit_log`` receives each level's
-        iterations and probes (``core/solver.py:_chunked_early_exit``)."""
-        return solve_cascade(gray_pyr, mask0, value0, depth_state, self.cfg, exit_log)
+        """Full solve by the scheme ``cfg.multigrid`` names; returns (depth0_f32,
+        new_depth_state). Under the early exit, a list given as ``exit_log``
+        receives each level's iterations and probes
+        (``core/solver.py:_chunked_early_exit``)."""
+        return self._scheme(gray_pyr, mask0, value0, depth_state, self.cfg, exit_log)
 
     def solve_and_effect(self, effect: int, gray_pyr, rgb, mask0, value0, depth_state,
                          exit_log=None):
@@ -69,6 +76,38 @@ class DepthPipeline:
         # The unclamped Chebyshev update can overshoot [0, 255] slightly.
         out = self.effect(effect, rgb, gray_pyr[0], torch.clamp(depth0, 0.0, 255.0))
         return depth0, state, out
+
+    def solve_incremental(self, gray_pyr, mask0, value0, depth_state, center_yx,
+                          exit_log=None):
+        """Windowed warm re-solve around an edit at ``center_yx`` (level-0
+        coordinates, host integers; ``core/incremental.py``); returns
+        (depth0, new_state). ``depth_state`` comes from an earlier solve and
+        stays valid."""
+        return solve_incremental(gray_pyr, mask0, value0, depth_state, center_yx, self.cfg,
+                                 exit_log)
+
+    def solve_incremental_and_effect(self, effect: int, gray_pyr, rgb, mask0, value0,
+                                     depth_state, center_yx, exit_log=None):
+        """``solve_incremental``, then the effect on the clipped depth;
+        returns (depth0, new_state, effect_rgb_u8)."""
+        depth0, state = self.solve_incremental(gray_pyr, mask0, value0, depth_state, center_yx,
+                                               exit_log)
+        out = self.effect(effect, rgb, gray_pyr[0], torch.clamp(depth0, 0.0, 255.0))
+        return depth0, state, out
+
+    def update_annotation_window(self, mask_d, value_d, mask_win, value_win, origin):
+        """The annotation planes with a dirty window written in at ``origin``
+        (host integers), so that the host uploads only the window's bytes.
+        An origin that would put the window past an edge is moved inside,
+        as ``solve_incremental`` moves its window. Returns new (mask, value)
+        planes; the given ones are not changed."""
+        h, w = mask_d.shape
+        wh, ww = mask_win.shape
+        oy, ox = clamp_origin(*host_yx("origin", origin), wh, ww, h, w)
+        mask_d, value_d = mask_d.clone(), value_d.clone()
+        mask_d[oy:oy + wh, ox:ox + ww] = torch.as_tensor(mask_win).to(mask_d)
+        value_d[oy:oy + wh, ox:ox + ww] = torch.as_tensor(value_win).to(value_d)
+        return mask_d, value_d
 
     def effect(self, effect: int, rgb, gray0, depth0) -> torch.Tensor:
         return fx.apply_effect(effect, rgb, gray0, depth0, self.cfg)

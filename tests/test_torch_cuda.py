@@ -5,8 +5,10 @@ launch, K2 on every cluster-held level shape from a base > 0, K4 under
 each of its CTA shapes and both checkerboard parities, chunks that start
 past iteration 0, K3 on both of its routes at apertures up to past the
 tile route's limit, K5 on levels of every shape its CTA covers, K6 at every level rule
-and the 4K routes and SAT sums, and pipelines on a second card. Every
-comparison is exact.
+and the 4K routes and SAT sums, pipelines on a second card, and K1, K2 and
+K4 on the ring-masked windows of the incremental re-solve. Every
+comparison is exact, but the V-cycle's, whose reductions the card and the
+CPU sum in different orders (RMSE <= 1e-3).
 
 Needs a CUDA device and nvcc; skips without them. This file imports no JAX,
 so it runs on a machine without it:
@@ -696,3 +698,139 @@ def test_pipeline_on_second_card_equals_first(dev, name, rows, cols, cfg_kw):
                              0, 4)
     with pytest.raises(ValueError, match="cuda:1.*cuda:0"):
         defocus.defocus_box(torch.zeros((8, 9, 3), dtype=torch.uint8, device="cuda:0"), f1)
+
+
+def _scene(dev, h, w, seed):
+    """A level's gray, annotation and a smooth depth with seeded scribbles."""
+    r = np.random.default_rng(seed)
+    gray = torch.from_numpy(r.integers(0, 256, (h, w), dtype=np.uint8)).to(dev)
+    mask = torch.from_numpy(r.random((h, w)) < 0.03).to(dev)
+    value = torch.from_numpy(r.integers(0, 255, (h, w), dtype=np.uint8)).to(dev)
+    field = np.kron(r.random((h // 16 + 1, w // 16 + 1)) * 255.0, np.ones((16, 16)))[:h, :w]
+    depth = seed_depth(torch.from_numpy(field.astype(np.float32)).to(dev), mask, value)
+    return gray, mask, depth
+
+
+@pytest.mark.parametrize("win,kernel", [(384, "jc_sweep_tiles"), (256, "jc_sweep_resident"),
+                                        (192, "jc_sweep_resident")])
+@pytest.mark.parametrize("origin", [(0, 0), (97, 211), (-40, 300), (500, -7), (316, 516),
+                                    (900, 1200)])
+@pytest.mark.parametrize("level", [0, 1])
+def test_window_kernels_equal_plain(dev, win, kernel, origin, level):
+    """K1 and K2 on the windows of the incremental re-solve: a crop (a view)
+    of a 700x900 level at a clamped origin, the frozen ring in the mask, the
+    weights of the crop. 384 takes K1, 256 and 192 fit a cluster of K2."""
+    from realtimedepthdiffusion_tpu_torch.core import incremental
+
+    h, w = 700, 900
+    gray, mask, depth = _scene(dev, h, w, seed=win + level)
+    oy, ox = incremental.clamp_origin(*origin, win, win, h, w)
+    assert 0 <= oy <= h - win and 0 <= ox <= w - win
+    rows, cols = slice(oy, oy + win), slice(ox, ox + win)
+    u_w = depth[rows, cols]
+    assert not u_w.is_contiguous()
+    m_w = mask[rows, cols] | incremental._ring(win, dev)
+    wts = edge_weights(gray[rows, cols], u_w, level, 2)
+    abc = abc_schedule(21, DiffusionConfig())
+    ops.reset_launch_counts()
+    got = sweep.solve_level_cuda(u_w, m_w, wts, abc)
+    counts = {k: v for k, v in ops.launch_counts().items() if v}
+    assert counts == {kernel: 3 if kernel == "jc_sweep_tiles" else 1}
+    want = sweep.solve_level_plain(u_w, m_w, wts, abc)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert torch.equal(got[m_w], u_w[m_w])  # ring and scribbles frozen
+    assert not torch.equal(got, u_w.contiguous())
+
+
+def _plain_solve_level(depth, mask, gray, level, max_level, iters, cfg, exit_log=None):
+    """``core/solver.py:solve_level`` on the plain versions, on any device."""
+    wts = edge_weights(gray, depth, level, max_level, cfg)
+    if cfg.solver == "red_black":
+        return rb_sweep.solve_level_rb_plain(depth, mask, wts, rb_omegas(iters, cfg))
+    return sweep.solve_level_plain(depth, mask, wts, abc_schedule(iters, cfg))
+
+
+@pytest.mark.parametrize("solver,kernels", [
+    ("jacobi_chebyshev", {"jc_sweep_resident": 3, "jc_sweep_tiles": 5}),
+    # No level or window here fits K5's one CTA (87x112 needs 1232 threads).
+    ("red_black", {"rb_sweep_tiles": 32 + 16 + 3 + 5}),
+])
+@pytest.mark.parametrize("center", [(300, 400), (3, 3), (699, 899), (-20, 450)])
+def test_incremental_frame_equals_plain(dev, monkeypatch, solver, kernels, center):
+    """An incremental frame of a 700x900 image (4 levels; a 384-pixel window
+    at level 0, 192 at level 1) on the kernels equals the same frame on the
+    plain versions, level for level, at clamped and unclamped windows."""
+    from realtimedepthdiffusion_tpu_torch import DepthPipeline
+    from realtimedepthdiffusion_tpu_torch.core import incremental
+
+    h, w = 700, 900
+    cfg = DiffusionConfig(solver=solver, max_iterations=250, incremental_iterations=40)
+    pipe = DepthPipeline(h, w, cfg, device=dev)
+    r = np.random.default_rng(5)
+    rgb = r.integers(0, 256, (h, w, 3), dtype=np.uint8)
+    _, gpyr = pipe.prepare_image(rgb)
+    assert [tuple(g.shape) for g in gpyr] == [(700, 900), (350, 450), (175, 225), (87, 112)]
+    mask = torch.from_numpy(r.random((h, w)) < 0.002).to(dev)
+    value = torch.from_numpy(r.integers(0, 255, (h, w), dtype=np.uint8)).to(dev)
+    _, state = pipe.solve(gpyr, mask, value, pipe.initial_state())
+    cy, cx = min(max(center[0], 0), h - 6), min(max(center[1], 0), w - 6)
+    mask, value = mask.clone(), value.clone()
+    mask[cy:cy + 6, cx:cx + 6], value[cy:cy + 6, cx:cx + 6] = True, 77
+    kept = tuple(s.clone() for s in state)
+    ops.reset_launch_counts()
+    depth, new_state = pipe.solve_incremental(gpyr, mask, value, state, center)
+    counts = {k: v for k, v in ops.launch_counts().items() if v}
+    assert counts == kernels
+    monkeypatch.setattr(incremental, "solve_level", _plain_solve_level)
+    ops.reset_launch_counts()
+    p_depth, p_state = pipe.solve_incremental(gpyr, mask, value, state, center)
+    torch.cuda.synchronize()
+    assert not any(ops.launch_counts().values())
+    assert all(torch.equal(a, b) for a, b in zip(new_state, p_state))
+    assert new_state[0] is depth and torch.equal(depth, p_depth)
+    assert torch.equal(depth[mask], value[mask].to(torch.float32))
+    assert all(torch.equal(a, b) for a, b in zip(state, kept))
+
+
+def test_device_center_is_refused_on_the_card(dev):
+    from realtimedepthdiffusion_tpu_torch import DepthPipeline
+
+    pipe = DepthPipeline(64, 64, DiffusionConfig(max_iterations=8), device=dev)
+    z = torch.zeros((64, 64), device=dev)
+    with pytest.raises(ValueError, match="host integers"):
+        pipe.solve_incremental((z.to(torch.uint8),), z.bool(), z.to(torch.uint8), (z,),
+                               torch.tensor([3, 3], device=dev))
+
+
+@pytest.mark.parametrize("h,w", [(96, 128), (270, 480), (181, 243)])
+def test_vcycle_on_the_card_matches_cpu(dev, h, w):
+    """The V-cycle (a warm cascade on the kernels, then the polish in torch
+    ops) on the card within RMSE 1e-3 of the CPU's; scribbles exact, depth
+    in [0, 255]."""
+    from realtimedepthdiffusion_tpu_torch import DepthPipeline
+
+    r = np.random.default_rng(h)
+    coarse = r.integers(0, 256, (h // 12 + 1, w // 12 + 1, 3))
+    rgb = np.clip(np.kron(coarse, np.ones((12, 12, 1), np.int64))[:h, :w]
+                  + r.integers(-8, 9, (h, w, 3)), 0, 255).astype(np.uint8)
+    mask = np.zeros((h, w), bool)
+    value = np.zeros((h, w), np.uint8)
+    for i, d in enumerate((0, 64, 128, 192, 254)):
+        y, x = (i + 1) * h // 6, (i + 1) * w // 6
+        mask[y - 3:y + 3, x - 4:x + 4], value[y - 3:y + 3, x - 4:x + 4] = True, d
+    cfg = DiffusionConfig(multigrid="vcycle")
+    depths = []
+    for device in (dev, "cpu"):
+        pipe = DepthPipeline(h, w, cfg, device=device)
+        _, gpyr = pipe.prepare_image(rgb)
+        ops.reset_launch_counts()
+        d, _ = pipe.solve(gpyr, torch.from_numpy(mask).to(device),
+                          torch.from_numpy(value).to(device), pipe.initial_state())
+        launched = sum(ops.launch_counts().values())
+        assert (launched > 0) == (device != "cpu")
+        depths.append(d.cpu().numpy())
+    rmse = float(np.sqrt(np.mean(((depths[0] - depths[1]) / 255.0) ** 2)))
+    assert rmse <= 1e-3
+    assert np.array_equal(depths[0][mask], value[mask].astype(np.float32))
+    assert depths[0].min() >= 0.0 and depths[0].max() <= 255.0

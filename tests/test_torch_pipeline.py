@@ -131,8 +131,10 @@ def test_depth_u8_rounds_half_to_even():
 
 
 def test_port_imports_without_jax_pil_cv2():
-    """The port, a small solve, a fast-profile solve and a sharded batched
-    step on a CPU slot mesh run with jax, PIL and cv2 unimportable."""
+    """The port, a small solve, a fast-profile solve, a sharded batched
+    step on a CPU slot mesh, the facade with a V-cycle and an incremental
+    re-solve, the oracle, the timer and a PNG written and read back run
+    with jax, PIL and cv2 unimportable."""
     code = textwrap.dedent("""
         import sys
         for name in ("jax", "jaxlib", "PIL", "cv2", "realtimedepthdiffusion_tpu"):
@@ -166,6 +168,37 @@ def test_port_imports_without_jax_pil_cv2():
         d, s, out = fn(*make_args(2))
         assert tuple(d.shape) == (2, 32, 48) and out.dtype == torch.uint8
         assert sharded.block_calls["jacobi_chebyshev"] > 0 and sharded.block_calls["defocus"] > 0
+        import os, tempfile
+        from realtimedepthdiffusion_tpu_torch import io, models, oracle
+        from realtimedepthdiffusion_tpu_torch.core import incremental
+        from realtimedepthdiffusion_tpu_torch.utils import timing
+        assert io.codec() == "zlib"
+        timer = timing.StageTimer(device="cpu")
+        with timer.stage("facade"):
+            model = models.VCycle(device="cpu", max_iterations=16, vcycle_coarse_iters=8)
+            d, art, s = model.solve_and_render(rgb, mask, value, "b")
+        assert timer.counts["facade"] == 1 and "facade" in timer.report()
+        assert d.shape == (h, w) and art.dtype == np.uint8 and float(d.max()) <= 255.0
+        live = models.ChebyshevCascade(device="cpu", max_iterations=16, incremental_window=16)
+        d, s = live.solve_with_state(rgb, mask, value)
+        mask[30:33, 40:44], value[30:33, 40:44] = True, 192
+        d2, s2 = live.solve_incremental(rgb, mask, value, s, (31, 42))
+        assert bool((d2[mask] == value[mask]).all()) and s2[0].shape == (h, w)
+        assert incremental.clamp_origin(-3, 70, 16, 16, h, w) == (0, w - 16)
+        want, _ = oracle.numpy_ref.solve_pyramid(
+            oracle.numpy_ref.rgb_to_gray(rgb), mask, value, None, live.cfg)
+        assert float(np.sqrt(np.mean(((live.solve(rgb, mask, value) - want) / 255.0) ** 2))) <= 1e-3
+        tmp = tempfile.mkdtemp()
+        u16 = io.depth_to_u16(d2)
+        io.imwrite(os.path.join(tmp, "depth16.png"), u16, png_level=1)
+        io.imwrite(os.path.join(tmp, "art.png"), art)
+        io.save_annotation(os.path.join(tmp, "ann.png"), mask, value)
+        with open(os.path.join(tmp, "depth16.png"), "rb") as f:
+            assert np.array_equal(io.png_decode(f.read()), u16)
+        assert np.array_equal(io.imread_rgb(os.path.join(tmp, "art.png")), art)
+        assert io.image_size(os.path.join(tmp, "art.png")) == (h, w)
+        m2, v2 = io.load_annotation(os.path.join(tmp, "ann.png"))
+        assert np.array_equal(m2, mask) and np.array_equal(v2[mask], value[mask])
         assert not any(m.startswith(("jax", "PIL", "cv2")) for m, v in sys.modules.items()
                        if v is not None)
         print("ok")

@@ -102,9 +102,11 @@ def test_plain_sweep_is_the_abc_form():
     {"solver": "red_black"},
     {"solver": "jacobi"},
     {"early_exit": True, "residual_check_every": 2},
+    {"multigrid": "vcycle"},
 ])
 def test_ported_configs_run(cfg_kw):
-    """The solvers and the early exit that the port once refused now solve."""
+    """The solvers, the early exit and the V-cycle's config, which the port
+    once refused, now solve a level."""
     gray, mask, depth = _case(5)
     got = solver.solve_level(torch.from_numpy(depth), torch.from_numpy(mask),
                              torch.from_numpy(gray), 0, 1, 3, DiffusionConfig(**cfg_kw))
@@ -113,11 +115,13 @@ def test_ported_configs_run(cfg_kw):
 
 
 @pytest.mark.parametrize("cfg_kw,match", [
-    ({"multigrid": "vcycle"}, "A9"),
+    ({"multigrid": "fmg"}, "unknown multigrid 'fmg'"),
 ])
 def test_unported_configs_raise(cfg_kw, match):
+    """Every multigrid scheme of the reference is ported; a name that is
+    none of them is refused."""
     gray, mask, depth = _case(5)
-    with pytest.raises(NotImplementedError, match=match):
+    with pytest.raises(ValueError, match=match):
         solver.solve_level(torch.from_numpy(depth), torch.from_numpy(mask),
                            torch.from_numpy(gray), 0, 1, 3, DiffusionConfig(**cfg_kw))
 
