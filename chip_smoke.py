@@ -66,7 +66,7 @@ Phases, each printed on its own lines; any failure raises and exits non-zero:
 8. Takes the device time alone of K1, K3, K4, K5 and K6 at the shapes
    above and of phase 9's windows: the launches of a level or an effect are
    captured once into a CUDA graph and replayed, so that the host paces
-   nothing between them. It runs last, after phase 9.
+   nothing between them. It runs last, after phases 9 and 10.
 9. Drives the paths that run the kernels at other shapes or beside plain
    torch ops. The windows of the incremental re-solve: K1 on a 384x384
    level-0 window and K2 on a 192x192 level-1 window (K4 on both under
@@ -92,6 +92,28 @@ Phases, each printed on its own lines; any failure raises and exits non-zero:
    96x128 solve against the NumPy oracle run on the host (RMSE <= 1e-3),
    the model facade at 540x960, and a 16-bit gray and an RGB PNG through
    the port's own codec.
+10. Drives the live editing path (``live/``), after phase 9 and before
+   phase 8. The native host runtime is built by g++ and must be native
+   (not its Python fallback); its planner, brush and codec equal the
+   fallback's, and ``core.annotation.paint`` on the card equals its brush.
+   The CLI runs headless at 1080x1920 on PNG files (``--solve --effect b
+   --depth16 --time --device cuda``): its DepthMap, DepthMap16 and
+   ArtisticEffect equal ``DepthPipeline.solve_and_effect`` on the same
+   inputs. Then ``DepthSession`` on a photograph-like image under a dense
+   annotation, at ``incremental_iterations=120``, at the default config and
+   under ``--profile fast``: a first solve with the defocus, a drag inside
+   one rect, two distant rects, more rects than ``incremental_max_rects``,
+   an annotation load and an idle solve. Each update must launch what the
+   routes give (K2 x3, K1 x24, K3 x1 first; K2 x4, K1 x15, K3 x1 for one
+   rect; twice that for two; under the fast profile K4 and K5 by the exit
+   log), upload what its path needs, and equal the same update on the plain
+   versions on the card bit for bit. Timed updates of each kind (strokes,
+   then ``solve()`` returning the u8 map: CUDA events and the host's clock,
+   the upload/solve split of the session's ``StageTimer``), ``save()``, a
+   checkpoint with two rects pending resumed into a new session (its next
+   solve equal to the original's), and ``run_gui --live`` for a few ticks
+   through a scripted stand-in for cv2 (the drag drained and painted
+   before its tick's solve). One JSON line of the phase's numbers.
 
 Each phase prints its seconds. The line before the last is a JSON object
 of the kernels, each with its launches on its main path, its largest
@@ -108,6 +130,7 @@ from __future__ import annotations
 import argparse
 import collections
 import json
+import os
 import re
 import subprocess
 import sys
@@ -1709,6 +1732,436 @@ def main() -> None:
           f"annotation written and read back equal")
     phase_done("9 (incremental, V-cycle, facade, oracle, codec)")
 
+    # -- 10. the live session: native runtime, CLI, live updates, checkpoint, GUI -----
+    from realtimedepthdiffusion_tpu_torch.core.annotation import paint as torch_paint
+    from realtimedepthdiffusion_tpu_torch.live import cli as live_cli
+    from realtimedepthdiffusion_tpu_torch.live import gui as live_gui
+    from realtimedepthdiffusion_tpu_torch.live.session import DepthSession
+    from realtimedepthdiffusion_tpu_torch.native import runtime as native_rt
+
+    live = {"codec": port_io.codec()}
+    live_launches = collections.Counter()
+    tmp_live = tempfile.TemporaryDirectory()
+    tmp = tmp_live.name
+
+    # The native runtime: built by g++ here, and the session runs on it. Its
+    # planner, brush and codec against its own Python fallback.
+    t0 = time.perf_counter()
+    nrt = native_rt.NativeRuntime()
+    if not nrt.available:
+        raise AssertionError("the native runtime did not build with g++: a session would run "
+                             "its Python fallback")
+    probe = native_rt.Arena(4096)
+    if not probe.native:
+        raise AssertionError("the session's host arena is not the native one")
+    probe.close()
+    build_s = time.perf_counter() - t0
+    fallback = native_rt.NativeRuntime()
+    fallback.lib = None
+    for (h, w), c in (((H, W), cfg), ((H4, W4), cfg), ((H, W), icfg)):
+        for it in (c.max_iterations, c.incremental_iterations or 7):
+            got = nrt.plan(h, w, c.pyramid_base_size, it)
+            if got != fallback.plan(h, w, c.pyramid_base_size, it) or got != [
+                    (*c.level_size(h, w, lv), DiffusionConfig(max_iterations=it).level_iterations(
+                        len(got), lv)) for lv in range(c.num_levels(h, w))]:
+                raise AssertionError(f"native plan {h}x{w} {it}: {got}")
+    if not np.array_equal(nrt.chebyshev_omegas(1000, cfg.chebyshev_s, cfg.chebyshev_rho),
+                          fallback.chebyshev_omegas(1000, cfg.chebyshev_s, cfg.chebyshev_rho)):
+        raise AssertionError("native Chebyshev omegas differ from the fallback's")
+    radius = cfg.brush_radius(H, W)
+    strokes = [(900, 560, 64, radius), (0, 0, 192, radius), (W - 1, H - 1, 254, radius),
+               (-5, 300, 0, radius), (1000, H + 4, 128, radius), (5000, 5000, 64, radius),
+               (700, 700, 128, 0), (700, 700, 128, -3), (960, 540, 1, 400)]
+    planes = {}
+    for tag, r in (("native", nrt), ("fallback", fallback)):
+        m_p, v_p = (a.astype(np.uint8) for a in dense_scribbles(H, W))
+        rects = [r.paint(m_p, v_p, x, y, col, rad) for x, y, col, rad in strokes]
+        planes[tag] = (rects, m_p, v_p)
+    if not (planes["native"][0] == planes["fallback"][0]
+            and np.array_equal(planes["native"][1], planes["fallback"][1])
+            and np.array_equal(planes["native"][2], planes["fallback"][2])):
+        raise AssertionError("the native brush differs from the fallback's")
+    tm, tv = (torch.from_numpy(a).to(dev) for a in dense_scribbles(H, W))
+    for x, y, col, rad in strokes:
+        tm, tv = torch_paint(tm, tv, x, y, col, rad)
+    if not (np.array_equal(tm.cpu().numpy(), planes["native"][1].astype(bool))
+            and np.array_equal(tv.cpu().numpy(), planes["native"][2])):
+        raise AssertionError("core.annotation.paint on the card differs from the native brush")
+    enc = nrt.annotation_encode(planes["native"][1], planes["native"][2], cfg.annotation_sentinel)
+    dec = nrt.annotation_decode(enc, cfg.annotation_sentinel)
+    if not (np.array_equal(enc, fallback.annotation_encode(planes["native"][1], planes["native"][2],
+                                                           cfg.annotation_sentinel))
+            and all(np.array_equal(a, b) for a, b in
+                    zip(dec, fallback.annotation_decode(enc, cfg.annotation_sentinel)))
+            and np.array_equal(dec[0], planes["native"][1].astype(bool))):
+        raise AssertionError("the native annotation codec differs from the fallback's")
+    pm, pv = (a.astype(np.uint8) for a in dense_scribbles(H, W))
+    paint_us = {}
+    for tag, r in (("native", nrt), ("fallback", fallback)):
+        t0 = time.perf_counter()
+        for i in range(200):
+            r.paint(pm, pv, (100 + 7 * i) % (W - 100), H // 2, 64, radius)
+        paint_us[tag] = (time.perf_counter() - t0) / 200 * 1e6
+    live["native"] = {"library": native_rt._SO.rsplit("/", 1)[-1], "build_s": build_s,
+                      "paint_us": paint_us, "strokes_checked": len(strokes)}
+    print(f"native runtime: {json.dumps(live['native'])}; plan, omegas, brush and codec equal "
+          f"to the Python fallback, the card's paint equal to the native brush")
+
+    # The CLI, headless at full width on PNG files, against the pipeline.
+    lrgb = photo_like(np.random.default_rng(SEED + 12), H, W)
+    lmask, lvalue = dense_scribbles(H, W)
+    img_p, ann_p, cli_out = f"{tmp}/image.png", f"{tmp}/annotation.png", f"{tmp}/cli"
+    port_io.imwrite(img_p, lrgb, png_level=1)
+    port_io.save_annotation(ann_p, lmask, lvalue)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    rc = live_cli.main(["-i", img_p, "-a", ann_p, "--headless", "--solve", "--effect", "b",
+                        "--save-dir", cli_out, "--depth16", "--time", "--device", "cuda"])
+    cli_s = time.perf_counter() - t0
+    cli_counts = {k: v for k, v in ops.launch_counts().items() if v}
+    # The solve's frame, and K3 once more: save() renders the effect again
+    # for ArtisticEffect.png, as the reference's save does.
+    want_cli = dict(want_frame + collections.Counter(defocus_box=1))
+    if rc != 0 or cli_counts != want_cli:
+        raise AssertionError(f"the CLI returned {rc} and launched {cli_counts}, not {want_cli}")
+    live_launches.update(cli_counts)
+    cpipe = DepthPipeline(H, W, cfg, device="cuda")
+    c_rgb, c_gp = cpipe.prepare_image(lrgb)
+    c_m, c_v = port_io.load_annotation(ann_p)
+    c_depth, _, c_out = cpipe.solve_and_effect(fx.EFFECT_DEFOCUS, c_gp, c_rgb,
+                                               torch.from_numpy(c_m).to(dev),
+                                               torch.from_numpy(c_v).to(dev), cpipe.initial_state())
+    want8 = cpipe.depth_u8(c_depth).cpu().numpy()
+    got8 = port_io.imread_rgb(f"{cli_out}/DepthMap.png")
+    with open(f"{cli_out}/DepthMap16.png", "rb") as f:
+        got16 = port_io.png_decode(f.read())
+    if not all(np.array_equal(got8[..., ch], want8) for ch in range(3)):
+        raise AssertionError("the CLI's DepthMap.png differs from DepthPipeline.solve_and_effect")
+    if not np.array_equal(port_io.imread_rgb(f"{cli_out}/ArtisticEffect.png"), c_out.cpu().numpy()):
+        raise AssertionError("the CLI's ArtisticEffect.png differs from the pipeline's effect")
+    if not np.array_equal(got16, cpipe.depth_u16(c_depth).cpu().numpy()):
+        raise AssertionError("the CLI's DepthMap16.png differs from DepthPipeline.depth_u16")
+    live["cli"] = {"s": cli_s, "launches": cli_counts,
+                   "files": sorted(os.listdir(cli_out))}
+    print(f"CLI --headless --solve --effect b --depth16 --time --device cuda at {H}x{W}: "
+          f"{cli_s:.3f} s from reading the PNGs to writing five (codec {port_io.codec()!r}), "
+          f"launches {json.dumps(cli_counts)}; DepthMap.png, DepthMap16.png and "
+          f"ArtisticEffect.png equal to the pipeline's")
+
+    # Live sessions: each update is strokes and solve() as a user makes
+    # them, with the launches it must make, and the same update on the plain
+    # versions on the card from the state before it.
+    def logged(fn, n_pos, log):
+        """``fn`` with ``exit_log=log`` where its caller passes none."""
+        def call(*a, **kw):
+            if len(a) > n_pos or "exit_log" in kw:
+                return fn(*a, **kw)
+            return fn(*a, exit_log=log, **kw)
+        return call
+
+    def live_session(c):
+        s = DepthSession(lrgb, c, device="cuda")
+        if not (s.native.available and s.arena.native):
+            raise AssertionError("the session does not run on the native runtime")
+        s.exit_log = []
+        for p in filter(None, (s.pipe, s._inc_pipe)):
+            for meth, n_pos in (("solve", 4), ("solve_and_effect", 6), ("solve_incremental", 5),
+                                ("solve_incremental_and_effect", 7)):
+                setattr(p, meth, logged(getattr(p, meth), n_pos, s.exit_log))
+        s.set_effect_key("b")
+        return s
+
+    def expected_launches(s, c, local, n_rects, pipe_cfg):
+        """What an update must launch: by the exit log under the early exit,
+        else by the routes (a full frame of its pipeline, or one windowed
+        re-solve per rect); one K3."""
+        if c.early_exit:
+            want = collections.Counter(defocus_box=1)
+            for e in s.exit_log:
+                if rb_sweep.rb_resident_fits(*e["shape"]):
+                    want["rb_sweep_resident"] += len(exit_chunks(e, c.residual_check_every))
+                else:
+                    want["rb_sweep_tiles"] += sum(-(-n // rb_sweep.RB_TILE_ITERS)
+                                                  for n in exit_chunks(e, c.residual_check_every))
+            return dict(want)
+        if not local:
+            return dict(frame_launches(gray_pyr, pipe_cfg))
+        one = incremental_launches(c, gray_pyr)
+        return {k: (1 if k == "defocus_box" else n_rects * v) for k, v in one.items()}
+
+    def live_update(s, c, name, paints=(), load=False, verify=True):
+        """One update: (x, y, colour key) strokes or an annotation load, then
+        solve(). Returns its row of numbers."""
+        pipe_cfg = s._inc_pipe.cfg if (s._inc_pipe is not None and s.solve_count > 0) else c
+        before_state = s.depth_state
+        totals = dict(s.timer.totals)
+        s.exit_log.clear()
+        ops.reset_launch_counts()
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        for x, y, key in paints:
+            s.set_color_key(key)
+            s.paint(x, y)
+        if load:
+            s.load_annotation_file(ann_p)
+        rects = list(s.dirty_rects)
+        u8 = s.solve()
+        end.record()
+        end.synchronize()
+        host_ms = (time.perf_counter() - t0) * 1e3
+        counts = {k: v for k, v in ops.launch_counts().items() if v}
+        live_launches.update(counts)
+        s_win = min(c.incremental_window, H, W)
+        local = (s._inc_pipe is not None and s.solve_count > 1 and bool(rects)
+                 and len(rects) <= max(c.incremental_max_rects, 1)
+                 and all(r[2] - r[0] + 1 <= s_win and r[3] - r[1] + 1 <= s_win for r in rects))
+        want_bytes = (2 * s_win * s_win * len(rects) if local
+                      else 2 * H * W if rects or s.solve_count == 1 else 0)
+        if s.last_upload_bytes != want_bytes:
+            raise AssertionError(f"{name}: uploaded {s.last_upload_bytes} bytes, not {want_bytes}")
+        want = expected_launches(s, c, local, len(rects), pipe_cfg)
+        if counts != want:
+            raise AssertionError(f"{name}: launched {counts}, not {want}")
+        if not (isinstance(u8, np.ndarray) and u8.dtype == np.uint8 and u8.shape == (H, W)):
+            raise AssertionError(f"{name}: solve() returned {type(u8)}")
+        m_d = torch.tensor(s.mask_np != 0, device=dev)
+        v_d = torch.tensor(s.value_np, device=dev)
+        if not (torch.equal(s._mask_d, m_d) and torch.equal(s._value_d, v_d)):
+            raise AssertionError(f"{name}: the device planes differ from the host planes")
+        if not torch.equal(s.depth0[m_d], v_d[m_d].to(torch.float32)):
+            raise AssertionError(f"{name}: scribble pixels are not pinned")
+        row = {"rects": len(rects), "path": "windowed" if local else "full",
+               "host_ms": host_ms, "event_ms": start.elapsed_time(end),
+               "upload_ms": (s.timer.totals["upload"] - totals.get("upload", 0.0)) * 1e3,
+               "solve_ms": (s.timer.totals["solve"] - totals.get("solve", 0.0)) * 1e3,
+               "upload_bytes": s.last_upload_bytes, "launches": counts}
+        if verify:
+            # The same update on the plain versions on the card.
+            ops.reset_launch_counts()
+            if local:
+                st = before_state
+                with mock.patch.object(incremental, "solve_level", plain_solve_level):
+                    for r in rects:
+                        p_depth, st = incremental.solve_incremental(
+                            s.gray_pyr, m_d, v_d, st, ((r[0] + r[2]) // 2, (r[1] + r[3]) // 2), c)
+                p_out = defocus.defocus_sat(s.rgb, torch.clamp(p_depth, 0.0, 255.0), c)
+            else:
+                p_depth, st, p_out = plain_frame(pipe_cfg, s.gray_pyr, before_state,
+                                                 (None, s.rgb, m_d, v_d))
+            torch.cuda.synchronize()
+            if any(ops.launch_counts().values()):
+                raise AssertionError(f"{name}: the plain update launched {ops.launch_counts()}")
+            row["max_abs_err"] = max(
+                [require_equal(torch, f"{name} effect", s.artistic, p_out)]
+                + [require_equal(torch, f"{name} state L{lv}", a, b)
+                   for lv, (a, b) in enumerate(zip(s.depth_state, st))])
+            if not np.array_equal(u8, s.pipe.depth_u8(p_depth).cpu().numpy()):
+                raise AssertionError(f"{name}: the u8 map differs from the plain update's")
+        return row
+
+    def at(fx_, fy_):
+        """The pixel (x, y) at these fractions of the width and height."""
+        return int(fx_ * W), int(fy_ * H)
+
+    def drag(fx_, fy_, n, key):
+        """A drag of ``n`` paint events 6 pixels apart, to the right."""
+        x0, y = at(fx_, fy_)
+        return [(x0 + 6 * i, y, key) for i in range(n)]
+
+    script = [
+        ("first", {"load": True}),
+        ("one rect", {"paints": drag(0.47, 0.52, 8, 1)}),
+        ("two rects", {"paints": [(*at(0.16, 0.74), 3), (*at(0.83, 0.28), 4)]}),
+        # Five strokes, the last two near each other but apart: the fifth
+        # rect merges with the fourth, the nearest.
+        ("overflow", {"paints": [(*at(0.1, 0.18), 2), (*at(0.88, 0.18), 2), (*at(0.88, 0.83), 2),
+                                 (*at(0.5, 0.5), 0), (*at(0.52, 0.56), 0)]}),
+        ("annotation load", {"load": True}),
+        ("idle", {}),
+    ]
+    timed_kinds = {"one rect": lambda i: {"paints": drag(0.22 + 0.047 * i, 0.93, 8, 1 + i % 4)},
+                   "two rects": lambda i: {"paints": [(*at(0.07 + 0.03 * i, 0.13), 2),
+                                                      (*at(0.93 - 0.03 * i, 0.87), 3)]},
+                   "idle": lambda i: {}}
+
+    def live_loop(label, c, verified=None, n_timed=5):
+        """The script on a new session of ``c``, each update (or those
+        named in ``verified``) held to its plain version, then ``n_timed``
+        timed updates of each kind."""
+        s = live_session(c)
+        rows = {}
+        for name, kw in script:
+            if name == "overflow" and c.incremental_iterations > 0:
+                for x, y, key in kw["paints"][:-1]:
+                    s.set_color_key(key)
+                    s.paint(x, y)
+                if len(s.dirty_rects) != max(c.incremental_max_rects, 1):
+                    raise AssertionError(f"{label} overflow: {len(s.dirty_rects)} rects pending")
+                kw = {"paints": kw["paints"][-1:]}
+            rows[name] = live_update(s, c, f"{label} {name}",
+                                     verify=verified is None or name in verified, **kw)
+        timed = {}
+        for kind, make in timed_kinds.items():
+            timed[kind] = [live_update(s, c, f"{label} {kind} (timed {i})", verify=False,
+                                       **make(i)) for i in range(n_timed)]
+        summary = {}
+        for kind, rs in timed.items():
+            summary[kind] = {key: float(np.median([r[key] for r in rs]))
+                             for key in ("host_ms", "event_ms", "upload_ms", "solve_ms")}
+            summary[kind].update(upload_bytes=rs[0]["upload_bytes"], path=rs[0]["path"],
+                                 launches=rs[0]["launches"], n=len(rs),
+                                 host_ms_all=[round(r["host_ms"], 3) for r in rs])
+        for name, row in rows.items():
+            print(f"live {label} update '{name}': {json.dumps(row)}")
+        print(f"live {label}: per update as a user sees it (strokes, then solve() returning the "
+              f"u8 map; medians of {n_timed}): {json.dumps(summary)}")
+        return s, {"updates": rows, "timed": summary}
+
+    s_inc, live["incremental_120"] = live_loop("incremental_iterations=120", icfg)
+    inc_rows = live["incremental_120"]["updates"]
+    for name, want in (("first", {"jc_sweep_resident": 3, "jc_sweep_tiles": 24, "defocus_box": 1}),
+                       ("one rect", {"jc_sweep_resident": 4, "jc_sweep_tiles": 15, "defocus_box": 1}),
+                       ("two rects", {"jc_sweep_resident": 8, "jc_sweep_tiles": 30,
+                                      "defocus_box": 1})):
+        if inc_rows[name]["launches"] != want:
+            raise AssertionError(f"live update '{name}' launched {inc_rows[name]['launches']}, "
+                                 f"not {want}")
+    # Every update at the default config is a full frame: two of them are
+    # held to plain, the frame of phase 4 being the same code.
+    _, live["default"] = live_loop("default config", cfg, verified=("first", "one rect"))
+    fast_live = live_cli.make_config(live_cli.parse_args(["-i", img_p, "--profile", "fast"]))
+    _, live["fast"] = live_loop("--profile fast", fast_live)
+    fast_counts = collections.Counter()
+    for row in live["fast"]["updates"].values():
+        fast_counts.update(row["launches"])
+    if not (fast_counts["rb_sweep_tiles"] and fast_counts["rb_sweep_resident"]
+            and not fast_counts["jc_sweep_tiles"] and not fast_counts["jc_sweep_resident"]):
+        raise AssertionError(f"the fast live loop launched {dict(fast_counts)}")
+
+    # save(): the four PNGs and the annotation, by the codec this machine has.
+    t0 = time.perf_counter()
+    paths = s_inc.save(f"{tmp}/save", depth16=True)
+    live["save_ms"] = (time.perf_counter() - t0) * 1e3
+    if len(paths) != 4 or not all(os.path.exists(p) for p in paths):
+        raise AssertionError(f"save() wrote {paths}")
+    print(f"save(): {live['save_ms']:.3f} ms for AnnotatedImage, Annotation, DepthMap, "
+          f"ArtisticEffect and DepthMap16 at {H}x{W} (codec {port_io.codec()!r}, host clock)")
+
+    # A checkpoint with two distant rects pending, resumed into a new
+    # session: its next solve() equals the original's, bit for bit.
+    s_inc.set_color_key(2)
+    s_inc.paint(*at(0.26, 0.28))
+    s_inc.paint(*at(0.78, 0.79))
+    ck = f"{tmp}/session.npz"
+    t0 = time.perf_counter()
+    s_inc.save_checkpoint(ck)
+    ck_save_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    resumed = DepthSession(lrgb, icfg, device="cuda")
+    resumed.load_checkpoint(ck)
+    ck_load_ms = (time.perf_counter() - t0) * 1e3
+    if resumed.dirty_rects != s_inc.dirty_rects or len(resumed.dirty_rects) != 2:
+        raise AssertionError(f"the pending rects came back as {resumed.dirty_rects}")
+    results = []
+    for sess in (s_inc, resumed):
+        ops.reset_launch_counts()
+        u8 = sess.solve()
+        results.append((u8, {k: v for k, v in ops.launch_counts().items() if v}))
+        live_launches.update(results[-1][1])
+    if results[0][1] != results[1][1] or not np.array_equal(results[0][0], results[1][0]):
+        raise AssertionError(f"the resumed solve differs: launches {results[1][1]} against "
+                             f"{results[0][1]}")
+    err = max([require_equal(torch, "resumed effect", resumed.artistic, s_inc.artistic)]
+              + [require_equal(torch, f"resumed state L{lv}", a, b)
+                 for lv, (a, b) in enumerate(zip(resumed.depth_state, s_inc.depth_state))])
+    live["checkpoint"] = {"bytes": os.path.getsize(ck), "save_ms": ck_save_ms,
+                          "resume_ms": ck_load_ms, "launches": results[1][1],
+                          "max_abs_err": err}
+    print(f"checkpoint with 2 rects pending: {json.dumps(live['checkpoint'])}; the resumed "
+          f"session's next solve() equals the original's")
+
+    # run_gui under --live through a scripted stand-in for cv2 (no display
+    # here, and cv2 need not be installed): a drag on one tick is drained
+    # and painted before the next tick's solve.
+    class ScriptedCv2:
+        EVENT_MOUSEMOVE, EVENT_LBUTTONDOWN, EVENT_LBUTTONUP = 0, 1, 4
+
+        def __init__(self, ticks):
+            self.ticks, self.tick, self.cb, self.shown, self.stamps = ticks, 0, None, [], []
+
+        def namedWindow(self, name):
+            pass
+
+        def setMouseCallback(self, name, cb):
+            self.cb = cb if name == "Edited Image" else self.cb
+
+        def imshow(self, name, img):
+            self.shown.append((self.tick, name, img.shape))
+
+        def waitKey(self, ms):
+            self.stamps.append(time.perf_counter())
+            if self.tick >= len(self.ticks):
+                return 27
+            events, key = self.ticks[self.tick]
+            self.tick += 1
+            for ev, x, y in events:
+                self.cb(ev, x, y, 0, None)
+            return key
+
+        def destroyAllWindows(self):
+            pass
+
+    gx, gy = at(0.62, 0.19)
+    stroke = ([(ScriptedCv2.EVENT_LBUTTONDOWN, gx, gy)]
+              + [(ScriptedCv2.EVENT_MOUSEMOVE, gx + 4 * i, gy) for i in range(10)]
+              + [(ScriptedCv2.EVENT_LBUTTONUP, gx + 40, gy)])
+    fake = ScriptedCv2([([], 255), (stroke, 255), ([], 255), ([], 255), ([], 27)])
+    drained = []
+    real_inc = s_inc.pipe.solve_incremental_and_effect
+
+    def spy_inc(*a, **kw):
+        drained.append((s_inc.solve_count, bool(s_inc.mask_np[gy, gx + 20])))
+        return real_inc(*a, **kw)
+
+    s_inc.pipe.solve_incremental_and_effect = spy_inc
+    queues = []
+
+    class SpyQueue(native_rt.EventQueue):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            queues.append(self)
+
+    ops.reset_launch_counts()
+    n0 = s_inc.solve_count
+    sys.modules["cv2"] = fake
+    try:
+        with mock.patch.object(native_rt, "EventQueue", SpyQueue):
+            rc = live_gui.run_gui(s_inc, live=True)
+    finally:
+        del sys.modules["cv2"]
+    gui_counts = {k: v for k, v in ops.launch_counts().items() if v}
+    live_launches.update(gui_counts)
+    if rc != 0 or s_inc.solve_count - n0 != 5:
+        raise AssertionError(f"run_gui returned {rc} after {s_inc.solve_count - n0} solves, not 5")
+    if drained != [(n0 + 2, True)]:
+        raise AssertionError(f"the drag was not painted before its tick's solve: {drained}")
+    if not (len(queues) == 1 and queues[0]._closed and queues[0].lib is not None):
+        raise AssertionError("run_gui's event queue was not the native one, or stayed open")
+    if not torch.equal(s_inc.depth0[gy, gx:gx + 37].cpu(),  # the drag's events
+                       torch.full((37,), float(s_inc.scribble_color))):
+        raise AssertionError("the drag's pixels are not pinned after the GUI loop")
+    tick_ms = [(b - a) * 1e3 for a, b in zip(fake.stamps, fake.stamps[1:])]
+    live["gui"] = {"ticks": len(tick_ms), "tick_ms": tick_ms, "launches": gui_counts,
+                   "windows": sorted({n for _, n, _ in fake.shown})}
+    print(f"run_gui --live, {len(tick_ms)} ticks (drain, handle_key's solve, edited_image and "
+          f"the readbacks; host clock): {json.dumps(live['gui'])}")
+    tmp_live.cleanup()
+    live["launches"] = dict(live_launches)
+    print(json.dumps({"live": live}))
+    phase_done("10 (the live session)")
+
     # -- 8. device time alone ----------------------------------------------------------
     device_ms = {label: graph_ms(torch, fn, 5) for label, fn in device_only.items()}
     print(f"device time alone (launches replayed from a CUDA graph, median ms): "
@@ -1837,6 +2290,8 @@ def main() -> None:
                  "k1_ms": k6_l0["k1_ms"], "k1_with_weights_ms": k6_l0["k1_with_weights_ms"]},
                 px4k * 15, px4k * (k6_l0["sweeps"] * JC_OPS + K6_DERIVE_OPS)),
     ]
+    for k in kernels:  # the launches of phase 10's CLI, live updates, resume and GUI ticks
+        k["session_launches"] = live_launches[k["name"]]
     print(f"frames: default {frame['ms']:.3f} ms (plain {frame['plain_ms']:.3f}), "
           f"fast {fast_frame['ms']:.3f} ms (plain {fast_frame['plain_ms']:.3f}), "
           f"4K {frame4['ms']:.3f} ms (plain {frame4['plain_ms']:.3f}), "

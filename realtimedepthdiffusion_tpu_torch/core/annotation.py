@@ -41,3 +41,21 @@ def annotation_pyr_down(
 def seed_depth(depth: torch.Tensor, mask: torch.Tensor, value: torch.Tensor) -> torch.Tensor:
     """Dirichlet seeding: the scribble value where masked, else the depth."""
     return torch.where(mask, value.to(torch.float32), depth.to(torch.float32))
+
+
+def paint(
+    mask: torch.Tensor, value: torch.Tensor, x: int, y: int, color: int, radius: int
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Square-brush paint on the planes' device: new (mask, value) with the
+    pixels |px - x| <= radius // 2 and |py - y| <= radius // 2 set to
+    ``color`` (a negative radius paints one pixel). The given planes are not
+    changed. The live session paints its host planes through the native
+    runtime instead (``native/runtime.py:NativeRuntime.paint``), which this
+    equals."""
+    h, w = mask.shape
+    half = max(int(radius), 0) // 2
+    yy = torch.arange(h, device=mask.device)[:, None]
+    xx = torch.arange(w, device=mask.device)[None, :]
+    hit = ((xx - int(x)).abs() <= half) & ((yy - int(y)).abs() <= half)
+    color_t = torch.full((), int(color), dtype=torch.uint8, device=value.device)
+    return mask | hit, torch.where(hit, color_t, value)

@@ -5,10 +5,11 @@ launch, K2 on every cluster-held level shape from a base > 0, K4 under
 each of its CTA shapes and both checkerboard parities, chunks that start
 past iteration 0, K3 on both of its routes at apertures up to past the
 tile route's limit, K5 on levels of every shape its CTA covers, K6 at every level rule
-and the 4K routes and SAT sums, pipelines on a second card, and K1, K2 and
-K4 on the ring-masked windows of the incremental re-solve. Every
-comparison is exact, but the V-cycle's, whose reductions the card and the
-CPU sum in different orders (RMSE <= 1e-3).
+and the 4K routes and SAT sums, pipelines and live sessions on a second
+card, and K1, K2 and K4 on the ring-masked windows of the incremental
+re-solve. Every comparison is exact, but the V-cycle's and a live session
+against the CPU's, where the card and the CPU round differently
+(RMSE <= 1e-3).
 
 Needs a CUDA device and nvcc; skips without them. This file imports no JAX,
 so it runs on a machine without it:
@@ -834,3 +835,66 @@ def test_vcycle_on_the_card_matches_cpu(dev, h, w):
     assert rmse <= 1e-3
     assert np.array_equal(depths[0][mask], value[mask].astype(np.float32))
     assert depths[0].min() >= 0.0 and depths[0].max() <= 255.0
+
+
+def _live_updates(device, rows, cols, cfg):
+    """A live session on ``device``: a first solve with the defocus, a drag
+    inside one rect, two distant rects, an annotation load. Returns each
+    update's (u8 map, depth, effect) on the host and its launches."""
+    from realtimedepthdiffusion_tpu_torch.live.session import DepthSession
+
+    r = np.random.default_rng(rows + cols)
+    coarse = r.integers(0, 256, (rows // 16 + 1, cols // 16 + 1, 3))
+    rgb = np.clip(np.kron(coarse, np.ones((16, 16, 1), np.int64))[:rows, :cols]
+                  + r.integers(-4, 5, (rows, cols, 3)), 0, 255).astype(np.uint8)
+    s = DepthSession(rgb, cfg, device=device)
+    s.mask_np[rows // 3:rows // 3 + 12, cols // 3:cols // 3 + 20] = 1
+    s.value_np[rows // 3:rows // 3 + 12, cols // 3:cols // 3 + 20] = 192
+    s.mark_all_dirty()
+    s.set_effect_key("b")
+    strokes = [[], [(cols // 2 + i, rows // 2) for i in range(0, 12, 2)],
+               [(cols // 5, rows // 4), (4 * cols // 5, 3 * rows // 4)], None]
+    out = []
+    for paints in strokes:
+        if paints is None:
+            s.mark_all_dirty()  # the planes as an annotation load leaves them
+        else:
+            s.set_color_key(len(out) + 1)
+            for x, y in paints:
+                s.paint(x, y)
+        ops.reset_launch_counts()
+        u8 = s.solve()
+        out.append((u8, s.depth0.cpu(), s.artistic.cpu(),
+                    {k: v for k, v in ops.launch_counts().items() if v}))
+    return out
+
+
+def test_session_on_second_card_equals_first(dev):
+    """A live session on ``cuda:1`` equals the same session on ``cuda:0``,
+    update for update. Skips with fewer than two cards."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two or more CUDA devices")
+    cfg = DiffusionConfig(incremental_iterations=120, incremental_window=128)
+    runs = [_live_updates(d, 270, 480, cfg) for d in ("cuda:0", "cuda:1")]
+    for (u0, d0, a0, c0), (u1, d1, a1, c1) in zip(*runs):
+        assert np.array_equal(u0, u1) and torch.equal(d0, d1) and torch.equal(a0, a1)
+        assert c0 == c1 and c0.get("defocus_box") == 1
+
+
+def test_session_on_the_card_matches_cpu(dev):
+    """A live session on the card within RMSE 1e-3 of the same session on
+    the CPU, update for update; a windowed update launches the window's
+    kernels (two rects: twice a single rect's). Jacobi-Chebyshev only: level
+    0's weights switch on truncated depth, so exp's last bits on another
+    device can flip a weight, and red-black SOR at omega near 2 amplifies
+    the flip inside a window past the bar (4.4e-3 here). chip_smoke.py
+    phase 10 holds red-black sessions to the plain versions on the card."""
+    cfg = DiffusionConfig(incremental_iterations=120, incremental_window=128)
+    card, cpu = (_live_updates(d, 270, 480, cfg) for d in (dev, "cpu"))
+    for i, ((u, d, a, counts), (_, d_cpu, _, cpu_counts)) in enumerate(zip(card, cpu)):
+        assert u.dtype == np.uint8 and u.shape == (270, 480) and a.dtype == torch.uint8
+        assert float(torch.sqrt(torch.mean(((d - d_cpu) / 255.0) ** 2))) <= 1e-3
+        assert not cpu_counts and counts.get("defocus_box") == 1
+    one, two = card[1][3], card[2][3]
+    assert {k: 2 * v for k, v in one.items() if k != "defocus_box"} == {
+        k: v for k, v in two.items() if k != "defocus_box"}
