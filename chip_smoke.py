@@ -66,7 +66,7 @@ Phases, each printed on its own lines; any failure raises and exits non-zero:
 8. Takes the device time alone of K1, K3, K4, K5 and K6 at the shapes
    above and of phase 9's windows: the launches of a level or an effect are
    captured once into a CUDA graph and replayed, so that the host paces
-   nothing between them. It runs last, after phases 9 and 10.
+   nothing between them. It runs last, after phases 9, 10 and 11.
 9. Drives the paths that run the kernels at other shapes or beside plain
    torch ops. The windows of the incremental re-solve: K1 on a 384x384
    level-0 window and K2 on a 192x192 level-1 window (K4 on both under
@@ -114,6 +114,22 @@ Phases, each printed on its own lines; any failure raises and exits non-zero:
    solve equal to the original's), and ``run_gui --live`` for a few ticks
    through a scripted stand-in for cv2 (the drag drained and painted
    before its tick's solve). One JSON line of the phase's numbers.
+11. Drives the directory server (``serve.py``), after phase 10 and before
+   phase 8, on eight seeded 1080x1920 pairs (``photo_like`` under
+   ``dense_scribbles``) written as PNGs by the port's ``io``:
+   ``solve_pairs`` as ``--effect b --depth16 --png-level 1`` runs it,
+   asynchronous and strictly sequential (exactly a default frame's launches
+   per pair; every PNG equal to ``DepthPipeline.solve_and_effect`` on the
+   same inputs), ``--profile fast`` on two pairs (launches by the exit
+   log), ``solve_pairs_multichip`` with a batch of 4 on phase 7's 8-slot
+   mesh (six pairs: the second step padded; two steps' launches; every PNG
+   equal to the single-device frame), ``main(["--watch", ...])`` on a
+   thread over three pairs and a broken JPEG sharing a solved pair's stem,
+   one annotation touched mid-run (``--idle-exit``, ``--report``, the
+   shared stem's outputs kept), ``warmup.main`` at 1080p and 4K with the
+   defocus and the incremental path, and each example once on the card.
+   One ``{"serve": ...}`` JSON line: images/s, solve seconds, the
+   multichip batches' ms and the warmup's seconds per path.
 
 Each phase prints its seconds. The line before the last is a JSON object
 of the kernels, each with its launches on its main path, its largest
@@ -2162,6 +2178,317 @@ def main() -> None:
     print(json.dumps({"live": live}))
     phase_done("10 (the live session)")
 
+    # -- 11. serving: the directory server, its watch mode, the warmup, the examples ----
+    import contextlib
+    import importlib.util
+    import io as pyio
+    import shutil
+    import threading
+    from concurrent.futures import ThreadPoolExecutor
+
+    import realtimedepthdiffusion_tpu_torch.pipeline as pipeline_mod
+    from realtimedepthdiffusion_tpu_torch import serve, warmup
+
+    srv = {"codec": port_io.codec()}
+    serve_launches = collections.Counter()
+    tmp_srv = tempfile.TemporaryDirectory()
+    sd = tmp_srv.name
+    n_pairs = 8
+    for sub in ("images", "annotations"):
+        os.makedirs(f"{sd}/{sub}")
+
+    def write_scene(i):
+        img = photo_like(np.random.default_rng(SEED + 100 + i), H, W)
+        m, v = dense_scribbles(H, W)
+        port_io.imwrite(f"{sd}/images/p{i}.png", img, png_level=1)
+        port_io.save_annotation(f"{sd}/annotations/p{i}.png", m, v)
+        return img, m, v
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(8) as ex:
+        scenes = list(ex.map(write_scene, range(n_pairs)))
+    srv["write_pairs_s"] = time.perf_counter() - t0
+    pairs = serve.discover_pairs(f"{sd}/images", f"{sd}/annotations")
+    if [os.path.basename(p) for p, _ in pairs] != [f"p{i}.png" for i in range(n_pairs)]:
+        raise AssertionError(f"discover_pairs found {pairs}")
+
+    # What each pair's PNGs must hold: DepthPipeline.solve_and_effect on the
+    # same inputs, read back on the host.
+    vpipe = DepthPipeline(H, W, cfg, device="cuda")
+    want_png = []
+    for img, m, v in scenes:
+        v_rgb, v_gp = vpipe.prepare_image(img)
+        d, _, out = vpipe.solve_and_effect(fx.EFFECT_DEFOCUS, v_gp, v_rgb,
+                                           torch.from_numpy(m).to(dev),
+                                           torch.from_numpy(v).to(dev), vpipe.initial_state())
+        want_png.append((vpipe.depth_u8(d).cpu().numpy(), vpipe.depth_u16(d).cpu().numpy(),
+                         out.cpu().numpy()))
+
+    def read_png16(path):
+        """A 16-bit gray PNG's pixels: by Pillow where the codec is Pillow's
+        (the zlib codec unfilters Paeth rows in Python, seconds a 1080p
+        map), else by ``png_decode``."""
+        if port_io.codec() == "pil":
+            from PIL import Image
+
+            with Image.open(path) as im:
+                if im.mode not in ("I;16", "I;16B", "I"):
+                    raise AssertionError(f"{path}: a {im.mode} PNG, not 16-bit gray")
+                return np.asarray(im).astype(np.uint16)
+        with open(path, "rb") as f:
+            return port_io.png_decode(f.read())
+
+    suffixes = ("_depth.png", "_depth16.png", "_effect.png")
+
+    def check_outputs(name, out_dir, idx):
+        """Each pair's three PNGs decoded against its frame."""
+        for i in idx:
+            u8, u16, art = want_png[i]
+            if not (np.array_equal(port_io.imread_gray(f"{out_dir}/p{i}_depth.png"), u8)
+                    and np.array_equal(read_png16(f"{out_dir}/p{i}_depth16.png"), u16)
+                    and np.array_equal(port_io.imread_rgb(f"{out_dir}/p{i}_effect.png"), art)):
+                raise AssertionError(f"{name}: the PNGs of pair {i} differ from "
+                                     f"DepthPipeline.solve_and_effect")
+
+    def same_files(name, out_dir, idx, checked_dir):
+        """Each pair's three PNGs byte for byte those of ``checked_dir``,
+        which ``check_outputs`` decoded: the same pixels through the same
+        encoder at the same level."""
+        for i in idx:
+            for suffix in suffixes:
+                with open(f"{out_dir}/p{i}{suffix}", "rb") as f1, \
+                        open(f"{checked_dir}/p{i}{suffix}", "rb") as f2:
+                    if f1.read() != f2.read():
+                        raise AssertionError(f"{name}: p{i}{suffix} differs from the checked "
+                                             f"run's, so from the pipeline's frame")
+
+    def counted():
+        counts = {k: v for k, v in ops.launch_counts().items() if v}
+        serve_launches.update(counts)
+        return counts
+
+    # solve_pairs as rtdd-serve-torch --effect b --depth16 --png-level 1
+    # runs it, asynchronous (the default) and strictly sequential. The host
+    # time of each solve_and_effect call (its ~400 launches enqueued, no
+    # wait) shows what the IO threads take from the dispatching thread.
+    runs = {}
+    dispatch_ms = []
+
+    class TimedPipeline(pipeline_mod.DepthPipeline):
+        def solve_and_effect(self, *a, **kw):
+            t = time.perf_counter()
+            out = super().solve_and_effect(*a, **kw)
+            dispatch_ms.append((time.perf_counter() - t) * 1e3)
+            return out
+
+    for mode, kw in (("async", {"io_workers": 4, "prefetch": 2}),
+                     ("sequential", {"io_workers": 1, "prefetch": 0})):
+        stats = {}
+        dispatch_ms.clear()
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        with mock.patch.object(pipeline_mod, "DepthPipeline", TimedPipeline):
+            written = serve.solve_pairs(pairs, f"{sd}/{mode}", cfg, fx.EFFECT_DEFOCUS,
+                                        png_level=1, depth16=True, stats_out=stats, device="cuda",
+                                        **kw)
+        wall = time.perf_counter() - t0
+        counts = counted()
+        want = {k: n_pairs * v for k, v in want_frame.items()}
+        if counts != want:
+            raise AssertionError(f"serve {mode}: {n_pairs} pairs launched {counts}, not {want}")
+        if len(written) != n_pairs or not all(written):
+            raise AssertionError(f"serve {mode} wrote {written}")
+        if mode == "async":
+            check_outputs(f"serve {mode}", f"{sd}/{mode}", range(n_pairs))
+        else:
+            same_files(f"serve {mode}", f"{sd}/{mode}", range(n_pairs), f"{sd}/async")
+        solve_s = [stats[p] for p, _ in pairs]
+        runs[mode] = {"images_per_s": n_pairs / wall, "wall_s": wall, "first_solve_s": solve_s[0],
+                      "median_solve_s": float(np.median(solve_s)), "solve_s": solve_s,
+                      "median_dispatch_ms": float(np.median(dispatch_ms)),
+                      "dispatch_ms": list(dispatch_ms), "launches_per_pair": dict(want_frame)}
+        print(f"serve {mode} ({kw}): {n_pairs} {H}x{W} pairs, --effect b --depth16 --png-level 1: "
+              f"{json.dumps(runs[mode])}; every PNG equal to the pipeline's frame")
+    # The async run once more under the profiler: its device time over the
+    # unprofiled run's wall is the card's busy share while it serves.
+    runs["async"]["traced"] = traced("serve async", lambda: serve.solve_pairs(
+        pairs, f"{sd}/traced", cfg, fx.EFFECT_DEFOCUS, png_level=1, depth16=True, device="cuda"),
+        runs["async"]["wall_s"] * 1e3)
+    srv["solve_pairs"] = runs
+
+    # --profile fast on two pairs; the launches by the exit log of each solve.
+    fast_logs = []
+
+    class LoggedPipeline(pipeline_mod.DepthPipeline):
+        def solve_and_effect(self, *a, **kw):
+            fast_logs.append([])
+            return super().solve_and_effect(*a, exit_log=fast_logs[-1], **kw)
+
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    with mock.patch.object(pipeline_mod, "DepthPipeline", LoggedPipeline):
+        written = serve.solve_pairs(pairs[:2], f"{sd}/fast", fast_cfg, fx.EFFECT_DEFOCUS,
+                                    png_level=1, device="cuda")
+    fast_wall = time.perf_counter() - t0
+    counts = counted()
+    want = collections.Counter(defocus_box=len(fast_logs))
+    for log in fast_logs:
+        for e in log:
+            chunks = exit_chunks(e, fast_cfg.residual_check_every)
+            if rb_sweep.rb_resident_fits(*e["shape"]):
+                want["rb_sweep_resident"] += len(chunks)
+            else:
+                want["rb_sweep_tiles"] += sum(-(-n // rb_sweep.RB_TILE_ITERS) for n in chunks)
+    if len(fast_logs) != 2 or not all(written) or counts != dict(want):
+        raise AssertionError(f"serve --profile fast: {len(fast_logs)} solves launched {counts}, "
+                             f"not {dict(want)} by the exit log")
+    srv["fast"] = {"pairs": 2, "wall_s": fast_wall, "launches": counts,
+                   "iterations": [[e["iters"] for e in log] for log in fast_logs]}
+    print(f"serve --profile fast: {json.dumps(srv['fast'])}")
+
+    # --multichip --batch 4 on the 8-slot mesh of phase 7: six pairs, so the
+    # second step carries two pads.
+    mc_pairs = pairs[:6]
+    stats = {}
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    written = serve.solve_pairs_multichip(mc_pairs, f"{sd}/multichip", cfg, fx.EFFECT_DEFOCUS,
+                                          batch=4, mesh=mesh8, png_level=1, depth16=True,
+                                          stats_out=stats, device="cuda")
+    mc_wall = time.perf_counter() - t0
+    counts = counted()
+    want = {k: 2 * v for k, v in want_step.items()}
+    if counts != want or len(written) != len(mc_pairs):
+        raise AssertionError(f"serve --multichip: launched {counts}, not {want}; wrote {written}")
+    same_files("serve --multichip", f"{sd}/multichip", range(len(mc_pairs)), f"{sd}/async")
+    srv["multichip"] = {"pairs": len(mc_pairs), "batch": 4, "mesh": mesh8.shape,
+                        "wall_s": mc_wall, "images_per_s": len(mc_pairs) / mc_wall,
+                        "batch_ms": [stats[mc_pairs[0][0]] * 4e3, stats[mc_pairs[4][0]] * 2e3],
+                        "launches": counts}
+    print(f"serve --multichip --batch 4 on {mesh8}: {json.dumps(srv['multichip'])}; depth, "
+          f"depth16 and defocus equal to the single-device frames")
+
+    # --watch on a thread: three pairs and a broken p0.jpg that shares p0.png's
+    # stem; p1's annotation touched after the first batch.
+    wd, wout, wrep = f"{sd}/inbox", f"{sd}/watch", f"{sd}/watch.json"
+    for sub in ("images", "annotations"):
+        os.makedirs(f"{wd}/{sub}")
+        for i in range(3):
+            shutil.copy(f"{sd}/{sub}/p{i}.png", f"{wd}/{sub}/p{i}.png")
+    with open(f"{wd}/images/p0.jpg", "wb") as f:
+        f.write(b"not a jpeg")
+    watch_res = {}
+
+    def run_watch():
+        try:
+            watch_res["rc"] = serve.main([
+                "--images", f"{wd}/images", "--annotations", f"{wd}/annotations", "--out", wout,
+                "--watch", "--poll-interval", "0.2", "--idle-exit", "1.5", "--effect", "b",
+                "--depth16", "--png-level", "1", "--report", wrep, "--device", "cuda"])
+        except BaseException as e:  # handed to the main thread, which raises it
+            watch_res["error"] = e
+
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    th = threading.Thread(target=run_watch)
+    th.start()
+    deadline = time.monotonic() + 120
+    while not all(os.path.exists(f"{wout}/p{i}_depth.png") for i in range(3)):
+        if time.monotonic() > deadline or not th.is_alive():
+            break
+        time.sleep(0.05)
+    time.sleep(0.5)
+    os.utime(f"{wd}/annotations/p1.png")
+    th.join(timeout=120)
+    watch_wall = time.perf_counter() - t0
+    if th.is_alive():
+        raise AssertionError("serve --watch did not exit on --idle-exit")
+    if "error" in watch_res:
+        raise watch_res["error"]
+    counts = counted()
+    want = {k: 4 * v for k, v in want_frame.items()}
+    with open(wrep) as f:
+        rep = json.load(f)
+    status = {os.path.basename(e["image"]): e["status"] for e in rep["pairs"]}
+    if watch_res["rc"] != 1 or counts != want or status != {
+            "p0.jpg": "failed", "p0.png": "solved", "p1.png": "solved", "p2.png": "solved"}:
+        raise AssertionError(f"serve --watch: rc {watch_res['rc']}, launches {counts} (not "
+                             f"{want}), manifest {status}")
+    if rep["config"]["device"] != "cuda":
+        raise AssertionError(f"serve --watch manifest: {rep['config']}")
+    same_files("serve --watch", wout, range(3), f"{sd}/async")  # p0's survived p0.jpg's give-up
+    srv["watch"] = {"wall_s": watch_wall, "rc": watch_res["rc"], "status": status,
+                    "solve_s": {os.path.basename(e["image"]): e.get("solve_s")
+                                for e in rep["pairs"]}, "launches": counts}
+    print(f"serve --watch: {json.dumps(srv['watch'])}; p1 re-solved after its touch, "
+          f"p0.png's outputs kept when p0.jpg was given up")
+
+    # rtdd-warmup-torch at 1080p and 4K, with the defocus and the incremental path.
+    buf = pyio.StringIO()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = warmup.main(["--size", "1080p", "--size", "4k", "--effect", "b",
+                          "--incremental", "120"])
+    warm_wall = time.perf_counter() - t0
+    print(buf.getvalue(), end="")
+    counts = counted()
+    warm = collections.defaultdict(dict)
+    for line in buf.getvalue().splitlines():
+        m_ = re.fullmatch(r"  (\d+x\d+) (\S+): ([0-9.]+) s", line)
+        if m_:
+            warm[m_.group(1)][m_.group(2)] = float(m_.group(3))
+    e_ = fx.EFFECT_DEFOCUS
+    want_names = {"build", "gray_pyramid", "solve", "depth_u8", "depth_u16", f"solve+effect[{e_}]",
+                  f"effect[{e_}]", "incremental", f"incremental+effect[{e_}]"}
+    if rc != 0 or set(warm) != {f"{H}x{W}", f"{H4}x{W4}"} or any(
+            set(v) != want_names for v in warm.values()):
+        raise AssertionError(f"warmup returned {rc} and timed {dict(warm)}")
+    if not all(counts.get(k) for k in ("jc_sweep_tiles", "jc_sweep_resident", "jc_sweep_fused",
+                                       "defocus_box")):
+        raise AssertionError(f"warmup launched {counts}")
+    srv["warmup"] = {"wall_s": warm_wall, "seconds": dict(warm), "launches": counts}
+
+    # The examples, each once on the card, on a 540x960 pair.
+    ex_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          "realtimedepthdiffusion_tpu_torch", "examples")
+    ed = f"{sd}/example"
+    for sub in ("images", "annotations"):
+        os.makedirs(f"{ed}/{sub}")
+    port_io.imwrite(f"{ed}/images/e.png", photo_like(np.random.default_rng(SEED + 200), 540, 960),
+                    png_level=1)
+    port_io.save_annotation(f"{ed}/annotations/e.png", *dense_scribbles(540, 960))
+    examples = {}
+    for name, argv, check in (
+            ("01_depth_and_effects", ["--image", f"{ed}/images/e.png", "--annotation",
+                                      f"{ed}/annotations/e.png", "--out", f"{ed}/01"],
+             lambda r: r.shape == (540, 960) and np.isfinite(r).all()),
+            ("02_warm_edits", ["--image", f"{ed}/images/e.png"],
+             lambda r: r.shape == (540, 960) and r.dtype == np.uint8),
+            ("03_batch_serving", ["--images", f"{ed}/images", "--annotations",
+                                  f"{ed}/annotations", "--out", f"{ed}/03"],
+             lambda r: len(r) == 1 and os.path.exists(r[0])),
+            ("04_multichip", ["--slots", "8"],
+             lambda r: r.shape == (2, 128, 192) and np.isfinite(r).all())):
+        spec = importlib.util.spec_from_file_location(f"example_{name}",
+                                                      os.path.join(ex_dir, f"{name}.py"))
+        module = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(module)
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        result = module.main(argv)
+        torch.cuda.synchronize()
+        counts = counted()
+        if not counts or not check(result):
+            raise AssertionError(f"example {name}: launched {counts}, returned {type(result)}")
+        examples[name] = {"s": time.perf_counter() - t0, "launches": counts}
+    srv["examples"] = examples
+    tmp_srv.cleanup()
+    srv["launches"] = dict(serve_launches)
+    print(json.dumps({"serve": srv}))
+    phase_done("11 (serving)")
+
     # -- 8. device time alone ----------------------------------------------------------
     device_ms = {label: graph_ms(torch, fn, 5) for label, fn in device_only.items()}
     print(f"device time alone (launches replayed from a CUDA graph, median ms): "
@@ -2292,6 +2619,7 @@ def main() -> None:
     ]
     for k in kernels:  # the launches of phase 10's CLI, live updates, resume and GUI ticks
         k["session_launches"] = live_launches[k["name"]]
+        k["serve_launches"] = serve_launches[k["name"]]  # phase 11's
     print(f"frames: default {frame['ms']:.3f} ms (plain {frame['plain_ms']:.3f}), "
           f"fast {fast_frame['ms']:.3f} ms (plain {fast_frame['plain_ms']:.3f}), "
           f"4K {frame4['ms']:.3f} ms (plain {frame4['plain_ms']:.3f}), "

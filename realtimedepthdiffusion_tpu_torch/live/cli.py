@@ -12,9 +12,10 @@ flags, defaults and errors, and one more:
 
 ``--backend`` is parsed and validated, and routes nothing: the device of
 the tensors picks the kernels or their plain versions. ``--trace DIR``
-writes a ``torch.profiler`` trace of the solve. The port has no XLA
-compile cache and no background compiles; the kernels' build cache is
-``ops/build.py``'s.
+writes a ``torch.profiler`` trace of the solve. Where the JAX CLI enables
+XLA's persistent cache, this one points the kernels' build at
+``utils/cache.py``'s directory (``RTDD_CACHE_DIR``); there are no
+background compiles.
 
 Run as ``python -m realtimedepthdiffusion_tpu_torch.live.cli``.
 """
@@ -269,8 +270,10 @@ def main(argv: Optional[List[str]] = None) -> int:
 
         logging.basicConfig(level=logging.DEBUG, format="%(name)s %(message)s")
 
+    from ..utils.cache import enable_compilation_cache
     from .session import DepthSession
 
+    enable_compilation_cache()
     rgb = imread_rgb(a.image)
     session = DepthSession(rgb, make_config(a), device=a.device)
     session.save_depth16 = a.depth16

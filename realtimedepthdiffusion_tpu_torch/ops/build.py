@@ -5,8 +5,9 @@ process per source, all started together, and links the objects into one
 shared library with a plain C interface, which ctypes loads. The library
 lands in ``realtimedepthdiffusion_tpu_torch/build/``, named by a hash of the
 sources and flags, so an edit to a kernel rebuilds it and an unchanged tree
-reuses it. Importing this module runs nothing: a machine without nvcc can import
-the package and run the plain versions.
+reuses it; ``utils/cache.py`` can point it elsewhere (``use_build_dir``).
+Importing this module runs nothing: a machine without nvcc can import the
+package and run the plain versions.
 
 No ``--use_fast_math``: it implies flush-to-zero and the approximate divide,
 and the kernels must equal their plain versions bit for bit.
@@ -25,7 +26,8 @@ from pathlib import Path
 
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
-BUILD_DIR = PKG_DIR / "build"
+DEFAULT_BUILD_DIR = PKG_DIR / "build"
+BUILD_DIR = DEFAULT_BUILD_DIR
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -97,19 +99,34 @@ def library_path() -> Path:
     return BUILD_DIR / f"librtdd_kernels_{h.hexdigest()[:16]}.so"
 
 
-def _run_all(cmds) -> str:
-    """Run the commands side by side, wait for every one, and raise with
-    the stderr of the first that failed; returns their stderr."""
-    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-             for c in cmds]
-    errs = [p.communicate()[1] for p in procs]
-    for cmd, proc, err in zip(cmds, procs, errs):
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{err}")
+def use_build_dir(path) -> Path:
+    """Build into, and load from, ``path`` from the next ``load_library``
+    of a process that has not loaded the library yet; returns it."""
+    global BUILD_DIR
+    with _lock:
+        BUILD_DIR = Path(path)
+        return BUILD_DIR
+
+
+def _run_all(cmds, jobs: int | None = None) -> str:
+    """Run the commands side by side, at most ``jobs`` at once (all of them
+    if None), wait for every one, and raise with the stderr of the first
+    that failed; returns their stderr."""
+    step = len(cmds) if jobs is None else max(int(jobs), 1)
+    errs = []
+    for lo in range(0, len(cmds), step):
+        wave = cmds[lo:lo + step]
+        procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+                 for c in wave]
+        outs = [p.communicate()[1] for p in procs]
+        for cmd, proc, err in zip(wave, procs, outs):
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{err}")
+        errs += outs
     return "".join(errs)
 
 
-def _compile(out: Path) -> None:
+def _compile(out: Path, jobs: int | None = None) -> None:
     global build_seconds, build_log
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
@@ -119,7 +136,7 @@ def _compile(out: Path) -> None:
     t0 = time.perf_counter()
     try:
         log = _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(s)]
-                        for s, o in objs.items()])
+                        for s, o in objs.items()], jobs)
         log += _run_all([[nvcc, "-shared", "-o", str(tmp), *map(str, objs.values())]])
     finally:
         for o in objs.values():
@@ -129,14 +146,15 @@ def _compile(out: Path) -> None:
     build_log = log
 
 
-def load_library() -> ctypes.CDLL:
-    """The kernels' library, built on first call if needed."""
+def load_library(jobs: int | None = None) -> ctypes.CDLL:
+    """The kernels' library, built on first call if needed, by at most
+    ``jobs`` nvcc processes at once (one per source if None)."""
     global _lib
     with _lock:
         if _lib is None:
             path = library_path()
             if not path.exists():
-                _compile(path)
+                _compile(path, jobs)
             lib = ctypes.CDLL(str(path))
             for name, argtypes in SIGNATURES.items():
                 fn = getattr(lib, name)
