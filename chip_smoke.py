@@ -66,7 +66,7 @@ Phases, each printed on its own lines; any failure raises and exits non-zero:
 8. Takes the device time alone of K1, K3, K4, K5 and K6 at the shapes
    above and of phase 9's windows: the launches of a level or an effect are
    captured once into a CUDA graph and replayed, so that the host paces
-   nothing between them. It runs last, after phases 9, 10 and 11.
+   nothing between them. It runs last, after phases 9, 10, 11 and 12.
 9. Drives the paths that run the kernels at other shapes or beside plain
    torch ops. The windows of the incremental re-solve: K1 on a 384x384
    level-0 window and K2 on a 192x192 level-1 window (K4 on both under
@@ -130,6 +130,20 @@ Phases, each printed on its own lines; any failure raises and exits non-zero:
    defocus and the incremental path, and each example once on the card.
    One ``{"serve": ...}`` JSON line: images/s, solve seconds, the
    multichip batches' ms and the warmup's seconds per path.
+12. Runs the port's bench twins, after phase 11 and before phase 8, each
+   as ``python -m realtimedepthdiffusion_tpu_torch.<twin> ... --device
+   cuda`` in a fresh process: ``bench --no-cold`` at 1080p, ``bench
+   --no-cold --size 4k`` under ``--defocus-quality exact`` and ``approx``,
+   ``bench_configs``, and ``bench_cold`` with the build cache warm and then
+   under ``RTDD_NO_COMPILE_CACHE=1`` (a cold nvcc build). A twin that exits
+   non-zero fails the phase. Each stdout line must be one JSON record with
+   the JAX scripts' keys and finite, positive values: the headline's
+   ``vs_baseline`` is round(16 / value, 3) and its metric names the
+   defocus quality; the configs' five metric names are the JAX script's;
+   a cold record's ``fused_switch_s`` is null, its ``build_s`` null with
+   the cache warm and a positive time without it. Each record is printed,
+   with the twin's stderr lines of envelopes, device time and cold start,
+   and one ``{"bench": ...}`` JSON line holds them all.
 
 Each phase prints its seconds. The line before the last is a JSON object
 of the kernels, each with its launches on its main path, its largest
@@ -190,6 +204,26 @@ JC_OPS, RB_OPS, K6_DERIVE_OPS = 16, 16, 20
 # function needs it; that the tile route scans a tile's neighbourhood again
 # in every tile is its design's cost. So counted, K3 is bound by bytes.
 K3_HALF, K3_SAT, K3_GATHER = (4, 2), (0, 6), (10, 28)
+# The metric names of the root bench_configs.py, which its twin keeps.
+CONFIG_NAMES = (
+    "config1 jacobi cascade 1080p (fixed 1937 sweeps)",
+    "config2 red-black GS + early exit 1080p",
+    "config3 edge-aware Laplacian weights 1080p",
+    "config4 full V-cycle 1080p (warm cascade + 2 cycles)",
+    "config5 live incremental update (windowed) + fused haze 1080p",
+)
+# Phase 12: (name, twin, arguments, environment added).
+BENCH_RUNS = (
+    ("1080p", "bench", ["--no-cold"], {}),
+    ("4K exact", "bench", ["--no-cold", "--size", "4k", "--defocus-quality", "exact"], {}),
+    ("4K approx", "bench", ["--no-cold", "--size", "4k", "--defocus-quality", "approx"], {}),
+    ("configs", "bench_configs", [], {}),
+    ("cold, warm cache", "bench_cold", [], {}),
+    ("cold, nvcc build", "bench_cold", [], {"RTDD_NO_COMPILE_CACHE": "1"}),
+)
+# The twins' stderr lines that phase 12 prints.
+BENCH_LOG = ("envelope", "device per frame", "sweeps/frame", "early exit reads", "kernels:",
+             "import+device", "first solve", "card:")
 
 
 def seeded_image(rng, h, w):
@@ -325,6 +359,61 @@ def traced(name, fn, unprofiled_ms):
           f"{json.dumps({k: round(v, 3) for k, v in by_kernel.most_common(8)})}")
     return {"device_ms": device_ms, "device_launches": n_device,
             "busy": device_ms / unprofiled_ms}
+
+
+def run_twin(name, twin, args, env_extra):
+    """One bench twin in a fresh process on the card; returns its stdout
+    records and its wall seconds. Raises if it exits non-zero."""
+    repo = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, **env_extra)
+    env["PYTHONPATH"] = os.pathsep.join(p for p in (repo, env.get("PYTHONPATH")) if p)
+    cmd = [sys.executable, "-m", f"realtimedepthdiffusion_tpu_torch.{twin}", *args,
+           "--device", "cuda"]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=300, env=env, cwd=repo)
+    wall = time.perf_counter() - t0
+    for line in proc.stderr.splitlines():
+        if any(key in line for key in BENCH_LOG):
+            print(f"bench {name}: {line}")
+    if proc.returncode != 0:
+        raise AssertionError(f"bench {name}: {' '.join(cmd)} exited {proc.returncode}\n"
+                             f"{proc.stderr[-3000:]}")
+    return [json.loads(line) for line in proc.stdout.strip().splitlines()], wall
+
+
+def check_twin(name, twin, records):
+    """Phase 12's checks of one twin's stdout records."""
+    def finite(v):
+        return isinstance(v, (int, float)) and np.isfinite(v) and v > 0
+
+    want_lines = 5 if twin == "bench_configs" else 1
+    if len(records) != want_lines or not all(finite(r["value"]) for r in records):
+        raise AssertionError(f"bench {name}: {records}")
+    if twin == "bench":
+        rec = records[0]
+        quality = name.split()[-1] if name.startswith("4K") else "exact"
+        if (list(rec) != ["metric", "value", "unit", "vs_baseline"] or rec["unit"] != "ms"
+                or rec["vs_baseline"] != round(16.0 / rec["value"], 3)
+                or not rec["metric"].startswith(name.split()[0] + " solve+defocus ms/frame")
+                or (quality != "exact") != rec["metric"].endswith(f", {quality} defocus)")):
+            raise AssertionError(f"bench {name}: {rec}")
+    elif twin == "bench_configs":
+        if (tuple(r["metric"] for r in records) != CONFIG_NAMES
+                or any(r["unit"] != "ms" for r in records)
+                or not isinstance(records[3].get("within_16ms_budget"), bool)):
+            raise AssertionError(f"bench {name}: {records}")
+    else:
+        rec, d = records[0], records[0]["detail"]
+        built = name.endswith("nvcc build")
+        if (list(rec) != ["metric", "value", "unit", "vs_baseline", "detail"]
+                or set(d) != {"import_s", "build_s", "load_s", "first_solve_s",
+                              "time_to_first_depth_s", "fused_switch_s", "note", "contract"}
+                or d["fused_switch_s"] is not None
+                or not all(finite(d[k]) for k in ("import_s", "load_s", "first_solve_s",
+                                                  "time_to_first_depth_s"))
+                or (not finite(d["build_s"]) if built else d["build_s"] is not None)
+                or rec["vs_baseline"] != round(5.0 / max(d["first_solve_s"], 1e-9), 3)):
+            raise AssertionError(f"bench {name}: {rec}")
 
 
 def max_abs(torch, a, b):
@@ -2488,6 +2577,17 @@ def main() -> None:
     srv["launches"] = dict(serve_launches)
     print(json.dumps({"serve": srv}))
     phase_done("11 (serving)")
+
+    # -- 12. the bench twins, each in a fresh process ---------------------------------
+    twins = {}
+    for name, twin, args, env_extra in BENCH_RUNS:
+        records, wall = run_twin(name, twin, args, env_extra)
+        check_twin(name, twin, records)
+        for rec in records:
+            print(f"bench {name}: {json.dumps(rec)}")
+        twins[name] = {"wall_s": wall, "records": records}
+    print(json.dumps({"bench": twins}))
+    phase_done("12 (the bench twins)")
 
     # -- 8. device time alone ----------------------------------------------------------
     device_ms = {label: graph_ms(torch, fn, 5) for label, fn in device_only.items()}

@@ -14,15 +14,36 @@ Layout mirrors the JAX package:
 - ``utils``    stage timing and profiler traces
 
 It imports torch and numpy, never JAX: a JAX config or state crosses over
-through ``interop``.
+through ``interop``. Importing the package itself loads only ``config``;
+torch loads with the first name below that needs it, so that the
+cold-start bench (``bench_cold``), run as a module of the package, can
+time the torch import.
 """
 
+import importlib
+
 from .config import DEFAULT_CONFIG, SCRIBBLE_DEPTH_VALUES, DiffusionConfig
-from .models import (ChebyshevCascade, DepthDiffusionModel, JacobiCascade, RedBlackCascade,
-                     VCycle)
-from .pipeline import DepthPipeline, get_pipeline
 
 __version__ = "0.1.0"
+
+_LAZY = {
+    "DepthPipeline": "pipeline",
+    "get_pipeline": "pipeline",
+    "DepthDiffusionModel": "models",
+    "ChebyshevCascade": "models",
+    "JacobiCascade": "models",
+    "RedBlackCascade": "models",
+    "VCycle": "models",
+}
+
+
+def __getattr__(name):
+    if name not in _LAZY:
+        raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+    value = getattr(importlib.import_module(f".{_LAZY[name]}", __name__), name)
+    globals()[name] = value
+    return value
+
 
 __all__ = [
     "DEFAULT_CONFIG",

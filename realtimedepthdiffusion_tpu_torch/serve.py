@@ -667,8 +667,11 @@ def _watch(a, cfg, eff, t_run0) -> int:
     common cause is a file still being copied in) and is recorded 'failed'
     after _WATCH_MAX_ATTEMPTS consecutive failures of the SAME signature —
     touching the file re-arms it. Giving up removes the pair's outputs from
-    --out, unless another image of the same stem stands solved: they are
-    its outputs then. Per-shape pipelines persist across batches
+    --out when this image wrote them last; if another image of the same
+    stem wrote them last, they are its outputs and stay. A solved sibling
+    whose files went with them is re-armed: its next scan solves it again
+    and rewrites them, and until then the manifest does not report it
+    solved. Per-shape pipelines persist across batches
     (solve_pairs' ``pipelines``), so steady-state latency is the warm path.
     Exits 0 on --idle-exit, Ctrl-C, or SIGTERM (the service-manager stop
     signal, handled like Ctrl-C so the final manifest is still written); 1
@@ -707,6 +710,8 @@ def _watch(a, cfg, eff, t_run0) -> int:
     # broken must not leak an entry per signature it ever failed at.
     fails: Dict[str, Tuple[Tuple[float, float], int]] = {}
     given_up: set = set()  # imgs recorded 'failed' at their current sig
+    # stem -> the image whose solve last wrote {stem}_*.png in --out
+    writer: Dict[str, str] = {}
     pair_by_img: Dict[str, str] = {}  # img -> ann, first-seen order
     skipped_existing: set = set()
     last_work = time.monotonic()
@@ -752,6 +757,13 @@ def _watch(a, cfg, eff, t_run0) -> int:
                     png_level=a.png_level, depth16=a.depth16,
                     stats_out=stats, pipelines=pipelines, device=a.device,
                 )
+                # Who wrote each stem's files, before any give-up below reads
+                # it. A batch's duplicates of a stem report the winner's path
+                # through progress too; the winner is the last of them in
+                # input order (solve_pairs' last-wins).
+                for (img, _ann), w in zip(due, written):
+                    if w:
+                        writer[_stem(img)] = img
                 for (img, _ann), w in zip(due, written):
                     sig = sigs[img]
                     if w:
@@ -773,9 +785,10 @@ def _watch(a, cfg, eff, t_run0) -> int:
                             # current contents and exits 1.
                             outputs.pop(img, None)
                             stats.pop(img, None)
+                            did = _remove_stale_outputs(a.out, img, writer, outputs,
+                                                        skipped_existing, snapshot, stats)
                             print(f"watch: giving up on {img} after {k} attempts (touch it to "
-                                  f"retry; {_remove_stale_outputs(a.out, img, outputs)})",
-                                  file=sys.stderr)
+                                  f"retry; {did})", file=sys.stderr)
                 evicted = _trim_pipelines(pipelines, a.max_shapes)
                 if evicted:
                     print(f"watch: evicted {len(evicted)} resident shape "
@@ -804,23 +817,42 @@ def _watch(a, cfg, eff, t_run0) -> int:
 _WATCH_MAX_ATTEMPTS = 3
 
 
-def _remove_stale_outputs(out_dir: str, img: str, outputs: Dict[str, str]) -> str:
-    """Unlink the outputs of ``img``'s stem from ``out_dir``, so that the
-    disk agrees with a manifest that no longer reports the pair solved,
-    unless another image of that stem stands solved in ``outputs``: the
-    files are then that image's, and the manifest reports them. (The JAX
-    server unlinks by stem alone and so deletes a solved ``a.png``'s
-    outputs when it gives up on a broken ``a.jpg``.) Returns what it did,
-    for the log line."""
+def _remove_stale_outputs(out_dir: str, img: str, writer: Dict[str, str],
+                          outputs: Dict[str, str], skipped_existing: set,
+                          snapshot: Dict[str, Tuple[float, float]],
+                          stats: Dict[str, float]) -> str:
+    """The watch-mode give-up on ``img``: make the disk and the manifest
+    agree with a pair that no longer stands solved. ``writer`` maps a stem
+    to the image whose solve last wrote its files. If another image of the
+    stem wrote them last, they are that image's outputs and stay. Else they
+    are ``img``'s (or of no image this run solved): they are unlinked, and
+    every other image of the stem that stood solved or skipped is re-armed,
+    its ``snapshot`` entry dropped so that the next scan solves it again and
+    rewrites them, and its ``outputs`` and ``stats`` entries dropped so that
+    the manifest does not report it solved at a path that is gone. (The JAX
+    server unlinks by stem alone and re-arms nothing, so it deletes a solved
+    ``a.png``'s outputs when it gives up on a broken ``a.jpg``, and its
+    manifest goes on reporting them.) Returns what it did, for the log
+    line."""
     stem = _stem(img)
-    owner = next((src for src in outputs if _stem(src) == stem), None)
-    if owner is not None:
-        return f"outputs kept: {owner} stands solved under stem {stem!r}"
+    owner = writer.get(stem)
+    if owner is not None and owner != img:
+        return f"outputs kept: {owner} wrote them last and stands solved under stem {stem!r}"
+    writer.pop(stem, None)
     for suffix in ("_depth.png", "_depth16.png", "_effect.png"):
         try:
             os.unlink(os.path.join(out_dir, stem + suffix))
         except OSError:
             pass
+    rearmed = sorted(src for src in set(outputs) | skipped_existing
+                     if src != img and _stem(src) == stem)
+    for src in rearmed:
+        snapshot.pop(src, None)
+        outputs.pop(src, None)
+        stats.pop(src, None)
+        skipped_existing.discard(src)
+    if rearmed:
+        return f"stale outputs removed; re-solving {', '.join(rearmed)}"
     return "stale outputs removed"
 
 

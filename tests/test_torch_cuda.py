@@ -898,3 +898,52 @@ def test_session_on_the_card_matches_cpu(dev):
     one, two = card[1][3], card[2][3]
     assert {k: 2 * v for k, v in one.items() if k != "defocus_box"} == {
         k: v for k, v in two.items() if k != "defocus_box"}
+
+
+def test_solve_pairs_async_equals_sequential_and_pipeline(dev, tmp_path):
+    """``serve.solve_pairs`` on the card: the asynchronous run (pinned
+    uploads, each pair read back into pinned buffers behind a CUDA event,
+    two pairs in flight) writes the same PNGs as the strictly sequential run,
+    and both hold ``DepthPipeline.solve_and_effect`` on the same inputs bit
+    for bit: the u8 and u16 maps and the defocus."""
+    from realtimedepthdiffusion_tpu_torch import io, serve
+    from realtimedepthdiffusion_tpu_torch.core import effects as fx
+    from realtimedepthdiffusion_tpu_torch.pipeline import DepthPipeline
+
+    cfg = DiffusionConfig()
+    r = np.random.default_rng(11)
+    for sub in ("images", "annotations"):
+        (tmp_path / sub).mkdir()
+    for i, (h, w) in enumerate([(96, 128)] * 3 + [(72, 96)] * 2):
+        io.imwrite(str(tmp_path / "images" / f"p{i}.png"),
+                   r.integers(0, 256, (h, w, 3), dtype=np.uint8))
+        mask = np.zeros((h, w), bool)
+        value = np.zeros((h, w), np.uint8)
+        for j, depth in enumerate((0, 128, 254)):
+            y, x = (j + 1) * h // 4, (j + 1) * w // 4
+            mask[y - 4:y + 4, x - 6:x + 6] = True
+            value[y - 4:y + 4, x - 6:x + 6] = depth
+        io.save_annotation(str(tmp_path / "annotations" / f"p{i}.png"), mask, value)
+    pairs = serve.discover_pairs(str(tmp_path / "images"), str(tmp_path / "annotations"))
+    runs = {"async": {"io_workers": 4, "prefetch": 2},
+            "sequential": {"io_workers": 1, "prefetch": 0}}
+    for name, kw in runs.items():
+        written = serve.solve_pairs(pairs, str(tmp_path / name), cfg, fx.EFFECT_DEFOCUS,
+                                    depth16=True, device=dev, **kw)
+        assert all(written), name
+    for img, ann in pairs:
+        stem = serve._stem(img)
+        rgb = io.imread_rgb(img)
+        mask, value = io.load_annotation(ann, cfg)
+        pipe = DepthPipeline(*rgb.shape[:2], cfg, device=dev)
+        rgb_d, gpyr = pipe.prepare_image(rgb)
+        depth, _, art = pipe.solve_and_effect(
+            fx.EFFECT_DEFOCUS, gpyr, rgb_d, torch.from_numpy(mask).to(dev),
+            torch.from_numpy(value).to(dev), pipe.initial_state())
+        want = {"depth": pipe.depth_u8(depth).cpu().numpy(),
+                "depth16": pipe.depth_u16(depth).cpu().numpy(), "effect": art.cpu().numpy()}
+        for kind, arr in want.items():
+            got = {name: open(tmp_path / name / f"{stem}_{kind}.png", "rb").read()
+                   for name in runs}
+            assert got["async"] == got["sequential"], (stem, kind)
+            assert np.array_equal(io.png_decode(got["async"]), arr), (stem, kind)

@@ -8,7 +8,9 @@ RMSE 1e-3 on [0, 1], the u8 depth within one gray level of the rounded
 16-bit map with the scribbled pixels exact, and the effect within a mean
 absolute difference of 0.5. Besides: the watch-mode give-up on a broken
 image that shares its stem with a solved one (the JAX server deletes the
-solved pair's outputs, the port keeps them), the asynchronous pipeline
+solved pair's outputs, the port keeps them, and where the given-up image
+wrote them last, removes them and solves the sibling again), the
+asynchronous pipeline
 against the sequential one, bit for bit, multichip on an 8-slot CPU mesh
 against sequential, and one run in a subprocess where jax, PIL and cv2 do
 not import."""
@@ -891,6 +893,50 @@ def test_watch_give_up_keeps_outputs_of_a_solved_shared_stem(tmp_path, capsys):
         assert kept == (tag == "port"), (tag, os.listdir(os.path.join(d, "out")))
     err = capsys.readouterr().err
     assert "outputs kept: " in err and "stands solved under stem 'a'" in err
+
+
+def test_watch_give_up_of_the_last_writer_resolves_its_sibling(tmp_path, capsys):
+    """a.png solves; a valid a.jpg of another image solves and overwrites
+    a_depth.png; a.jpg is rewritten as garbage and given up on. The files
+    then hold a.jpg's old depth, so the port unlinks them and solves a.png
+    again: after one more scan a_depth.png is a fresh solve of a.png, byte
+    for byte, and the manifest reports a.png solved at that path."""
+    d = str(tmp_path)
+    _dirs(d)
+    _write_pair(d, "a", 96, 128, 1)
+    jpg, out = os.path.join(d, "images", "a.jpg"), os.path.join(d, "out")
+    depth, rep = os.path.join(out, "a_depth.png"), os.path.join(d, "rep.json")
+    seen = {}
+
+    def later():
+        _wait_for(depth)
+        seen["a.png"] = _bytes(depth)
+        jio.imwrite(jpg, synthetic_pair(96, 128, 2)[0])
+        deadline = time.time() + 60
+        while _bytes(depth) == seen["a.png"] and time.time() < deadline:
+            time.sleep(0.05)
+        time.sleep(0.3)  # let the write settle past the poll in flight
+        seen["a.jpg"] = _bytes(depth)
+        with open(jpg, "wb") as f:
+            f.write(b"not a jpeg")
+        os.utime(jpg, (time.time() + 5, time.time() + 5))
+
+    t = threading.Thread(target=later)
+    t.start()
+    rc = serve_main(_watch_args(d, "--idle-exit", "1.5", "--iterations", "40", "--report", rep))
+    t.join(timeout=60)
+    assert not t.is_alive()
+    assert rc == 1  # a.jpg stays given up
+    assert seen["a.jpg"] != seen["a.png"]  # a.jpg's solve did overwrite the files
+    fresh = os.path.join(d, "fresh")
+    assert serve_main(["--pairs", f"{d}/images/a.png:{d}/annotations/a.png", "--out", fresh,
+                       "--backend", "xla", "--iterations", "40"]) == 0
+    assert _bytes(depth) == _bytes(os.path.join(fresh, "a_depth.png")) == seen["a.png"]
+    by = {os.path.basename(e["image"]): e for e in json.load(open(rep))["pairs"]}
+    assert by["a.jpg"]["status"] == "failed" and by["a.jpg"]["depth"] is None
+    assert by["a.png"]["status"] == "solved" and by["a.png"]["depth"] == depth
+    err = capsys.readouterr().err
+    assert f"stale outputs removed; re-solving {d}/images/a.png" in err, err
 
 
 def test_device_cuda_without_card_raises(tmp_path):
