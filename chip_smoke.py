@@ -66,7 +66,7 @@ Phases, each printed on its own lines; any failure raises and exits non-zero:
 8. Takes the device time alone of K1, K3, K4, K5 and K6 at the shapes
    above and of phase 9's windows: the launches of a level or an effect are
    captured once into a CUDA graph and replayed, so that the host paces
-   nothing between them. It runs last, after phases 9, 10, 11 and 12.
+   nothing between them. It runs last, after phases 9 to 13.
 9. Drives the paths that run the kernels at other shapes or beside plain
    torch ops. The windows of the incremental re-solve: K1 on a 384x384
    level-0 window and K2 on a 192x192 level-1 window (K4 on both under
@@ -140,10 +140,29 @@ Phases, each printed on its own lines; any failure raises and exits non-zero:
    the JAX scripts' keys and finite, positive values: the headline's
    ``vs_baseline`` is round(16 / value, 3) and its metric names the
    defocus quality; the configs' five metric names are the JAX script's;
-   a cold record's ``fused_switch_s`` is null, its ``build_s`` null with
-   the cache warm and a positive time without it. Each record is printed,
+   a cold record's ``fused_switch_s`` is the JAX script's (``wait_fused``
+   after one solve: at or after its time to first depth), its ``build_s``
+   null with the cache warm and a positive time without it. Each record is printed,
    with the twin's stderr lines of envelopes, device time and cold start,
    and one ``{"bench": ...}`` JSON line holds them all.
+13. Drives the program layer (``pipeline.py``: CUDA graphs of whole
+   solves), after phase 12 and before phase 8. Under ``fast_start``, six
+   1080x1920 ``solve_and_effect(EFFECT_DEFOCUS)`` frames on a new pipeline:
+   the first two eager, the second capturing the graph, the rest replaying
+   it, with a scribble added before the third and a second image of the
+   shape from the fifth. Each frame must equal the eager function on the
+   same inputs bit for bit and launch what it launches (a replay adds its
+   capture's tally), and the third frame's tensors must be unchanged after
+   the fifth. A uint8 mask must take the eager path. The same at 2160x3840
+   exact and approx (K6 in the graph), for a V-cycle (captured at its first
+   frame) and for fixed-count red-black (K4 and K5 in the graph); under
+   ``--profile fast`` no program may be stored and the launches follow the
+   exit log. Times: chains of eager and replayed frames in turns (CUDA
+   events and the host clock), each graph's capture and instantiation
+   seconds, one replay under the profiler (its kernel nodes by name must
+   equal the graph's tally; its busy share), and the 1080p chains again
+   after every capture, to show whether captures slow the process. One
+   ``{"graphs": ...}`` JSON line.
 
 Each phase prints its seconds. The line before the last is a JSON object
 of the kernels, each with its launches on its main path, its largest
@@ -159,6 +178,7 @@ from __future__ import annotations
 
 import argparse
 import collections
+import dataclasses
 import json
 import os
 import re
@@ -344,12 +364,15 @@ def traced(name, fn, unprofiled_ms):
         fn()
         torch.cuda.synchronize()
     by_kernel = collections.Counter()
+    launches_by_kernel = collections.Counter()
     n_device = 0
     for e in prof.events():
         if e.device_type == torch.autograd.DeviceType.CUDA:
             n_device += 1
             bare = re.split(r"[<(]", e.name.replace("(anonymous namespace)::", ""))[0]
-            by_kernel[bare.split("::")[-1].removeprefix("void ").strip()] += e.time_range.elapsed_us() / 1e3
+            bare = bare.split("::")[-1].removeprefix("void ").strip()
+            by_kernel[bare] += e.time_range.elapsed_us() / 1e3
+            launches_by_kernel[bare] += 1
     device_ms = sum(by_kernel.values())
     if device_ms <= 0:
         raise AssertionError(f"the profiler saw no device time in the traced {name}")
@@ -358,7 +381,7 @@ def traced(name, fn, unprofiled_ms):
           f"{device_ms / unprofiled_ms:.4f}; device ms by kernel "
           f"{json.dumps({k: round(v, 3) for k, v in by_kernel.most_common(8)})}")
     return {"device_ms": device_ms, "device_launches": n_device,
-            "busy": device_ms / unprofiled_ms}
+            "busy": device_ms / unprofiled_ms, "launches_by_kernel": dict(launches_by_kernel)}
 
 
 def run_twin(name, twin, args, env_extra):
@@ -408,7 +431,8 @@ def check_twin(name, twin, records):
         if (list(rec) != ["metric", "value", "unit", "vs_baseline", "detail"]
                 or set(d) != {"import_s", "build_s", "load_s", "first_solve_s",
                               "time_to_first_depth_s", "fused_switch_s", "note", "contract"}
-                or d["fused_switch_s"] is not None
+                or not finite(d["fused_switch_s"])
+                or d["fused_switch_s"] < d["time_to_first_depth_s"]
                 or not all(finite(d[k]) for k in ("import_s", "load_s", "first_solve_s",
                                                   "time_to_first_depth_s"))
                 or (not finite(d["build_s"]) if built else d["build_s"] is not None)
@@ -455,8 +479,9 @@ def main() -> None:
         mark[0] = now
 
     # Work whose device time alone is taken at the very end (phase 8), by
-    # graph replay: a process that has captured graphs ran the later frames
-    # slower, so no capture comes before the frames and steps are timed.
+    # graph replay. A fast_start pipeline captures its own graph at its
+    # second frame (pipeline.py); phase 13 measures what captures cost the
+    # frames after them.
     device_only = {}
 
     # -- 1. the card ---------------------------------------------------------
@@ -2588,6 +2613,216 @@ def main() -> None:
         twins[name] = {"wall_s": wall, "records": records}
     print(json.dumps({"bench": twins}))
     phase_done("12 (the bench twins)")
+
+    # -- 13. the program layer: CUDA graphs of whole solves ----------------------------
+    from realtimedepthdiffusion_tpu_torch import pipeline as pipeline_mod
+
+    # The kernel each wrapper launches once per call, by the name the
+    # profiler gives a graph's node (K3's tile route at 1080p and 4K).
+    node_of = {"jc_sweep_tiles": "jc_sweep_tiles_kernel",
+               "jc_sweep_resident": "jc_sweep_resident_kernel",
+               "jc_sweep_fused": "jc_sweep_fused_kernel",
+               "rb_sweep_tiles": "rb_sweep_tiles_kernel",
+               "rb_sweep_resident": "rb_sweep_resident_kernel",
+               "defocus_box": "defocus_tile_kernel"}
+    key_fx = ("solve_fx", fx.EFFECT_DEFOCUS)
+    graphs = {}
+
+    def counted13():
+        return {k: v for k, v in ops.launch_counts().items() if v}
+
+    def program_frames(name, c, rgbs, n_frames, scale=1):
+        """fast_start frames of solve_and_effect(EFFECT_DEFOCUS) through a
+        new pipeline under ``c``, on the first image of ``rgbs`` and from
+        frame 4 on the second (one shape), a scribble added before frame 2.
+        Each frame must equal the eager function on the same inputs bit for
+        bit and launch what it launches; the path each took must be the
+        routing's (fast_start: eager, eager and the kick, then replays; the
+        V-cycle: eager and the capture, then replays); and frame 2's tensors
+        must be unchanged after frame 4. Returns the pipeline, the last
+        frame's inputs and the phase's line."""
+        h, w = rgbs[0].shape[:2]
+        p = DepthPipeline(h, w, c, device="cuda")
+        mask, value = bench_scribbles(h, w, scale)
+        st, held, paths, counts = p.initial_state(), None, [], None
+        for i in range(n_frames):
+            if i in (0, 4):
+                rgb_d, gp = p.prepare_image(rgbs[min(i // 4, len(rgbs) - 1)])
+            if i == 2:
+                add_scribble(mask, value, scale)
+            m, v = torch.from_numpy(mask).to(dev), torch.from_numpy(value).to(dev)
+            paths.append("replay" if key_fx in p._aot else "eager")
+            ops.reset_launch_counts()
+            got = p.solve_and_effect(fx.EFFECT_DEFOCUS, gp, rgb_d, m, v, st)
+            counts = counted13()
+            ops.reset_launch_counts()
+            want = p._solve_fx_eager(fx.EFFECT_DEFOCUS, tuple(gp), rgb_d, m, v, tuple(st))
+            torch.cuda.synchronize()
+            if counts != counted13() or not counts:
+                raise AssertionError(f"{name} frame {i} ({paths[-1]}): launched {counts}, the "
+                                     f"eager frame {counted13()}")
+            for part, a, b in (("depth", got[0], want[0]), ("effect", got[2], want[2]),
+                               *((f"state L{l}", x, y) for l, (x, y) in
+                                 enumerate(zip(got[1], want[1])))):
+                if a.shape != b.shape or not torch.equal(a, b):
+                    raise AssertionError(f"{name} frame {i} ({paths[-1]}): {part} differs from "
+                                         f"the eager frame (max abs {max_abs(torch, a, b)})")
+            if i == 2:
+                held = (got, [t.clone() for t in (got[0], *got[1], got[2])])
+            if i == 4 and not all(torch.equal(a, b) for a, b in
+                                  zip((held[0][0], *held[0][1], held[0][2]), held[1])):
+                raise AssertionError(f"{name}: a later replay changed frame 2's tensors")
+            st = got[1]
+        first = 1 if c.multigrid == "vcycle" else 2
+        if paths != ["eager"] * first + ["replay"] * (n_frames - first):
+            raise AssertionError(f"{name}: frames took {paths}")
+        prog = p._aot[key_fx]
+        if prog.tally != counts:
+            raise AssertionError(f"{name}: the graph's tally {prog.tally}, a frame's {counts}")
+        line = {"shape": [h, w], "paths": paths, "capture_s": prog.capture_s,
+                "launches_per_frame": counts}
+        print(f"program {name}: {n_frames} frames equal to the eager frame bit for bit; "
+              f"{json.dumps(line)}")
+        return p, (gp, rgb_d, m, v, st), line
+
+    def chains(name, p, inputs, n):
+        """Chains of n frames, each from the last one's state, eager and
+        replayed in turns (eager, replay, replay, eager); ms per frame by
+        CUDA events around the chain and by the host clock to its end."""
+        gp, rgb_d, m, v, st0 = inputs
+        runs = {"eager": lambda s: p._solve_fx_eager(fx.EFFECT_DEFOCUS, tuple(gp), rgb_d, m, v,
+                                                      s)[1],
+                "replay": lambda s: p.solve_and_effect(fx.EFFECT_DEFOCUS, gp, rgb_d, m, v, s)[1]}
+        out = {"eager": [], "replay": []}
+        for kind_ in ("eager", "replay", "replay", "eager"):
+            st = runs[kind_](st0)  # warm
+            torch.cuda.synchronize()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            t0 = time.perf_counter()
+            start.record()
+            for _ in range(n):
+                st = runs[kind_](st)
+            end.record()
+            end.synchronize()
+            out[kind_].append({"event_ms": start.elapsed_time(end) / n,
+                               "host_ms": (time.perf_counter() - t0) * 1e3 / n})
+        print(f"program {name}: chains of {n} frames, ms per frame in turns: {json.dumps(out)}")
+        return out, runs
+
+    def nodes(name, p, inputs, runs):
+        """One replay under the profiler: its kernel nodes by name against
+        the graph's tally, and its busy share over an unprofiled replayed
+        frame; then the same for an eager frame."""
+        gp, rgb_d, m, v, st0 = inputs
+        line = {}
+        for kind_ in ("replay", "eager"):
+            frame_ms = time_ms(torch, lambda: runs[kind_](st0), 10)
+            label = {"replay": "replayed", "eager": "eager"}[kind_]
+            tr = traced(f"{name} {label} frame", lambda: runs[kind_](st0), frame_ms)
+            line[kind_] = {"frame_ms": frame_ms, **tr}
+        tally = p._aot[key_fx].tally
+        seen = {k: line["replay"]["launches_by_kernel"].get(node_of[k], 0) for k in tally}
+        if seen != tally:
+            raise AssertionError(f"{name}: the profiler saw {seen} in one replay, the graph's "
+                                 f"tally is {tally}")
+        line["nodes"] = {node_of[k]: n for k, n in tally.items()}
+        return line
+
+    t13 = time.perf_counter()
+    rng13 = np.random.default_rng(SEED + 13)
+    two = [photo_like(rng13, H, W), photo_like(rng13, H, W)]
+    pa, ina, graphs["1080p"] = program_frames("1080p default", DiffusionConfig(fast_start=True),
+                                              two, 6)
+    # A uint8 mask does not match the captured bool mask: the eager path.
+    replays = []
+    real_call = pipeline_mod._Program.__call__
+
+    def spy_call(self, *a):
+        replays.append(1)
+        return real_call(self, *a)
+
+    gp_a, rgb_a, m_a, v_a, st_a = ina
+    with mock.patch.object(pipeline_mod._Program, "__call__", spy_call):
+        d_u8 = pa.solve_and_effect(fx.EFFECT_DEFOCUS, gp_a, rgb_a, m_a.to(torch.uint8), v_a,
+                                   st_a)
+        if replays:
+            raise AssertionError("a uint8 mask replayed the bool mask's graph")
+        d_b = pa.solve_and_effect(fx.EFFECT_DEFOCUS, gp_a, rgb_a, m_a, v_a, st_a)
+    if not replays or not torch.equal(d_u8[0], d_b[0]) or not torch.equal(d_u8[2], d_b[2]):
+        raise AssertionError("the uint8-mask frame differs from the replayed bool-mask frame")
+    print("program 1080p default: a uint8 mask took the eager path, equal to the replay")
+    graphs["1080p"]["before_captures"], runs_a = chains("1080p default", pa, ina, 16)
+    graphs["1080p"]["traced"] = nodes("1080p default", pa, ina, runs_a)
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", RuntimeWarning)  # 'auto' at 4K is not asked for here
+        rgb4b = seeded_image(rng13, H4, W4)
+        for quality in ("exact", "approx"):
+            p4, in4, line4 = program_frames(
+                f"4K {quality}", DiffusionConfig(fast_start=True, pallas_defocus_quality=quality),
+                [rgb4_np, rgb4b], 5, scale=2)
+            if line4["launches_per_frame"].get("jc_sweep_fused") != 4:
+                raise AssertionError(f"4K {quality}: K6 is not in the graph: "
+                                     f"{line4['launches_per_frame']}")
+            line4["chains"], runs4 = chains(f"4K {quality}", p4, in4, 8)
+            line4["traced"] = nodes(f"4K {quality}", p4, in4, runs4)
+            graphs[f"4K {quality}"] = line4
+            del p4, in4, runs4
+
+    pv, inv_, graphs["V-cycle"] = program_frames(
+        "V-cycle", DiffusionConfig(multigrid="vcycle", fast_start=True), two, 3)
+    graphs["V-cycle"]["chains"], runs_v = chains("V-cycle", pv, inv_, 4)
+    graphs["V-cycle"]["traced"] = nodes("V-cycle", pv, inv_, runs_v)
+    del pv, inv_, runs_v
+
+    prb, inrb, graphs["red-black"] = program_frames(
+        "red-black, fixed count", DiffusionConfig(solver="red_black", fast_start=True), two, 3)
+    if not {"rb_sweep_tiles", "rb_sweep_resident"} <= set(graphs["red-black"]["launches_per_frame"]):
+        raise AssertionError(f"red-black graph: {graphs['red-black']['launches_per_frame']}")
+    graphs["red-black"]["traced"] = nodes("red-black", prb, inrb, {
+        "replay": lambda s: prb.solve_and_effect(fx.EFFECT_DEFOCUS, inrb[0], inrb[1], inrb[2],
+                                                 inrb[3], s)[1],
+        "eager": lambda s: prb._solve_fx_eager(fx.EFFECT_DEFOCUS, tuple(inrb[0]), inrb[1],
+                                               inrb[2], inrb[3], s)[1]})
+    del prb, inrb
+
+    # --profile fast: the early exit reads a residual per chunk; no program.
+    pf = DepthPipeline(H, W, dataclasses.replace(fast_cfg, fast_start=True), device="cuda")
+    rgb_f, gp_f = pf.prepare_image(two[0])
+    mf, vf = bench_scribbles(H, W)
+    mf_d, vf_d = torch.from_numpy(mf).to(dev), torch.from_numpy(vf).to(dev)
+    st_f = pf.initial_state()
+    fast13 = []
+    for i in range(3):
+        log = []
+        ops.reset_launch_counts()
+        _, st_f, _ = pf.solve_and_effect(fx.EFFECT_DEFOCUS, gp_f, rgb_f, mf_d, vf_d, st_f, log)
+        want = collections.Counter(defocus_box=1)
+        for e in log:
+            chunks = exit_chunks(e, fast_cfg.residual_check_every)
+            if rb_sweep.rb_resident_fits(*e["shape"]):
+                want["rb_sweep_resident"] += len(chunks)
+            else:
+                want["rb_sweep_tiles"] += sum(-(-n // rb_sweep.RB_TILE_ITERS) for n in chunks)
+        if counted13() != dict(want):
+            raise AssertionError(f"fast frame {i}: launched {counted13()}, by the log {dict(want)}")
+        fast13.append(dict(want))
+    if pf._aot or not pf.wait_fused() or pf.capture(None, gp_f, mf_d, vf_d, st_f) is not None:
+        raise AssertionError(f"--profile fast stored a program: {list(pf._aot)}")
+    graphs["fast"] = {"programs": 0, "launches": fast13}
+    print(f"program --profile fast: 3 eager frames, no program, launches by the exit log "
+          f"{json.dumps(fast13)}")
+    del pf
+
+    # After every capture above: the 1080p chains again, to see whether the
+    # captures slowed the rest of the process.
+    graphs["1080p"]["after_captures"], _ = chains("1080p default, after the captures", pa, ina, 16)
+    graphs["card"] = card
+    graphs["seconds"] = time.perf_counter() - t13
+    print(json.dumps({"graphs": graphs}))
+    del pa, ina, runs_a
+    phase_done("13 (the program layer)")
 
     # -- 8. device time alone ----------------------------------------------------------
     device_ms = {label: graph_ms(torch, fn, 5) for label, fn in device_only.items()}

@@ -22,6 +22,8 @@ the kernels or on the plain versions by the tensors' device
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -97,6 +99,18 @@ _SCHEDULES = {
     "jacobi": jacobi_schedule,
     "red_black": rb_omegas,
 }
+
+
+@functools.lru_cache(maxsize=None)
+def level_schedule(iters: int, cfg: DiffusionConfig) -> np.ndarray:
+    """The iteration table of ``cfg.solver`` for ``iters`` iterations, made
+    once per (iters, cfg) and read-only: every solve of a level reads the
+    same array, which its kernels find on the card by its contents
+    (``ops/sweep.py:device_table``), so that no frame makes or copies it
+    again."""
+    table = _SCHEDULES[cfg.solver](iters, cfg)
+    table.setflags(write=False)
+    return table
 
 
 def jacobi_sweep(u: torch.Tensor, wts: EdgeWeights) -> torch.Tensor:
@@ -183,7 +197,7 @@ def solve_level(
     dispatch.check_supported(cfg)
     if iters <= 0:
         return depth.to(torch.float32)
-    table = _SCHEDULES[cfg.solver](iters, cfg)
+    table = level_schedule(iters, cfg)
     fused = dispatch.fused_level(depth, cfg.solver)
     if fused and not cfg.early_exit:
         return dispatch.run_fused(depth, mask, gray, table, level, max_level, cfg)

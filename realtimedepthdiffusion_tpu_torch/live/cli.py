@@ -285,6 +285,13 @@ def main(argv: Optional[List[str]] = None) -> int:
         session.set_effect_key(a.effect)
 
     if a.headless:
+        if not a.live:
+            # A one-shot process exits right after its solve: a program
+            # captured there could never serve a frame, so its solves stay
+            # eager (the reference starts no background compile there).
+            session.pipe.background_compile = False
+            if session._inc_pipe is not None:
+                session._inc_pipe.background_compile = False
         if a.solve or a.live or a.effect:
             if a.trace_dir:
                 from ..utils.timing import device_trace

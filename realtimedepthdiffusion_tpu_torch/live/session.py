@@ -13,11 +13,15 @@ Key/mode semantics (the reference's ``src/main.cpp:20-27, 180-334``):
 - 's'             -> save AnnotatedImage.png, DepthMap.png, ArtisticEffect.png
 - 't'             -> report last solve wall time
 
-The reference session also starts background XLA compiles
-(``prewarm_async``, ``incremental_ready``, ``background_compile``). Eager
-PyTorch compiles nothing ahead, so they have no counterpart: the session
-takes the windowed path whenever the dirty rects allow it, as the
-reference does with ``fast_start=False``.
+The session drives the pipeline's program layer as the reference's does:
+``prewarm_async`` in the constructor, so the build, the card queries and
+the tables overlap the image's upload; under ``fast_start`` the second full
+solve of a pipeline captures its CUDA graph and later ones replay it
+(``pipeline.py``). The windowed path is gated on ``incremental_ready`` and
+its kick deferred past the frame, as in the reference; the windowed
+re-solve runs eagerly, so the gate is always open. A replay returns fresh
+tensors, so the ``depth0`` and ``depth_state`` the session keeps from frame
+to frame never change under a later one.
 """
 
 from __future__ import annotations
@@ -63,6 +67,10 @@ class DepthSession:
         self.rows, self.cols = rgb.shape[:2]
         self.rgb_np = np.array(rgb[..., :3], dtype=np.uint8, order="C")  # the session's own copy
         self.pipe = DepthPipeline(self.rows, self.cols, cfg, device=self.device)
+        # fast_start: the first solve's preparation (the build, the card
+        # queries, the tables) runs on a thread while the image uploads and
+        # its gray pyramid is built; the first solve joins it.
+        self.pipe.prewarm_async()
         self.rgb, self.gray_pyr = self.pipe.prepare_image(self.rgb_np)
         # Annotation planes live on the host and are painted by the native
         # runtime's brush rasterizer (dirty-rect tracked); they upload to the
@@ -226,6 +234,11 @@ class DepthSession:
             and len(rects) <= kmax
             and all(r[2] - r[0] + 1 <= s_win and r[3] - r[1] + 1 <= s_win for r in rects)
         )
+        # The reference's gate: never block a frame on the incremental
+        # program; peek now, kick after this frame's solve.
+        fx_key = self.effect if self.effect != fx.EFFECT_NONE else None
+        inc_kick_wanted = use_local and not self.pipe.incremental_ready(fx_key, kick=False)
+        use_local = use_local and not inc_kick_wanted
         centers = [((r[0] + r[2]) // 2, (r[1] + r[3]) // 2) for r in rects] if use_local else []
         self.last_upload_bytes = 0
         with self.timer.stage("upload"):
@@ -273,6 +286,8 @@ class DepthSession:
                 self.depth0, self.depth_state, self.artistic = pipe.solve_and_effect(
                     self.effect, self.gray_pyr, self.rgb, mask_d, value_d, self.depth_state)
             u8 = self.pipe.depth_u8(self.depth0).cpu().numpy()
+        if inc_kick_wanted:
+            self.pipe.incremental_ready(fx_key)
         self.solve_count += 1
         self.last_solve_ms = (time.perf_counter() - t0) * 1000.0
         return u8

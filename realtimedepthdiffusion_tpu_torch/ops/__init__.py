@@ -17,3 +17,12 @@ def launch_counts() -> dict:
 def reset_launch_counts() -> None:
     for k in _KERNELS:
         k.launches = 0
+
+
+def add_launches(tally: dict) -> None:
+    """Add ``tally`` (wrapper name -> launches) to the counts. A CUDA graph
+    launches its kernels without their wrappers: the pipeline takes the
+    tally of a graph's capture back out (the capture launched nothing) and
+    adds it again at each replay (``pipeline.py:_Program``)."""
+    for k in _KERNELS:
+        k.launches += tally.get(k.__name__, 0)

@@ -31,7 +31,7 @@ from ..config import DiffusionConfig
 from ..core.weights import _TINY, EdgeWeights, depth_threshold, level_d8, weights_from_base
 from . import build
 from .sweep import (MAX_TILE_SWEEPS, _check, _check_table, _first, _same_device, _stream,
-                    chunks_plain, ping_pong, tile_config)
+                    chunks_plain, device_table, ping_pong, tile_config)
 
 # Sweeps per K6 launch: the ring of halo each tile carries and over which
 # one derivation of the tile's weights is spent. k = 8 beat 12 and 16 at 4K
@@ -131,7 +131,7 @@ def fused_chunks_cuda(depth: torch.Tensor, mask: torch.Tensor, gray: torch.Tenso
     """``fused_chunks_plain`` on the card: each chunk is ceil(n/k) launches
     of K6. d8 is taken once, from the level-entry depth."""
     u = depth.to(torch.float32).contiguous().clone()
-    abc_dev = torch.from_numpy(np.ascontiguousarray(abc, np.float32)).to(u.device)
+    abc_dev = device_table(abc, u.device)
     thr = depth_threshold(level, max_level, cfg)
     planes = (gray.contiguous(), mask.to(torch.uint8).contiguous(),
               level_d8(depth).contiguous(), abc_dev, weight_exp_table(cfg, u.device))

@@ -39,7 +39,7 @@ import torch
 
 from . import build
 from .sweep import (SMEM_PER_CTA, _check, _check_table, _same_device, _stream,
-                    left_up_weights, relax_plain)
+                    device_table, left_up_weights, relax_plain)
 
 # Iterations per K4 launch. One iteration is two half-sweeps, each of which
 # widens the dependency cone by a pixel, so a tile carries a ring of 2k. On
@@ -268,7 +268,7 @@ def chunks_cuda(depth: torch.Tensor, mask: torch.Tensor, wts, om: np.ndarray,
     """``chunks_plain`` on the card: a chunk is one K5 launch when one CTA
     holds the level, else ceil(n/k) K4 launches."""
     u = depth.to(torch.float32).contiguous().clone()
-    om_dev = torch.from_numpy(np.ascontiguousarray(om, np.float32)).to(u.device)
+    om_dev = device_table(om, u.device)
     planes = (wts.wr.contiguous(), wts.wd.contiguous(), wts.inv_count.contiguous(),
               mask.to(torch.uint8).contiguous())
 

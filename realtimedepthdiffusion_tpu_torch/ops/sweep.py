@@ -22,6 +22,8 @@ Counterpart of ``realtimedepthdiffusion_tpu/ops/pallas_sweep.py``:
   (``core/solver.py:_chunked_early_exit``); they are the counterpart of
   ``solve_level_strips_early_exit``. On the card a chunk is one K2 launch
   on a level a cluster holds, else ceil(n/k) K1 launches.
+- ``device_table`` puts an iteration table on the card once per contents
+  and device; every kernel wrapper reads its table from there.
 - ``halo_block_sweeps`` runs the sweeps between two halo exchanges of the
   sharded step (``parallel/sharded.py``) on a stack of halo-extended
   blocks: one K1 launch over the whole stack, in place of the TPU's
@@ -158,6 +160,26 @@ def _check_table(name, t, cols):
     if t.dim() != 2 or t.shape[1] != cols:
         raise ValueError(f"{name}: expected shape (iters, {cols}), got {tuple(t.shape)}")
     _check(name, t, torch.float32, t.shape)
+
+
+# Every table ``device_table`` has put on a device, by (contents, device).
+_TABLES = {}
+
+
+def device_table(table, device) -> torch.Tensor:
+    """An iteration table (the (iters, 3) (a, b, c) rows or the (iters, 2)
+    red-black omegas, numpy) as a float32 tensor on ``device``, copied there
+    once per contents and device and kept for the life of the process. So a
+    frame waits on no copy from pageable host memory, and a CUDA graph that
+    reads the table never sees it freed. A first copy cannot happen while a
+    graph is being captured: the first solve of a pipeline runs eagerly and
+    makes them."""
+    device = torch.device(device)
+    host = np.ascontiguousarray(table, np.float32)
+    key = (host.shape, host.tobytes(), device)
+    if key not in _TABLES:
+        _TABLES[key] = torch.tensor(host, device=device)
+    return _TABLES[key]
 
 
 def _stream(t: torch.Tensor) -> int:
@@ -331,7 +353,7 @@ def chunks_cuda(depth: torch.Tensor, mask: torch.Tensor, wts, abc: np.ndarray,
     """``chunks_plain`` on the card: each chunk is one K2 launch from its
     ``base`` when a cluster holds the level, else ceil(n/k) launches of K1."""
     u = depth.to(torch.float32).contiguous().clone()
-    abc_dev = torch.from_numpy(np.ascontiguousarray(abc, np.float32)).to(u.device)
+    abc_dev = device_table(abc, u.device)
     planes = (wts.wr.contiguous(), wts.wd.contiguous(), wts.inv_count.contiguous(),
               mask.to(torch.uint8).contiguous())
     cluster = resident_cluster(*u.shape, resident_max_cluster(u.device))

@@ -41,7 +41,8 @@ from ..core.weights import edge_weights
 from ..ops.defocus import block_ring, defocus_block, defocus_block_sat, defocus_half_widths
 from ..ops.dispatch import check_supported
 from ..ops.rb_sweep import halo_block_rb_sweeps, halo_block_rb_sweeps_plain
-from ..ops.sweep import halo_block_sweeps, halo_block_sweeps_plain, left_up_weights, relax_plain
+from ..ops.sweep import (device_table, halo_block_sweeps, halo_block_sweeps_plain, left_up_weights,
+                         relax_plain)
 from .halo import extend_into, extend_with_halo
 from .mesh import SlotMesh
 
@@ -203,8 +204,10 @@ class _ShardedLevel:
 
     def tables(self, table: np.ndarray):
         """``table`` on each device (on the CPU for the plain runs)."""
-        host = torch.from_numpy(np.ascontiguousarray(table, np.float32))
-        return {d: host if self.plain else host.to(d) for d in self.stack_len}
+        if self.plain:
+            host = torch.from_numpy(np.ascontiguousarray(table, np.float32))
+            return {d: host for d in self.stack_len}
+        return {d: device_table(table, d) for d in self.stack_len}
 
     def residual(self, us, cfg) -> float:
         u1 = extend_with_halo(self.mesh, us, 1)

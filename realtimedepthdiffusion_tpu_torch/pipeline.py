@@ -1,33 +1,181 @@
-"""The solve and effect pipeline for one image size (port of
-``realtimedepthdiffusion_tpu/pipeline.py:219-325, 599-712``).
+"""The solve and effect pipeline for one image size, and its program layer
+(port of ``realtimedepthdiffusion_tpu/pipeline.py``).
 
-PyTorch runs eagerly, so there is nothing to compile ahead and nothing to
-hide: the reference's staged cold start, AOT executables and background
-compiles have no counterpart here. Every tensor lives on the pipeline's
-``device``; on a CUDA device the sweeps and the defocus run the port's
-kernels, on the CPU their plain versions. Every solver of
-``cfg.solver`` runs, with or without the residual early exit, under both
-multigrid schemes (``cfg.multigrid``: the cascade or the V-cycle), and the
-windowed incremental re-solve of the live loop (``core/incremental.py``).
+Every tensor lives on the pipeline's ``device``; on a CUDA device the
+sweeps and the defocus run the port's kernels, on the CPU their plain
+versions. Every solver of ``cfg.solver`` runs, with or without the
+residual early exit, under both multigrid schemes (``cfg.multigrid``: the
+cascade or the V-cycle), and the windowed incremental re-solve of the live
+loop (``core/incremental.py``).
+
+Where the JAX package compiles one XLA program per solve (``solve``, and
+``solve_and_effect`` per effect), the port captures the whole solve into a
+CUDA graph and replays it (``_Program``): one graph launch in place of the
+~480 kernel and glue launches of a 1080p frame, which the host paces one
+by one. Where the
+JAX package's ``fast_start`` runs its staged per-level programs, the port
+runs its eager path. A graph replays the same kernels on the same data, so
+the two give the same bits, and a session switches between them unseen
+(``tests/test_torch_fast_start.py``). The routing is the JAX package's
+(``realtimedepthdiffusion_tpu/pipeline.py:609-663``):
+
+- ``fast_start`` on: the first solve runs eagerly; the second runs eagerly
+  and then captures its program (the "kick", deferred as JAX defers its
+  background compile); later solves replay it.
+- ``fast_start`` off, and every V-cycle (JAX's ``_fast`` is False there):
+  the first call of a program runs eagerly and captures it at its end;
+  later calls replay.
+- ``fast_start`` on with ``background_compile`` False (one-shot CLI runs,
+  the directory server): eager for good, as the JAX package stays staged.
+
+The first call of a program always runs eagerly, so the nvcc build, the
+card queries and the iteration tables on the card exist before a capture
+(``prewarm_async`` starts them on a thread). A call whose tensors differ in
+shape, dtype or device from the captured ones runs eagerly, as JAX sends
+them to plain ``jit``. What never captures: configs with the residual early
+exit (the host reads a residual per chunk), the windowed incremental
+re-solve (its window origin is host integers) and the sharded step. On
+the CPU nothing is captured: a program is the eager function itself, so
+the routing runs in the CPU tests. A capture that fails raises in the
+caller's frame.
 """
 
 from __future__ import annotations
 
+import atexit
 import functools
-from typing import Sequence, Tuple
+import logging
+import os
+import threading
+import time
+import weakref
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from . import ops
 from .config import DiffusionConfig
 from .core import effects as fx
 from .core.color import rgb_to_gray
 from .core.incremental import clamp_origin, host_yx, solve_incremental
 from .core.multigrid import (build_annotation_pyramids, build_gray_pyramid,
                              initial_depth_state, solve_cascade, solve_vcycle)
-from .core.solver import residual_norm, residual_rms
+from .core.solver import level_schedule, residual_norm, residual_rms
 from .core.weights import edge_weights
-from .ops import dispatch
+from .ops import build, dispatch, sweep
+
+# prewarm_async's threads are daemons, so nothing during a session waits on
+# them; but one still inside the nvcc build or a CUDA call when the
+# interpreter finalizes would be killed mid-call. The atexit hook, which
+# runs on the main thread before finalization, joins them, within 600 s in
+# all, as the JAX package joins its background compiles.
+_LIVE_PREWARM_THREADS: "weakref.WeakSet" = weakref.WeakSet()
+
+
+def _join_prewarm_threads() -> None:
+    pending = [t for t in _LIVE_PREWARM_THREADS if t.is_alive()]
+    if not pending:
+        return
+    logging.getLogger(__name__).info("exit: waiting for %d prewarm thread(s)", len(pending))
+    deadline = time.monotonic() + 600.0
+    for t in pending:
+        t.join(timeout=max(deadline - time.monotonic(), 0.0))
+
+
+atexit.register(_join_prewarm_threads)
+
+
+def _leaves(args) -> list:
+    """The tensors of a call's arguments, a tuple of tensors standing for
+    its tensors (the pyramids)."""
+    out = []
+    for a in args:
+        out.extend(a if isinstance(a, (tuple, list)) else (a,))
+    return out
+
+
+def _signature(args):
+    """(the arguments' structure, each leaf's shape, dtype and device), or
+    None where a leaf is not a tensor."""
+    leaves = _leaves(args)
+    if not all(isinstance(t, torch.Tensor) for t in leaves):
+        return None
+    return (tuple(len(a) if isinstance(a, (tuple, list)) else None for a in args),
+            tuple((tuple(t.shape), t.dtype, t.device) for t in leaves))
+
+
+def _map(fn, tree):
+    """``fn`` on every tensor of a (possibly nested) tuple."""
+    if isinstance(tree, (tuple, list)):
+        return tuple(_map(fn, t) for t in tree)
+    return fn(tree)
+
+
+def _fresh(tree):
+    """A copy of every tensor of ``tree``; a tensor that stands twice is
+    copied once, and both places get that copy."""
+    copies = {}
+
+    def one(t):
+        if id(t) not in copies:
+            copies[id(t)] = t.clone()
+        return copies[id(t)]
+
+    return _map(one, tree)
+
+
+class _Program:
+    """One program of a pipeline: a solve, or a solve and an effect, for the
+    arguments' shapes. On a card, the call captured once into a CUDA graph
+    that reads static copies of the arguments; each call copies its
+    arguments in, replays the graph and returns fresh copies of the outputs,
+    so that no later replay changes a tensor a caller holds. Outputs that
+    are one tensor (depth0 and level 0 of the state) stay one. On the CPU,
+    the eager function itself.
+
+    The capture runs on the caller's thread, on a side stream, into the
+    pipeline's memory pool, in ``thread_local`` mode: a CUDA call that is
+    unsafe during a capture fails it only when it comes from this thread,
+    while the server's IO threads and a prewarm thread go on. The kernel
+    wrappers count what the capture would have launched; those counts are
+    taken back out, and each replay adds them (``ops.add_launches``)."""
+
+    def __init__(self, fn, args, device: torch.device, pool=None, stream=None):
+        self.fn = fn
+        self.sig = _signature(args)
+        self.graph = None
+        self.tally = {}
+        self.capture_s = 0.0
+        if device.type != "cuda":
+            return
+        t0 = time.perf_counter()
+        with torch.cuda.device(device):
+            self.static_in = _map(lambda t: torch.empty_like(t, memory_format=torch.contiguous_format),
+                                  args)
+            graph = torch.cuda.CUDAGraph()
+            before = ops.launch_counts()
+            with torch.cuda.graph(graph, pool=pool, stream=stream,
+                                  capture_error_mode="thread_local"):
+                self.static_out = fn(*self.static_in)
+            after = ops.launch_counts()
+        self.tally = {k: after[k] - before[k] for k in after if after[k] != before[k]}
+        ops.add_launches({k: -n for k, n in self.tally.items()})
+        self.graph, self.device = graph, device
+        self.capture_s = time.perf_counter() - t0
+
+    def matches(self, args) -> bool:
+        return self.sig is not None and _signature(args) == self.sig
+
+    def __call__(self, *args):
+        if self.graph is None:
+            return self.fn(*args)
+        with torch.cuda.device(self.device):
+            for dst, src in zip(_leaves(self.static_in), _leaves(args)):
+                dst.copy_(src)
+            self.graph.replay()
+            ops.add_launches(self.tally)
+            return _fresh(self.static_out)
 
 
 class DepthPipeline:
@@ -38,6 +186,11 @@ class DepthPipeline:
     warm-starts the next solve. ``depth_u8`` and ``depth_u16`` read a depth
     out as integers, and ``residuals`` shows how far each level of a depth
     state is from converged.
+
+    ``solve`` and ``solve_and_effect`` run through the program layer (the
+    module's docstring): ``prewarm_async``, ``wait_fused``,
+    ``incremental_ready`` and ``background_compile`` are the JAX
+    pipeline's hooks, with its contracts.
     """
 
     def __init__(self, rows: int, cols: int, cfg: DiffusionConfig = DiffusionConfig(), *,
@@ -47,7 +200,162 @@ class DepthPipeline:
         self.device = torch.device(device)
         self.levels = cfg.num_levels(rows, cols)
         self._scheme = solve_vcycle if cfg.multigrid == "vcycle" else solve_cascade
+        # The program layer. _aot holds each program by key, ("solve",) and
+        # ("solve_fx", effect), as the JAX pipeline holds its executables.
+        self._aot: dict = {}
+        self._fast = cfg.fast_start and cfg.multigrid != "vcycle"
+        # The early exit reads a residual per chunk on the host: nothing to
+        # capture.
+        self._capturable = not cfg.early_exit
+        self._staged = False  # the first solve's preparation is done
+        self._staged_thread: Optional[threading.Thread] = None
+        self._staged_solves = 0
+        self._pool = self._stream = None
+        # One-shot processes (headless --solve) and the directory server
+        # set this False: under fast_start their solves then stay eager, as
+        # the JAX package's stay staged. RTDD_BACKGROUND_COMPILE=0 sets it
+        # for the whole process, read as the JAX package reads it.
+        self.background_compile = os.environ.get(
+            "RTDD_BACKGROUND_COMPILE", "1").lower() not in ("0", "false")
 
+    # -- the program layer ---------------------------------------------------
+    def _prepare(self) -> None:
+        """What a first solve does before its first launch, and a capture
+        must find done: the kernels' build (or load), the card queries the
+        routes make (K2's largest cluster, the L2 size) and each level's
+        iteration table, on the card."""
+        if self.device.type == "cuda":
+            build.load_library()
+            sweep.resident_max_cluster(self.device)
+            dispatch.l2_bytes(self.device)
+        for level in range(self.levels):
+            iters = self.cfg.level_iterations(self.levels, level)
+            if iters > 0:
+                table = level_schedule(iters, self.cfg)
+                if self.device.type == "cuda":
+                    sweep.device_table(table, self.device)
+
+    def _ensure_staged(self) -> None:
+        """Join prewarm_async's thread, or prepare on this thread where it
+        did not run or failed, so that a failure raises here."""
+        t = self._staged_thread
+        if t is not None and t.is_alive():
+            t.join()
+        if not self._staged:
+            self._prepare()
+            self._staged = True
+
+    def prewarm_async(self) -> None:
+        """fast_start: start the first solve's preparation (``_prepare``:
+        the nvcc build or its load, the card queries, the tables) on a
+        background thread now, so that the rest of session setup (the
+        image's upload and gray pyramid, the annotation) overlaps it. The
+        first solve joins it (``_ensure_staged``); a failure there is logged
+        and raises again in the first solve. Idempotent; a no-op when
+        fast_start is off. Not gated by ``background_compile``: the first
+        solve needs the preparation either way."""
+        if not self._fast or self._staged:
+            return
+        if self._staged_thread is not None and self._staged_thread.is_alive():
+            return
+
+        def work():
+            try:
+                self._prepare()
+                self._staged = True
+            except Exception:
+                logging.getLogger(__name__).exception(
+                    "prewarm failed (the first solve will retry and surface the error)")
+
+        t = threading.Thread(target=work, daemon=True, name="rtdd-prewarm")
+        self._staged_thread = t
+        _LIVE_PREWARM_THREADS.add(t)  # joined by the atexit hook above
+        t.start()
+
+    def _graph_pool(self):
+        """The pipeline's memory pool and capture stream, shared by all its
+        graphs (none on the CPU): they replay one after another on one
+        stream, and each copies its outputs out before the next can run."""
+        if self._pool is None and self.device.type == "cuda":
+            self._pool = torch.cuda.graph_pool_handle()
+            self._stream = torch.cuda.Stream(self.device)
+        return self._pool, self._stream
+
+    def _program_of(self, effect: Optional[int]):
+        """(key, eager function) of ``solve`` (``effect`` None) or of
+        ``solve_and_effect(effect, ...)``."""
+        if effect is None:
+            return ("solve",), self._solve_eager
+        return ("solve_fx", effect), functools.partial(self._solve_fx_eager, effect)
+
+    def capture(self, effect: Optional[int], *args) -> Optional[float]:
+        """Capture now, on this thread, the program of ``solve`` (``effect``
+        None; ``args`` as ``solve`` takes them) or of ``solve_and_effect``
+        for ``effect`` (``args`` as it takes them after the effect), unless
+        it exists. Returns its capture and instantiation seconds (0 on the
+        CPU), or None where the config never captures (the early exit).
+        The kick and ``warmup.warm_shape`` call it; a capture that fails
+        raises."""
+        if not self._capturable or _signature(args) is None:
+            return None
+        key, fn = self._program_of(effect)
+        if key not in self._aot:
+            self._aot[key] = _Program(fn, args, self.device, *self._graph_pool())
+        return self._aot[key].capture_s
+
+    def _kick(self, effect: Optional[int], args) -> None:
+        """fast_start's kick: capture the program unless background
+        compiles are off. Where the JAX package starts a compile on a
+        thread, the capture runs here, synchronously: the caller's thread
+        is the one that may launch into the capture stream."""
+        if self.background_compile:
+            self.capture(effect, *args)
+
+    def incremental_ready(self, effect: Optional[int] = None, kick: bool = True) -> bool:
+        """Whether the windowed incremental re-solve can run without waiting
+        on a program (the live loop's gate, kicking its compile if
+        ``kick``). Always True: the incremental re-solve runs eagerly (its
+        window origin is host integers, ``core/incremental.py``), so there
+        is nothing to wait on, as the JAX pipeline answers True when it has
+        nothing to compile."""
+        return True
+
+    def wait_fused(self, timeout: Optional[float] = None) -> bool:
+        """Block until pending background programs land (warmup and test
+        hook); True when none is still pending. The kick captures on the
+        caller's thread before it returns, so none ever is."""
+        return True
+
+    def _route(self, effect: Optional[int], args, exit_log):
+        """``realtimedepthdiffusion_tpu/pipeline.py:609-663`` for one
+        program: replay it where it exists and the arguments match; else
+        run eagerly, and capture where the routing says (the module's
+        docstring)."""
+        key, fn = self._program_of(effect)
+        prog = self._aot.get(key)
+        if prog is not None:
+            return prog(*args) if prog.matches(args) else fn(*args, exit_log)
+        if self._fast:
+            self._ensure_staged()
+            out = fn(*args, exit_log)
+            self._staged_solves += 1
+            if self._staged_solves >= 2:  # the JAX pipeline's deferral
+                self._kick(effect, args)
+            return out
+        out = fn(*args, exit_log)
+        self.capture(effect, *args)
+        return out
+
+    def _solve_eager(self, gray_pyr, mask0, value0, depth_state, exit_log=None):
+        return self._scheme(gray_pyr, mask0, value0, depth_state, self.cfg, exit_log)
+
+    def _solve_fx_eager(self, effect, gray_pyr, rgb, mask0, value0, depth_state, exit_log=None):
+        depth0, state = self._solve_eager(gray_pyr, mask0, value0, depth_state, exit_log)
+        # The unclamped Chebyshev update can overshoot [0, 255] slightly.
+        out = self.effect(effect, rgb, gray_pyr[0], torch.clamp(depth0, 0.0, 255.0))
+        return depth0, state, out
+
+    # -- setup and the critical path ----------------------------------------
     def prepare_image(self, rgb_u8) -> Tuple[torch.Tensor, Tuple[torch.Tensor, ...]]:
         """Upload the (H,W,3) uint8 image once; returns (rgb, gray_pyramid).
         The returned rgb is a copy on every device: a later change of the
@@ -63,19 +371,18 @@ class DepthPipeline:
     def solve(self, gray_pyr: Sequence[torch.Tensor], mask0: torch.Tensor,
               value0: torch.Tensor, depth_state: Sequence[torch.Tensor], exit_log=None):
         """Full solve by the scheme ``cfg.multigrid`` names; returns (depth0_f32,
-        new_depth_state). Under the early exit, a list given as ``exit_log``
-        receives each level's iterations and probes
+        new_depth_state), eagerly or by replaying its program (the module's
+        docstring). Under the early exit, which always runs eagerly, a list
+        given as ``exit_log`` receives each level's iterations and probes
         (``core/solver.py:_chunked_early_exit``)."""
-        return self._scheme(gray_pyr, mask0, value0, depth_state, self.cfg, exit_log)
+        return self._route(None, (tuple(gray_pyr), mask0, value0, tuple(depth_state)), exit_log)
 
     def solve_and_effect(self, effect: int, gray_pyr, rgb, mask0, value0, depth_state,
                          exit_log=None):
-        """Solve, then the effect on the clipped depth; returns
-        (depth0, new_state, effect_rgb_u8)."""
-        depth0, state = self.solve(gray_pyr, mask0, value0, depth_state, exit_log)
-        # The unclamped Chebyshev update can overshoot [0, 255] slightly.
-        out = self.effect(effect, rgb, gray_pyr[0], torch.clamp(depth0, 0.0, 255.0))
-        return depth0, state, out
+        """Solve, then the effect on the clipped depth, as one program;
+        returns (depth0, new_state, effect_rgb_u8)."""
+        return self._route(effect, (tuple(gray_pyr), rgb, mask0, value0, tuple(depth_state)),
+                           exit_log)
 
     def solve_incremental(self, gray_pyr, mask0, value0, depth_state, center_yx,
                           exit_log=None):

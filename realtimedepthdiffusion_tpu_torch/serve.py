@@ -33,8 +33,10 @@ The flags, messages and exit codes are the JAX server's, plus ``--device``
 (cuda, the default; cuda:N; or cpu). Asking for a card where there is none
 raises. ``--backend`` is parsed and validated, and routes nothing: the
 device picks the kernels or their plain versions. The build cache of the
-kernels is ``utils/cache.py``'s; eager torch compiles nothing ahead, so
-there is no background compile to turn off.
+kernels is ``utils/cache.py``'s. As the JAX server turns its background
+compile off, each shape's pipeline here sets ``background_compile`` False:
+under ``fast_start`` every pair solves eagerly and no CUDA graph is
+captured (``pipeline.py``).
 """
 
 from __future__ import annotations
@@ -336,7 +338,14 @@ def solve_pairs(
                 # record the use (see _trim_pipelines).
                 pipes.move_to_end((h, w))
             if (h, w) not in pipes:
-                pipes[(h, w)] = DepthPipeline(h, w, cfg, device=dev)
+                pipe = DepthPipeline(h, w, cfg, device=dev)
+                # Batch serving captures no program under fast_start, as
+                # the reference's server compiles no fused one: every pair
+                # solves eagerly. The first solve's preparation overlaps
+                # this pair's upload and gray pyramid.
+                pipe.background_compile = False
+                pipe.prewarm_async()
+                pipes[(h, w)] = pipe
             pipe = pipes[(h, w)]
             rgb_d, gpyr = pipe.prepare_image(_upload(rgb, dev))
             state = pipe.initial_state()

@@ -1,9 +1,9 @@
 """The build cache of the port's kernels (twin of
 ``realtimedepthdiffusion_tpu/utils/cache.py``).
 
-The JAX package keeps XLA's persistent compilation cache here. Eager torch
-compiles nothing ahead: what persists across processes on the card is the
-nvcc build of ``csrc/`` (``ops/build.py``: one shared library named by a
+The JAX package keeps XLA's persistent compilation cache here. The port's
+CUDA graphs live only in the process that captures them (``pipeline.py``):
+what persists across processes on the card is the nvcc build of ``csrc/`` (``ops/build.py``: one shared library named by a
 hash of the sources and flags). This module says where it lands: the
 package's ``build/`` by default, ``RTDD_CACHE_DIR`` where that is set.
 With ``RTDD_NO_COMPILE_CACHE=1`` the process builds into a directory of its

@@ -2,16 +2,19 @@
 the port for a set of image shapes before they are served.
 
 The JAX tool compiles every product program into XLA's persistent cache.
-Eager torch compiles nothing ahead, so here the one thing that persists
-across processes is the nvcc build of the kernels (``ops/build.py``, in the
-directory of ``utils/cache.py``: the package's ``build/``, or
-``RTDD_CACHE_DIR``). This tool builds it, asks the card once what the
-routes need (the largest K2 cluster it runs and its L2 size), and then runs
-each path the JAX tool compiles once, on a seeded image of each shape,
-printing its seconds under the JAX tool's names. Those runs warm only the
-process that makes them (CUDA's module load, the allocator's first blocks,
-the card queries): another process gains the build alone, and a serving
-process that wants its first pair warm calls ``warm_shape`` itself first.
+Here the one thing that persists across processes is the nvcc build of the
+kernels (``ops/build.py``, in the directory of ``utils/cache.py``: the
+package's ``build/``, or ``RTDD_CACHE_DIR``). This tool builds it, asks the
+card once what the routes need (the largest K2 cluster it runs and its L2
+size), and then runs each path the JAX tool compiles once, on a seeded
+image of each shape, printing its seconds under the JAX tool's names. Then
+it captures, in this process, the programs the JAX tool lowers there: the
+CUDA graph of ``solve`` and of ``solve+effect[e]`` for each effect
+(``DepthPipeline.capture``), printing each one's capture and instantiation
+seconds. Graphs, like the runs, warm only the process that makes them
+(CUDA's module load, the allocator's first blocks, the card queries):
+another process gains the build alone, and a serving process that wants
+its first pair warm calls ``warm_shape`` itself first.
 
     rtdd-warmup-torch --size 1080p --size 4k --effect b
     rtdd-warmup-torch --images dataset/images          # every distinct shape
@@ -19,8 +22,9 @@ process that wants its first pair warm calls ``warm_shape`` itself first.
 
 Paths run per shape: solve, the gray pyramid, the u8/u16 depth readouts,
 solve+effect and the effect for each --effect, and (with --incremental) the
-windowed live re-solve with and without each effect. There are no staged
-programs. --jobs bounds the nvcc processes of the build.
+windowed live re-solve with and without each effect (eager: it captures
+no graph); then the graphs. The fast-start path runs eagerly (the JAX
+tool's staged programs). --jobs bounds the nvcc processes of the build.
 """
 
 from __future__ import annotations
@@ -88,7 +92,8 @@ def warm_shape(
     (or load) the kernels with at most ``jobs`` nvcc processes and ask the
     card for K2's largest cluster and its L2 size. Then run each path once
     on a seeded image of the shape, logging its seconds (to the end of its
-    device work)."""
+    device work), and capture the solve's programs, logging their capture
+    seconds (0 on the CPU, where nothing is captured)."""
     import numpy as np
     import torch
 
@@ -138,6 +143,12 @@ def warm_shape(
         for e in effects:
             timed(f"incremental+effect[{e}]",
                   lambda: pipe.solve_incremental_and_effect(e, gp, rgb_d, m0, v0, state, center))
+    programs = [("solve", None, (gp, m0, v0, state))]
+    programs += [(f"solve+effect[{e}]", e, (gp, rgb_d, m0, v0, state)) for e in effects]
+    for name, e, args in programs:
+        dt = pipe.capture(e, *args)
+        log(f"  {rows}x{cols} {name} graph: "
+            + ("none (the early exit runs eagerly)" if dt is None else f"{dt:.3f} s"))
     return time.perf_counter() - t_shape
 
 

@@ -947,3 +947,103 @@ def test_solve_pairs_async_equals_sequential_and_pipeline(dev, tmp_path):
                    for name in runs}
             assert got["async"] == got["sequential"], (stem, kind)
             assert np.array_equal(io.png_decode(got["async"]), arr), (stem, kind)
+
+
+def _photo(rows, cols, seed):
+    """Smooth 16-pixel blocks with a little noise, and three scribbles."""
+    r = np.random.default_rng(seed)
+    coarse = r.integers(0, 256, (rows // 16 + 1, cols // 16 + 1, 3))
+    rgb = np.clip(np.kron(coarse, np.ones((16, 16, 1), np.int64))[:rows, :cols]
+                  + r.integers(-4, 5, (rows, cols, 3)), 0, 255).astype(np.uint8)
+    mask = np.zeros((rows, cols), bool)
+    value = np.zeros((rows, cols), np.uint8)
+    for i, d in enumerate((0, 128, 254)):
+        y, x = (i + 1) * rows // 4, (i + 1) * cols // 4
+        mask[y:y + 40, x:x + 60], value[y:y + 40, x:x + 60] = True, d
+    return rgb, mask, value
+
+
+@pytest.mark.parametrize("name,rows,cols,cfg_kw", [
+    ("1080p default", 1080, 1920, {}),
+    ("4K approx", 2160, 3840, {"pallas_defocus_quality": "approx"}),
+    ("4K exact", 2160, 3840, {"pallas_defocus_quality": "exact"}),
+    ("V-cycle", 1080, 1920, {"multigrid": "vcycle"}),
+    ("red-black fixed count", 1080, 1920, {"solver": "red_black"}),
+])
+def test_replayed_frame_equals_eager(dev, name, rows, cols, cfg_kw):
+    """fast_start frames of ``solve_and_effect(EFFECT_DEFOCUS)``: the first
+    two run eagerly and the second captures the CUDA graph (the V-cycle, which
+    has no staged form, captures at its first); later frames replay it. Each
+    frame equals the eager function on the same inputs bit for bit, launches
+    what the eager frame launches (a replay adds its capture's tally), and
+    no tensor an earlier frame returned changes under a later replay."""
+    from realtimedepthdiffusion_tpu_torch import DepthPipeline
+    from realtimedepthdiffusion_tpu_torch.core import effects as fx
+
+    pipe = DepthPipeline(rows, cols, DiffusionConfig(fast_start=True, **cfg_kw), device=dev)
+    rgb, mask, value = _photo(rows, cols, rows + len(cfg_kw))
+    rgb_d, gpyr = pipe.prepare_image(rgb)
+    state = pipe.initial_state()
+    held = None
+    key = ("solve_fx", fx.EFFECT_DEFOCUS)
+    for i in range(5):
+        if i == 2:
+            mask[rows // 2:rows // 2 + 30, 40:90], value[rows // 2:rows // 2 + 30, 40:90] = True, 96
+        m, v = torch.from_numpy(mask).to(dev), torch.from_numpy(value).to(dev)
+        ops.reset_launch_counts()
+        got = pipe.solve_and_effect(fx.EFFECT_DEFOCUS, gpyr, rgb_d, m, v, state)
+        counts = {k: n for k, n in ops.launch_counts().items() if n}
+        ops.reset_launch_counts()
+        want = pipe._solve_fx_eager(fx.EFFECT_DEFOCUS, tuple(gpyr), rgb_d, m, v, state)
+        assert counts == {k: n for k, n in ops.launch_counts().items() if n} and counts
+        torch.cuda.synchronize()
+        assert torch.equal(got[0], want[0]) and torch.equal(got[2], want[2]), (name, i)
+        assert all(torch.equal(a, b) for a, b in zip(got[1], want[1])), (name, i)
+        assert (key in pipe._aot) == (i >= 1 or name == "V-cycle"), (name, i)
+        if key in pipe._aot:
+            assert pipe._aot[key].tally == counts
+        if i == 2:
+            held = (got, tuple(t.clone() for t in (got[0], *got[1], got[2])))
+        state = got[1]
+    frame, copies = held
+    assert all(torch.equal(a, b) for a, b in zip((frame[0], *frame[1], frame[2]), copies))
+    assert frame[0] is frame[1][0]  # one tensor, as the eager solve returns it
+
+
+def test_replay_mismatch_runs_eagerly_and_fast_profile_captures_nothing(dev, monkeypatch):
+    """A uint8 mask does not match the captured bool mask: the solve runs
+    eagerly (no replay) with the same numbers. Under ``--profile fast``
+    (the residual early exit) no program is ever stored."""
+    from realtimedepthdiffusion_tpu_torch import DepthPipeline, pipeline
+    from realtimedepthdiffusion_tpu_torch.core import effects as fx
+
+    rows, cols = 540, 960
+    rgb, mask, value = _photo(rows, cols, 3)
+    pipe = DepthPipeline(rows, cols, DiffusionConfig(fast_start=False), device=dev)
+    _, gpyr = pipe.prepare_image(rgb)
+    m, v = torch.from_numpy(mask).to(dev), torch.from_numpy(value).to(dev)
+    d_b, _ = pipe.solve(gpyr, m, v, pipe.initial_state())
+    assert ("solve",) in pipe._aot  # fast_start off: captured at the first call's end
+    replays = []
+    real = pipeline._Program.__call__
+    monkeypatch.setattr(pipeline._Program, "__call__",
+                        lambda self, *a: (replays.append(1), real(self, *a))[1])
+    ops.reset_launch_counts()
+    d_u8, _ = pipe.solve(gpyr, m.to(torch.uint8), v, pipe.initial_state())
+    assert not replays and sum(ops.launch_counts().values()) > 0
+    d_r, _ = pipe.solve(gpyr, m, v, pipe.initial_state())
+    assert replays
+    torch.cuda.synchronize()
+    assert torch.equal(d_u8, d_b) and torch.equal(d_r, d_b)
+
+    fast = DepthPipeline(rows, cols, DiffusionConfig(
+        solver="red_black", early_exit=True, tolerance=1e-3, residual_metric="rms",
+        fast_start=True), device=dev)
+    rgb_d, gpyr = fast.prepare_image(rgb)
+    state = fast.initial_state()
+    for _ in range(3):
+        log = []
+        ops.reset_launch_counts()
+        _, state, _ = fast.solve_and_effect(fx.EFFECT_DEFOCUS, gpyr, rgb_d, m, v, state, log)
+        assert log and ops.launch_counts()["defocus_box"] == 1
+    assert fast._aot == {} and fast.wait_fused() and fast.capture(None, gpyr, m, v, state) is None

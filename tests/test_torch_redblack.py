@@ -349,3 +349,21 @@ def test_unknown_solver_raises():
     with pytest.raises(ValueError, match="red_black"):
         solver.solve_level(torch.from_numpy(depth), torch.from_numpy(mask),
                            torch.from_numpy(gray), 0, 1, 3, cfg)
+
+
+def test_rb_level_tables_are_made_once():
+    """The red-black omegas of a level are made once per (iters, cfg) and
+    kept once per device (``ops/sweep.py:device_table``); the plain level
+    solve reads that copy and the array alike, bit for bit."""
+    cfg = DiffusionConfig(**RB)
+    om = solver.level_schedule(9, cfg)
+    assert om is solver.level_schedule(9, cfg) and not om.flags.writeable
+    assert np.array_equal(om, solver.rb_omegas(9, cfg)) and om.shape == (9, 2)
+    dev = sweep.device_table(om, torch.device("cpu"))
+    assert dev is sweep.device_table(om.copy(), "cpu") and np.array_equal(dev.numpy(), om)
+    gray, mask, depth = _case(4, 23, 31)
+    d, m = torch.from_numpy(depth), torch.from_numpy(mask)
+    wts = edge_weights(torch.from_numpy(gray), d, 0, 1, cfg)
+    want = rb_sweep.solve_level_rb_plain(d, m, wts, om)
+    assert torch.equal(rb_sweep.solve_level_rb_plain(d, m, wts, dev), want)
+    assert torch.equal(solver.solve_level(d, m, torch.from_numpy(gray), 0, 1, 9, cfg), want)

@@ -177,3 +177,27 @@ def test_resident_fit_rule(h, w, max_cluster, cluster):
     if cluster:
         assert -(-h // cluster) <= sweep.RESIDENT_ROWS and w <= sweep.RESIDENT_MAX_W
     assert sweep.resident_max_cluster(torch.device("cpu")) == sweep.H100_MAX_CLUSTER
+
+
+@pytest.mark.parametrize("solver_name", ["jacobi_chebyshev", "jacobi"])
+def test_level_tables_are_made_once(solver_name):
+    """A level's (a, b, c) table is made once per (iters, cfg), read-only,
+    and ``device_table`` keeps one copy of it per contents and device: the
+    kernels' table on the card is the array the plain version reads. The
+    plain level solve on that copy equals it on the array, bit for bit."""
+    cfg = DiffusionConfig(solver=solver_name)
+    table = solver.level_schedule(25, cfg)
+    assert table is solver.level_schedule(25, cfg) and not table.flags.writeable
+    assert np.array_equal(table, solver._SCHEDULES[solver_name](25, cfg))
+    cpu = torch.device("cpu")
+    dev = sweep.device_table(table, cpu)
+    assert dev is sweep.device_table(table.copy(), cpu)
+    assert dev.dtype == torch.float32 and np.array_equal(dev.numpy(), table)
+    gray, mask, depth = _case(7)
+    d, m = torch.from_numpy(depth), torch.from_numpy(mask)
+    wts = edge_weights(torch.from_numpy(gray), d, 0, 1, cfg)
+    assert torch.equal(sweep.solve_level_plain(d, m, wts, dev),
+                       sweep.solve_level_plain(d, m, wts, table))
+    # solve_level takes the cached table.
+    assert torch.equal(solver.solve_level(d, m, torch.from_numpy(gray), 0, 1, 25, cfg),
+                       sweep.solve_level_plain(d, m, wts, table))

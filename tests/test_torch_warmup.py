@@ -37,7 +37,8 @@ def test_warmup_tool(tmp_path, capsys, monkeypatch, build_dir):
     names = [line.strip().split(": ")[0].split(" ", 1)[1] for line in out.splitlines()
              if line.startswith("  64x96 ")]
     assert names == ["card", "gray_pyramid", "solve", "depth_u8", "depth_u16",
-                     "solve+effect[3]", "effect[3]", "incremental", "incremental+effect[3]"]
+                     "solve+effect[3]", "effect[3]", "incremental", "incremental+effect[3]",
+                     "solve graph", "solve+effect[3] graph"]
     assert "build" not in names  # the CPU builds nothing
     assert (tmp_path / "cache").exists()
     assert build.library_path().parent == tmp_path / "cache"
