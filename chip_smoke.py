@@ -31,10 +31,10 @@ Phases, each printed on its own lines; any failure raises and exits non-zero:
 5. Drives the ``--profile fast`` path (red-black SOR with the rms early
    exit, resolved by the port's ``flags.py``) the same way: three frames
    through K4, K5 and K3, the iterations and residual probes of every
-   level, from which the frames' K4 and K5 launches are asserted (one per
-   k iterations of each chunk between two probes), a kernel frame against
-   the plain frame, and a small solve against
-   the CPU's. Then one ``solver="jacobi"`` frame and one Jacobi-Chebyshev
+   level, and the frames' K4 and K5 launches (every chunk of each level's
+   cap is issued, the exit being decided on the card: one K5, or one K4
+   per k iterations, a chunk), a kernel frame against the plain frame,
+   and a small solve against the CPU's. Then one ``solver="jacobi"`` frame and one Jacobi-Chebyshev
    early-exit frame, each exact against the plain frame.
 6. Drives the 4K path at 2160x3840: K6 against its plain version (and K1)
    at L0 and at the L1 shape, at k = 1, 8, 12 and 16, with K6, K1 and plain
@@ -66,7 +66,7 @@ Phases, each printed on its own lines; any failure raises and exits non-zero:
 8. Takes the device time alone of K1, K3, K4, K5 and K6 at the shapes
    above and of phase 9's windows: the launches of a level or an effect are
    captured once into a CUDA graph and replayed, so that the host paces
-   nothing between them. It runs last, after phases 9 to 13.
+   nothing between them. It runs last, after phases 9 to 14.
 9. Drives the paths that run the kernels at other shapes or beside plain
    torch ops. The windows of the incremental re-solve: K1 on a 384x384
    level-0 window and K2 on a 192x192 level-1 window (K4 on both under
@@ -107,7 +107,10 @@ Phases, each printed on its own lines; any failure raises and exits non-zero:
    routes give (K2 x3, K1 x24, K3 x1 first; K2 x4, K1 x15, K3 x1 for one
    rect; twice that for two; under the fast profile K4 and K5 by the exit
    log), upload what its path needs, and equal the same update on the plain
-   versions on the card bit for bit. Timed updates of each kind (strokes,
+   versions on the card bit for bit. The first rect finds the windowed
+   path's gate closed: it re-solves in full and kicks the capture of the
+   windowed re-solve, whose eager run on stand-ins it also launches; later
+   rects replay that graph. Timed updates of each kind (strokes,
    then ``solve()`` returning the u8 map: CUDA events and the host's clock,
    the upload/solve split of the session's ``StageTimer``), ``save()``, a
    checkpoint with two rects pending resumed into a new session (its next
@@ -120,8 +123,9 @@ Phases, each printed on its own lines; any failure raises and exits non-zero:
    ``solve_pairs`` as ``--effect b --depth16 --png-level 1`` runs it,
    asynchronous and strictly sequential (exactly a default frame's launches
    per pair; every PNG equal to ``DepthPipeline.solve_and_effect`` on the
-   same inputs), ``--profile fast`` on two pairs (launches by the exit
-   log), ``solve_pairs_multichip`` with a batch of 4 on phase 7's 8-slot
+   same inputs), ``--profile fast`` on three pairs (every chunk of each
+   level the exit log names; the second pair captures the solve's graph,
+   which the third replays), ``solve_pairs_multichip`` with a batch of 4 on phase 7's 8-slot
    mesh (six pairs: the second step padded; two steps' launches; every PNG
    equal to the single-device frame), ``main(["--watch", ...])`` on a
    thread over three pairs and a broken JPEG sharing a solved pair's stem,
@@ -155,14 +159,34 @@ Phases, each printed on its own lines; any failure raises and exits non-zero:
    capture's tally), and the third frame's tensors must be unchanged after
    the fifth. A uint8 mask must take the eager path. The same at 2160x3840
    exact and approx (K6 in the graph), for a V-cycle (captured at its first
-   frame) and for fixed-count red-black (K4 and K5 in the graph); under
-   ``--profile fast`` no program may be stored and the launches follow the
-   exit log. Times: chains of eager and replayed frames in turns (CUDA
-   events and the host clock), each graph's capture and instantiation
+   frame), for fixed-count red-black (K4 and K5 in the graph) and under
+   ``--profile fast`` (the early exit's chunks in the graph). Times: chains
+   of eager and replayed frames in turns (CUDA events and the host clock),
+   each graph's capture and instantiation
    seconds, one replay under the profiler (its kernel nodes by name must
    equal the graph's tally; its busy share), and the 1080p chains again
    after every capture, to show whether captures slow the process. One
    ``{"graphs": ...}`` JSON line.
+14. Drives the early exit decided on the card and the windowed re-solve
+   with its window origin on the card, both as CUDA graphs, after phase 13
+   and before phase 8. Each of K1 (1080p L0, L1), K2 (L4), K4 (L0), K5 (L4)
+   and K6 (4K L0) launched with the early exit's flag set must leave its
+   input as it was, and with it clear or null equal its plain version bit
+   for bit. Then, with the counts at 0, the phase's main path: five
+   ``--profile fast`` frames and four Jacobi-Chebyshev early-exit frames at
+   1080p and three at 4K (K6), the first two eager and the rest replaying
+   the graph captured at the second, each equal to the eager frame bit for
+   bit with the same iterations and probes per level; and the windowed
+   re-solve (``incremental_iterations=120``) captured by
+   ``incremental_ready``'s kick from stand-ins at centre (0, 0) and
+   replayed at five centres, two of them corners where the window clamps,
+   each equal to the eager frame at its centre. Every one of K1-K6 must
+   have launched in it. Times: chains of eager and replayed fast, early
+   exit and incremental frames in turns; a live session's one-rect updates
+   replayed against eager; and what the chunks after an exit cost, the
+   device time of a replayed fast frame against the same frame with the
+   loop read on the host (chunks after the exit never issued). One
+   ``{"device_loop": ...}`` JSON line.
 
 Each phase prints its seconds. The line before the last is a JSON object
 of the kernels, each with its launches on its main path, its largest
@@ -242,7 +266,7 @@ BENCH_RUNS = (
     ("cold, nvcc build", "bench_cold", [], {"RTDD_NO_COMPILE_CACHE": "1"}),
 )
 # The twins' stderr lines that phase 12 prints.
-BENCH_LOG = ("envelope", "device per frame", "sweeps/frame", "early exit reads", "kernels:",
+BENCH_LOG = ("envelope", "device per frame", "sweeps/frame", "early exit on the card", "kernels:",
              "import+device", "first solve", "card:")
 
 
@@ -564,9 +588,9 @@ def main() -> None:
         k = sweep.TILE_SWEEPS
 
         def run():
-            def launch(u_in, p_in, u_out, p_out, b, n_active):
+            def launch(u_in, p_in, u_out, p_out, b, n_active, stop=None):
                 sweep.jc_sweep_tiles(u_in, p_in, u_out, p_out, *planes, abc_d, b, n_active, k,
-                                     tile)
+                                     tile, stop)
             return sweep.ping_pong(depth_t.clone(), torch.zeros_like(depth_t), launch, 0,
                                    len(abc), k)[0]
 
@@ -940,24 +964,41 @@ def main() -> None:
     if fast_launches["jc_sweep_fused"] or fast_launches["jc_sweep_tiles"]:
         raise AssertionError("the fast path launched a Jacobi kernel")
 
-    def exit_chunks(e, every):
-        """The iterations of each chunk a level ran: full chunks of
-        ``every`` between two probes, then what was left of its cap."""
-        full, rest = divmod(e["iters"], every)
+    def split(n, every):
+        """n iterations in chunks of ``every``, the last cut."""
+        full, rest = divmod(n, every)
         return [every] * full + [rest] * (rest > 0)
 
-    # The routes' launches: per chunk of a level, one K5 launch where the
-    # level fits one CTA, else one K4 launch per k iterations; K3 once.
+    def exit_chunks(e, every):
+        """The chunks the sharded step's early exit ran (its loop reads
+        each probe on the host): full chunks of ``every`` between two
+        probes, then what was left of its cap."""
+        return split(e["iters"], every)
+
+    def issued_chunks(e, every):
+        """The chunks a single-device early exit issues: every chunk of
+        the level's cap, decided on the card (those after the exit run as
+        no-ops, core/solver.py:_chunked_early_exit)."""
+        return split(e["cap"], every)
+
+    def rb_exit_launches(log, every, want):
+        """Add to ``want`` the launches of a red-black early exit's levels:
+        per chunk issued, one K5 launch where the level fits one CTA, else
+        one K4 launch per k iterations."""
+        for e in log:
+            chunks = issued_chunks(e, every)
+            if rb_sweep.rb_resident_fits(*e["shape"]):
+                want["rb_sweep_resident"] += len(chunks)
+            else:
+                want["rb_sweep_tiles"] += sum(-(-n // rb_sweep.RB_TILE_ITERS) for n in chunks)
+        return want
+
+    # The routes' launches; K3 once a frame.
     want_fast = collections.Counter(defocus_box=len(fast_frames))
     for *_, log in fast_frames:
-        for e in log:
-            chunks = exit_chunks(e, fast_cfg.residual_check_every)
-            if rb_sweep.rb_resident_fits(*e["shape"]):
-                want_fast["rb_sweep_resident"] += len(chunks)
-            else:
-                want_fast["rb_sweep_tiles"] += sum(-(-n // rb_sweep.RB_TILE_ITERS)
-                                                   for n in chunks)
-    print(f"fast path: launches by the routes and the exit log {json.dumps(want_fast)}")
+        rb_exit_launches(log, fast_cfg.residual_check_every, want_fast)
+    print(f"fast path: launches by the routes, every chunk of each level's cap "
+          f"{json.dumps(want_fast)}")
     if {k: v for k, v in fast_launches.items() if v} != dict(want_fast):
         raise AssertionError(f"3 fast frames launched {fast_launches}, not {dict(want_fast)}")
     for i, (depth0, out, m_d, v_d, log) in enumerate(fast_frames):
@@ -1522,27 +1563,36 @@ def main() -> None:
               f"{json.dumps(line)}")
 
     # The incremental path at full width.
-    def incremental_launches(c, gp):
-        """The launches of one incremental frame by the routes: a windowed
-        level solves its window (and its global sweeps, if any), every other
-        level itself; one K3."""
-        want = collections.Counter(defocus_box=1)
+    def incremental_solves(c, gp):
+        """The level solves of one incremental frame, as (shape, iterations):
+        a windowed level solves its window (and its global sweeps, if any),
+        every other level itself."""
+        solves = []
         inc = c.incremental_iterations if c.incremental_iterations > 0 else c.max_iterations
         for level, g in enumerate(gp):
             h, w = g.shape
             win = c.incremental_window >> level
             if level < c.incremental_window_levels and win < min(h, w):
                 iters = max(inc >> level, 1)
-                solves = [((win, win), iters)]
+                solves.append(((win, win), iters))
                 if c.incremental_global_smooth > 0:
                     solves.append(((h, w), min(c.incremental_global_smooth, iters)))
             else:
-                solves = [((h, w), c.level_iterations(len(gp), level))]
-            for (sh, sw), iters in solves:
-                blocks = -(-iters // sweep.TILE_SWEEPS)
-                want.update({"K2": {"jc_sweep_resident": 1}, "K1": {"jc_sweep_tiles": blocks},
-                             "K6": {"jc_sweep_fused": blocks}}[
-                                 sweep.strip_route(sh, sw, l2, max_cluster)])
+                solves.append(((h, w), c.level_iterations(len(gp), level)))
+        return solves
+
+    def incremental_launches(c, gp):
+        """The launches of one incremental frame by the routes; one K3.
+        Under the early exit (red-black) every chunk of each solve's cap."""
+        want = collections.Counter(defocus_box=1)
+        if c.early_exit:
+            return rb_exit_launches([{"shape": sh, "cap": it} for sh, it in
+                                     incremental_solves(c, gp)], c.residual_check_every, want)
+        for (sh, sw), iters in incremental_solves(c, gp):
+            blocks = -(-iters // sweep.TILE_SWEEPS)
+            want.update({"K2": {"jc_sweep_resident": 1}, "K1": {"jc_sweep_tiles": blocks},
+                         "K6": {"jc_sweep_fused": blocks}}[
+                             sweep.strip_route(sh, sw, l2, max_cluster)])
         return want
 
     want_inc = incremental_launches(icfg, gray_pyr)
@@ -2001,23 +2051,24 @@ def main() -> None:
         s.set_effect_key("b")
         return s
 
-    def expected_launches(s, c, local, n_rects, pipe_cfg):
-        """What an update must launch: by the exit log under the early exit,
-        else by the routes (a full frame of its pipeline, or one windowed
-        re-solve per rect); one K3."""
+    def expected_launches(s, c, local, n_rects, pipe_cfg, kicked):
+        """What an update must launch: under the early exit, every chunk of
+        each level solve the exit log names, else by the routes (a full
+        frame of its pipeline, or one windowed re-solve per rect); one K3.
+        An update that kicks the windowed re-solve's capture adds that
+        program's one eager run on stand-ins (``incremental_ready``)."""
         if c.early_exit:
-            want = collections.Counter(defocus_box=1)
-            for e in s.exit_log:
-                if rb_sweep.rb_resident_fits(*e["shape"]):
-                    want["rb_sweep_resident"] += len(exit_chunks(e, c.residual_check_every))
-                else:
-                    want["rb_sweep_tiles"] += sum(-(-n // rb_sweep.RB_TILE_ITERS)
-                                                  for n in exit_chunks(e, c.residual_check_every))
-            return dict(want)
-        if not local:
-            return dict(frame_launches(gray_pyr, pipe_cfg))
-        one = incremental_launches(c, gray_pyr)
-        return {k: (1 if k == "defocus_box" else n_rects * v) for k, v in one.items()}
+            want = rb_exit_launches(s.exit_log, c.residual_check_every,
+                                    collections.Counter(defocus_box=1))
+        elif not local:
+            want = collections.Counter(frame_launches(gray_pyr, pipe_cfg))
+        else:
+            one = incremental_launches(c, gray_pyr)
+            want = collections.Counter(
+                {k: (1 if k == "defocus_box" else n_rects * v) for k, v in one.items()})
+        if kicked:
+            want.update(incremental_launches(c, gray_pyr))
+        return dict(want)
 
     def live_update(s, c, name, paints=(), load=False, verify=True):
         """One update: (x, y, colour key) strokes or an annotation load, then
@@ -2026,6 +2077,10 @@ def main() -> None:
         before_state = s.depth_state
         totals = dict(s.timer.totals)
         s.exit_log.clear()
+        # The windowed path's gate (JAX's): closed until the windowed
+        # re-solve's program exists; the update that finds it closed
+        # re-solves in full and then captures it.
+        gate = s.pipe.incremental_ready(fx.EFFECT_DEFOCUS, kick=False)
         ops.reset_launch_counts()
         torch.cuda.synchronize()
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -2044,14 +2099,16 @@ def main() -> None:
         counts = {k: v for k, v in ops.launch_counts().items() if v}
         live_launches.update(counts)
         s_win = min(c.incremental_window, H, W)
-        local = (s._inc_pipe is not None and s.solve_count > 1 and bool(rects)
-                 and len(rects) <= max(c.incremental_max_rects, 1)
-                 and all(r[2] - r[0] + 1 <= s_win and r[3] - r[1] + 1 <= s_win for r in rects))
+        eligible = (s._inc_pipe is not None and s.solve_count > 1 and bool(rects)
+                    and len(rects) <= max(c.incremental_max_rects, 1)
+                    and all(r[2] - r[0] + 1 <= s_win and r[3] - r[1] + 1 <= s_win
+                            for r in rects))
+        local, kicked = eligible and gate, eligible and not gate
         want_bytes = (2 * s_win * s_win * len(rects) if local
                       else 2 * H * W if rects or s.solve_count == 1 else 0)
         if s.last_upload_bytes != want_bytes:
             raise AssertionError(f"{name}: uploaded {s.last_upload_bytes} bytes, not {want_bytes}")
-        want = expected_launches(s, c, local, len(rects), pipe_cfg)
+        want = expected_launches(s, c, local, len(rects), pipe_cfg, kicked)
         if counts != want:
             raise AssertionError(f"{name}: launched {counts}, not {want}")
         if not (isinstance(u8, np.ndarray) and u8.dtype == np.uint8 and u8.shape == (H, W)):
@@ -2063,6 +2120,7 @@ def main() -> None:
         if not torch.equal(s.depth0[m_d], v_d[m_d].to(torch.float32)):
             raise AssertionError(f"{name}: scribble pixels are not pinned")
         row = {"rects": len(rects), "path": "windowed" if local else "full",
+               "kicked_capture": kicked,
                "host_ms": host_ms, "event_ms": start.elapsed_time(end),
                "upload_ms": (s.timer.totals["upload"] - totals.get("upload", 0.0)) * 1e3,
                "solve_ms": (s.timer.totals["solve"] - totals.get("solve", 0.0)) * 1e3,
@@ -2151,8 +2209,12 @@ def main() -> None:
 
     s_inc, live["incremental_120"] = live_loop("incremental_iterations=120", icfg)
     inc_rows = live["incremental_120"]["updates"]
+    # The gate is closed at the first rect: a full re-solve at the 120
+    # budget (K2 x3, K1 x3 on L1 and L0), then the kick's eager run of the
+    # windowed re-solve on stand-ins before its capture; windowed from then.
     for name, want in (("first", {"jc_sweep_resident": 3, "jc_sweep_tiles": 24, "defocus_box": 1}),
-                       ("one rect", {"jc_sweep_resident": 4, "jc_sweep_tiles": 15, "defocus_box": 1}),
+                       ("one rect", {"jc_sweep_resident": 3 + 4, "jc_sweep_tiles": 3 + 15,
+                                     "defocus_box": 2}),
                        ("two rects", {"jc_sweep_resident": 8, "jc_sweep_tiles": 30,
                                       "defocus_box": 1})):
         if inc_rows[name]["launches"] != want:
@@ -2192,6 +2254,9 @@ def main() -> None:
     resumed = DepthSession(lrgb, icfg, device="cuda")
     resumed.load_checkpoint(ck)
     ck_load_ms = (time.perf_counter() - t0) * 1e3
+    # Its windowed re-solve's program, as the original session holds one,
+    # so that both take the windowed path.
+    resumed.pipe.incremental_ready(fx.EFFECT_DEFOCUS)
     if resumed.dirty_rects != s_inc.dirty_rects or len(resumed.dirty_rects) != 2:
         raise AssertionError(f"the pending rects came back as {resumed.dirty_rects}")
     results = []
@@ -2431,8 +2496,10 @@ def main() -> None:
         runs["async"]["wall_s"] * 1e3)
     srv["solve_pairs"] = runs
 
-    # --profile fast on two pairs; the launches by the exit log of each solve.
-    fast_logs = []
+    # --profile fast on three pairs; the launches by the levels of each
+    # solve's exit log (every chunk of a level's cap is issued). Under the
+    # early exit the server lets the second pair capture the solve's graph.
+    fast_logs, fast_pipes = [], {}
 
     class LoggedPipeline(pipeline_mod.DepthPipeline):
         def solve_and_effect(self, *a, **kw):
@@ -2442,22 +2509,20 @@ def main() -> None:
     ops.reset_launch_counts()
     t0 = time.perf_counter()
     with mock.patch.object(pipeline_mod, "DepthPipeline", LoggedPipeline):
-        written = serve.solve_pairs(pairs[:2], f"{sd}/fast", fast_cfg, fx.EFFECT_DEFOCUS,
-                                    png_level=1, device="cuda")
+        written = serve.solve_pairs(pairs[:3], f"{sd}/fast", fast_cfg, fx.EFFECT_DEFOCUS,
+                                    png_level=1, device="cuda", pipelines=fast_pipes)
     fast_wall = time.perf_counter() - t0
     counts = counted()
     want = collections.Counter(defocus_box=len(fast_logs))
     for log in fast_logs:
-        for e in log:
-            chunks = exit_chunks(e, fast_cfg.residual_check_every)
-            if rb_sweep.rb_resident_fits(*e["shape"]):
-                want["rb_sweep_resident"] += len(chunks)
-            else:
-                want["rb_sweep_tiles"] += sum(-(-n // rb_sweep.RB_TILE_ITERS) for n in chunks)
-    if len(fast_logs) != 2 or not all(written) or counts != dict(want):
+        rb_exit_launches(log, fast_cfg.residual_check_every, want)
+    if len(fast_logs) != 3 or not all(written) or counts != dict(want):
         raise AssertionError(f"serve --profile fast: {len(fast_logs)} solves launched {counts}, "
-                             f"not {dict(want)} by the exit log")
-    srv["fast"] = {"pairs": 2, "wall_s": fast_wall, "launches": counts,
+                             f"not {dict(want)} by the levels of the exit log")
+    programs = [list(p_._aot) for p_ in fast_pipes.values()]
+    if programs != [[("solve_fx", fx.EFFECT_DEFOCUS)]]:
+        raise AssertionError(f"serve --profile fast: programs {programs}")
+    srv["fast"] = {"pairs": 3, "wall_s": fast_wall, "launches": counts,
                    "iterations": [[e["iters"] for e in log] for log in fast_logs]}
     print(f"serve --profile fast: {json.dumps(srv['fast'])}")
 
@@ -2787,33 +2852,13 @@ def main() -> None:
                                                inrb[2], inrb[3], s)[1]})
     del prb, inrb
 
-    # --profile fast: the early exit reads a residual per chunk; no program.
-    pf = DepthPipeline(H, W, dataclasses.replace(fast_cfg, fast_start=True), device="cuda")
-    rgb_f, gp_f = pf.prepare_image(two[0])
-    mf, vf = bench_scribbles(H, W)
-    mf_d, vf_d = torch.from_numpy(mf).to(dev), torch.from_numpy(vf).to(dev)
-    st_f = pf.initial_state()
-    fast13 = []
-    for i in range(3):
-        log = []
-        ops.reset_launch_counts()
-        _, st_f, _ = pf.solve_and_effect(fx.EFFECT_DEFOCUS, gp_f, rgb_f, mf_d, vf_d, st_f, log)
-        want = collections.Counter(defocus_box=1)
-        for e in log:
-            chunks = exit_chunks(e, fast_cfg.residual_check_every)
-            if rb_sweep.rb_resident_fits(*e["shape"]):
-                want["rb_sweep_resident"] += len(chunks)
-            else:
-                want["rb_sweep_tiles"] += sum(-(-n // rb_sweep.RB_TILE_ITERS) for n in chunks)
-        if counted13() != dict(want):
-            raise AssertionError(f"fast frame {i}: launched {counted13()}, by the log {dict(want)}")
-        fast13.append(dict(want))
-    if pf._aot or not pf.wait_fused() or pf.capture(None, gp_f, mf_d, vf_d, st_f) is not None:
-        raise AssertionError(f"--profile fast stored a program: {list(pf._aot)}")
-    graphs["fast"] = {"programs": 0, "launches": fast13}
-    print(f"program --profile fast: 3 eager frames, no program, launches by the exit log "
-          f"{json.dumps(fast13)}")
-    del pf
+    # --profile fast: the early exit, decided on the card, captures like any
+    # config; phase 14 holds its replays, exit logs and times.
+    pf, in_f, graphs["fast"] = program_frames(
+        "--profile fast", dataclasses.replace(fast_cfg, fast_start=True), two, 4)
+    if not {"rb_sweep_tiles", "rb_sweep_resident"} <= set(graphs["fast"]["launches_per_frame"]):
+        raise AssertionError(f"fast graph: {graphs['fast']['launches_per_frame']}")
+    del pf, in_f
 
     # After every capture above: the 1080p chains again, to see whether the
     # captures slowed the rest of the process.
@@ -2823,6 +2868,339 @@ def main() -> None:
     print(json.dumps({"graphs": graphs}))
     del pa, ina, runs_a
     phase_done("13 (the program layer)")
+
+    # -- 14. the early exit and the windowed re-solve as CUDA graphs -------------------
+    t14 = time.perf_counter()
+    from realtimedepthdiffusion_tpu_torch.core.solver import read_exit_log
+    from realtimedepthdiffusion_tpu_torch.core.weights import depth_threshold, level_d8
+
+    loop = {"card": card}
+
+    # The flag of each sweep kernel at a main path's shape: set, a launch
+    # leaves its output equal to its input; clear (and null), it equals its
+    # plain version bit for bit. These launches are comparisons: the main
+    # path's counts are reset after them.
+    def jc_plain(u, p, w_, mask, abc):
+        for a, b, c_ in abc.tolist():
+            u, p = sweep.sweep_plain(u, p, w_.wl, w_.wr, w_.wu, w_.wd, w_.inv_count, mask,
+                                     a, b, c_)
+        return u, p
+
+    def rb_plain(u, w_, mask, om):
+        red = rb_sweep.red_black_parity(*u.shape, device=u.device)
+        for om_r, om_b in om.tolist():
+            u = rb_sweep.rb_iter_plain(u, w_.wl, w_.wr, w_.wu, w_.wd, w_.inv_count, mask, red,
+                                       om_r, om_b)
+        return u
+
+    def flag(v):
+        return None if v is None else torch.full((), v, dtype=torch.int32, device=dev)
+
+    def stop_case(name, gp, level):
+        """Kernel ``name`` on level ``level`` of the pyramid ``gp``, for 8
+        sweeps or iterations from base 0, at each flag: the outputs and
+        what they must equal."""
+        depth_t, mask_t, wts, _ = level_case(gp, level)
+        h, w = depth_t.shape
+        top = len(gp) - 1
+        m8 = mask_t.to(torch.uint8)
+        planes = (wts.wr.contiguous(), wts.wd.contiguous(), wts.inv_count.contiguous(), m8)
+        prev = torch.from_numpy((rng.random((h, w)) * 255.0).astype(np.float32)).to(dev)
+        abc8 = abc_schedule(8, cfg)
+        om8 = rb_omegas(8, cfg)
+        nan = lambda: torch.full_like(depth_t, float("nan"))  # noqa: E731
+        out = {}
+        for v in (1, 0, None):
+            stop = flag(v)
+            if name == "K1":
+                got = (nan(), nan())
+                sweep.jc_sweep_tiles(depth_t, prev, *got, *planes, sweep.device_table(abc8, dev),
+                                     0, 8, 8, stop=stop)
+                want = jc_plain(depth_t, prev, wts, mask_t, abc8)
+                held = (depth_t, prev)
+            elif name == "K2":
+                got = (depth_t.clone(), prev.clone())
+                sweep.jc_sweep_resident(*got, *planes, sweep.device_table(abc8, dev), 0, 8,
+                                        max_cluster, stop)
+                want = jc_plain(depth_t, prev, wts, mask_t, abc8)
+                held = (depth_t, prev)
+            elif name == "K6":
+                g = gp[level]
+                thr = depth_threshold(level, top, cfg)
+                got = (nan(), nan())
+                fused_sweep.jc_sweep_fused(depth_t, prev, *got, g.contiguous(), m8,
+                                           level_d8(depth_t).contiguous(),
+                                           sweep.device_table(abc8, dev),
+                                           fused_sweep.weight_exp_table(cfg, dev), 0, 8,
+                                           thr or 0, thr is not None, 8, stop)
+                fw = fused_sweep.derive_weights_plain(g, level_d8(depth_t), level, top, cfg)
+                want = jc_plain(depth_t, prev, fw, mask_t, abc8)
+                held = (depth_t, prev)
+            elif name == "K4":
+                got = (nan(),)
+                rb_sweep.rb_sweep_tiles(depth_t, got[0], *planes, sweep.device_table(om8, dev),
+                                        0, 8, 8, stop=stop)
+                want, held = (rb_plain(depth_t, wts, mask_t, om8),), (depth_t,)
+            else:  # K5
+                got = (depth_t.clone(),)
+                rb_sweep.rb_sweep_resident(got[0], *planes, sweep.device_table(om8, dev), 0, 8,
+                                           stop)
+                want, held = (rb_plain(depth_t, wts, mask_t, om8),), (depth_t,)
+            torch.cuda.synchronize()
+            expect = held if v == 1 else want
+            out[str(v)] = max(require_equal(torch, f"{name} L{level} stop={v} {part}", a, b)
+                              for part, a, b in zip(("u", "prev"), got, expect))
+        if torch.equal(want[0], held[0]):
+            raise AssertionError(f"{name}: eight sweeps left the level as it was")
+        return {"shape": [h, w], "max_abs_err_by_flag": out}
+
+    loop["stop_flag"] = {f"{k} {where}": stop_case(k, gp_, lv) for k, gp_, lv, where in (
+        ("K1", gray_pyr, 0, "1080p L0"), ("K1", gray_pyr, 1, "1080p L1"),
+        ("K2", gray_pyr, L, "1080p L4"), ("K4", gray_pyr, 0, "1080p L0"),
+        ("K5", gray_pyr, L, "1080p L4"), ("K6", gray4, 0, "4K L0"))}
+    print(f"stop flag: set, each launch left its input; clear or null, equal to plain: "
+          f"{json.dumps(loop['stop_flag'])}")
+
+    # The main path of this phase: early-exit frames and windowed re-solves
+    # through their programs, each held to the eager function bit for bit.
+    def exit_frames(name, c, rgbs, n_frames, scale=1):
+        """fast_start frames of solve_and_effect(EFFECT_DEFOCUS) under the
+        early exit, a scribble added before frame 3: frames 0 and 1 eager,
+        the kick at 1, then replays. Each frame equal to the eager function
+        on the same inputs bit for bit, with the same iterations and probes
+        per level. Returns the pipeline, the last inputs and the line."""
+        h, w = rgbs[0].shape[:2]
+        p = DepthPipeline(h, w, c, device="cuda")
+        rgb_d_, gp = p.prepare_image(rgbs[0])
+        mask, value = bench_scribbles(h, w, scale)
+        st, paths, logs = p.initial_state(), [], []
+        for i in range(n_frames):
+            if i == 3:
+                add_scribble(mask, value, scale)
+            m, v = torch.from_numpy(mask).to(dev), torch.from_numpy(value).to(dev)
+            paths.append("replay" if key_fx in p._aot else "eager")
+            log, want_log = [], []
+            got = p.solve_and_effect(fx.EFFECT_DEFOCUS, gp, rgb_d_, m, v, st, log)
+            want = p._solve_fx_eager(fx.EFFECT_DEFOCUS, tuple(gp), rgb_d_, m, v, tuple(st),
+                                     want_log)
+            read_exit_log(want_log)
+            torch.cuda.synchronize()
+            for part, a, b in (("depth", got[0], want[0]), ("effect", got[2], want[2]),
+                               *((f"state L{l_}", x, y) for l_, (x, y) in
+                                 enumerate(zip(got[1], want[1])))):
+                if not torch.equal(a, b):
+                    raise AssertionError(f"{name} frame {i} ({paths[-1]}): {part} differs from "
+                                         f"the eager frame (max abs {max_abs(torch, a, b)})")
+            if log != want_log or [e["shape"] for e in log] != [tuple(g.shape) for g in gp[::-1]]:
+                raise AssertionError(f"{name} frame {i}: exit log {log}, eager {want_log}")
+            logs.append([{"iters": e["iters"], "cap": e["cap"], "probes": len(e["probes"])}
+                         for e in log])
+            st = got[1]
+        if paths != ["eager", "eager"] + ["replay"] * (n_frames - 2):
+            raise AssertionError(f"{name}: frames took {paths}")
+        if not any(e["iters"] < e["cap"] for lg in logs for e in lg):
+            raise AssertionError(f"{name}: no level exited before its cap: {logs}")
+        line = {"shape": [h, w], "paths": paths, "capture_s": p._aot[key_fx].capture_s,
+                "launches_per_frame": p._aot[key_fx].tally, "levels": logs}
+        print(f"device loop {name}: {n_frames} frames equal to the eager frame bit for bit, "
+              f"with its exit log; {json.dumps(line)}")
+        return p, (gp, rgb_d_, m, v, st), line
+
+    inc_centres = [(540, 960), (3, 3), (H - 1, W - 1), (200, W - 20), (H - 10, 15)]
+
+    def inc_frames(name, c, rgb, mask, value):
+        """The windowed re-solve's program captured by incremental_ready's
+        kick (stand-ins, centre (0, 0)) and replayed at each centre of
+        ``inc_centres``, a scribble painted there first: each frame equal
+        to the eager function at its centre bit for bit, with its launches."""
+        p = DepthPipeline(H, W, c, device="cuda")
+        rgb_d_, gp = p.prepare_image(rgb)
+        mask = mask.copy()
+        m = torch.from_numpy(mask).to(dev)
+        v = torch.from_numpy(value).to(dev)
+        _, st, _ = p.solve_and_effect(fx.EFFECT_DEFOCUS, gp, rgb_d_, m, v, p.initial_state())
+        kicked = p.incremental_ready(fx.EFFECT_DEFOCUS)  # closed: captures now
+        if kicked or not p.incremental_ready(fx.EFFECT_DEFOCUS, kick=False):
+            raise AssertionError(f"{name}: the gate did not open after its kick")
+        prog = p._aot[("inc_fx", fx.EFFECT_DEFOCUS)]
+        for cy, cx in inc_centres:
+            mask[max(cy - 12, 0):cy + 12, max(cx - 16, 0):cx + 16] = True
+            m = torch.from_numpy(mask).to(dev)
+            before = ops.launch_counts()
+            got = p.solve_incremental_and_effect(fx.EFFECT_DEFOCUS, gp, rgb_d_, m, v, st, (cy, cx))
+            mid = ops.launch_counts()
+            want = p._inc_fx_eager(fx.EFFECT_DEFOCUS, tuple(gp), rgb_d_, m, v, tuple(st), (cy, cx))
+            after = ops.launch_counts()
+            torch.cuda.synchronize()
+            replay_n = {k: mid[k] - before[k] for k in mid if mid[k] != before[k]}
+            eager_n = {k: after[k] - mid[k] for k in mid if after[k] != mid[k]}
+            if replay_n != eager_n or replay_n != prog.tally:
+                raise AssertionError(f"{name} at {(cy, cx)}: replay launched {replay_n}, eager "
+                                     f"{eager_n}, the graph's tally {prog.tally}")
+            for part, a, b in (("depth", got[0], want[0]), ("effect", got[2], want[2]),
+                               *((f"state L{l_}", x, y) for l_, (x, y) in
+                                 enumerate(zip(got[1], want[1])))):
+                if not torch.equal(a, b):
+                    raise AssertionError(f"{name} at {(cy, cx)}: {part} differs from the eager "
+                                         f"frame (max abs {max_abs(torch, a, b)})")
+            if not torch.equal(got[0][m], v[m].to(torch.float32)):
+                raise AssertionError(f"{name} at {(cy, cx)}: scribbles not pinned")
+            st = got[1]
+        line = {"centres": inc_centres, "captured_at": [0, 0], "capture_s": prog.capture_s,
+                "launches_per_frame": prog.tally}
+        print(f"device loop {name}: replays at {len(inc_centres)} centres equal to the eager "
+              f"frames bit for bit; {json.dumps(line)}")
+        return p, (gp, rgb_d_, m, v, st), line
+
+    rng14 = np.random.default_rng(SEED + 14)
+    photo = photo_like(rng14, H, W)
+    ee_fast = dataclasses.replace(fast_cfg, fast_start=True)
+    ee_jc = DiffusionConfig(early_exit=True, tolerance=1e-3, fast_start=True)
+    dmask, dvalue = dense_scribbles(H, W)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    p_fast, in_fast, loop["fast"] = exit_frames("--profile fast 1080p", ee_fast, [photo], 5)
+    p_jc, in_jc, loop["jacobi_chebyshev"] = exit_frames("jacobi_chebyshev early exit 1080p",
+                                                          ee_jc, [photo], 4)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", RuntimeWarning)  # 'auto' resolves to approx at 4K
+        _, _, loop["jacobi_chebyshev_4k"] = exit_frames("jacobi_chebyshev early exit 4K", ee_jc,
+                                                        [rgb4_np], 3, scale=2)
+    p_inc, in_inc, loop["incremental"] = inc_frames(
+        "incremental 1080p", dataclasses.replace(icfg, fast_start=True), photo, dmask, dvalue)
+    torch.cuda.synchronize()
+    loop_launches = ops.launch_counts()
+    loop["main_path_s"] = time.perf_counter() - t0
+    loop["launches"] = {k: v for k, v in loop_launches.items() if v}
+    print(f"device loop main path: launches {json.dumps(loop['launches'])}")
+    for name in ("jc_sweep_tiles", "jc_sweep_resident", "defocus_box", "rb_sweep_tiles",
+                 "rb_sweep_resident", "jc_sweep_fused"):
+        if not loop_launches[name]:
+            raise AssertionError(f"phase 14's main path never launched {name}")
+
+    def turns(name, runs, st0, n):
+        """Chains of n calls, each from the last one's state, eager and
+        replayed in turns (eager, replay, replay, eager); ms per call by
+        CUDA events around the chain and by the host clock to its end."""
+        out = {"eager": [], "replay": []}
+        for kind_ in ("eager", "replay", "replay", "eager"):
+            st = runs[kind_](st0)  # warm
+            torch.cuda.synchronize()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            t0_ = time.perf_counter()
+            start.record()
+            for _ in range(n):
+                st = runs[kind_](st)
+            end.record()
+            end.synchronize()
+            out[kind_].append({"event_ms": start.elapsed_time(end) / n,
+                               "host_ms": (time.perf_counter() - t0_) * 1e3 / n})
+        print(f"device loop {name}: chains of {n}, ms per call in turns: {json.dumps(out)}")
+        return out
+
+    loop["fast"]["chains"], runs_fast = chains("--profile fast (device loop)", p_fast, in_fast, 16)
+    gp_i, rgb_i, m_i, v_i, st_i = in_inc
+    centre = (700, 1200)
+    loop["incremental"]["chains"] = turns("incremental frame", {
+        "eager": lambda s_: p_inc._inc_fx_eager(fx.EFFECT_DEFOCUS, tuple(gp_i), rgb_i, m_i, v_i,
+                                                 tuple(s_), centre)[1],
+        "replay": lambda s_: p_inc.solve_incremental_and_effect(
+            fx.EFFECT_DEFOCUS, gp_i, rgb_i, m_i, v_i, s_, centre)[1]}, st_i, 16)
+    gp_j, rgb_j, m_j, v_j, st_j = in_jc
+    loop["jacobi_chebyshev"]["chains"] = turns("jacobi_chebyshev early exit frame", {
+        "eager": lambda s_: p_jc._solve_fx_eager(fx.EFFECT_DEFOCUS, tuple(gp_j), rgb_j, m_j,
+                                                  v_j, tuple(s_))[1],
+        "replay": lambda s_: p_jc.solve_and_effect(fx.EFFECT_DEFOCUS, gp_j, rgb_j, m_j, v_j,
+                                                   s_)[1]}, st_j, 8)
+
+    # A live session's one-rect update (strokes, then solve() returning the
+    # u8 map), replayed (the first rect kicks the capture) against eager
+    # (background compiles off, so the gate stays open, and the first
+    # call's capture held off), in turns of eight updates.
+    sessions = {}
+    for kind_, background in (("replay", True), ("eager", False)):
+        s_ = DepthSession(photo, dataclasses.replace(icfg, fast_start=True), device="cuda")
+        s_.pipe.background_compile = background
+        if not background:
+            s_.pipe._capture = lambda key, args: None
+        s_.mask_np[:] = dmask
+        s_.value_np[:] = dvalue
+        s_.mark_all_dirty()
+        s_.set_effect_key("b")
+        s_.solve()
+        s_.paint(100, 100)
+        s_.solve()  # the replay session's first rect re-solves in full and kicks
+        sessions[kind_] = s_
+    upd = {"eager": [], "replay": []}
+    n_upd = 0
+    for kind_ in ("eager", "replay", "replay", "eager"):
+        s_ = sessions[kind_]
+        for i in range(8):
+            s_.set_color_key(1 + (n_upd % 4))
+            x0 = 200 + 37 * (n_upd % 40)
+            for j in range(6):
+                s_.paint(x0 + 4 * j, 300 + 17 * (n_upd % 30))
+            n_upd += 1
+            torch.cuda.synchronize()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            t0_ = time.perf_counter()
+            start.record()
+            s_.solve()
+            end.record()
+            end.synchronize()
+            upd[kind_].append({"host_ms": (time.perf_counter() - t0_) * 1e3,
+                               "event_ms": start.elapsed_time(end)})
+    if not ("inc_fx", fx.EFFECT_DEFOCUS) in sessions["replay"].pipe._aot or (
+            sessions["eager"].pipe._aot.keys() & {("inc_fx", fx.EFFECT_DEFOCUS)}):
+        raise AssertionError("the sessions' windowed programs are not as routed")
+    loop["session_one_rect"] = {k: {"host_ms_median": float(np.median([r["host_ms"] for r in v])),
+                                    "event_ms_median": float(np.median([r["event_ms"] for r in v])),
+                                    "host_ms_all": [round(r["host_ms"], 3) for r in v]}
+                                for k, v in upd.items()}
+    print(f"device loop session one-rect updates, in turns of 8: "
+          f"{json.dumps(loop['session_one_rect'])}")
+    del sessions
+
+    # What the chunks after an exit cost: a replayed fast frame's device
+    # time against the same frame with the loop read on the host (the
+    # chunks after the exit never issued), equal to it bit for bit.
+    gp_f, rgb_f, m_f, v_f, st_f = in_fast
+
+    def host_loop_frame():
+        with mock.patch.object(solver, "_host_loop", lambda device: True):
+            return p_fast._solve_fx_eager(fx.EFFECT_DEFOCUS, tuple(gp_f), rgb_f, m_f, v_f,
+                                          tuple(st_f))
+
+    ops.reset_launch_counts()
+    live_only = host_loop_frame()
+    live_launches_ = {k: v for k, v in ops.launch_counts().items() if v}
+    replayed = p_fast.solve_and_effect(fx.EFFECT_DEFOCUS, gp_f, rgb_f, m_f, v_f, st_f)
+    torch.cuda.synchronize()
+    for part, a, b in (("depth", replayed[0], live_only[0]), ("effect", replayed[2], live_only[2])):
+        require_equal(torch, f"host-loop fast frame {part}", a, b)
+    g_ms = time_ms(torch, lambda: p_fast.solve_and_effect(fx.EFFECT_DEFOCUS, gp_f, rgb_f, m_f,
+                                                          v_f, st_f), 10)
+    h_ms = time_ms(torch, host_loop_frame, 5)
+    tr_graph = traced("fast frame, replayed (every chunk)", lambda: p_fast.solve_and_effect(
+        fx.EFFECT_DEFOCUS, gp_f, rgb_f, m_f, v_f, st_f), g_ms)
+    tr_live = traced("fast frame, host loop (chunks up to the exit)", host_loop_frame, h_ms)
+    loop["post_exit"] = {
+        "graph_device_ms": tr_graph["device_ms"],
+        "graph_device_launches": tr_graph["device_launches"],
+        "graph_frame_ms": g_ms, "graph_busy": tr_graph["busy"],
+        "host_loop_device_ms": tr_live["device_ms"],
+        "host_loop_device_launches": tr_live["device_launches"],
+        "host_loop_frame_ms": h_ms, "host_loop_busy": tr_live["busy"],
+        "dead_ms": tr_graph["device_ms"] - tr_live["device_ms"],
+        "dead_launches": tr_graph["device_launches"] - tr_live["device_launches"],
+        "graph_tally": p_fast._aot[key_fx].tally, "host_loop_launches": live_launches_}
+    print(f"device loop post-exit cost: {json.dumps(loop['post_exit'])}")
+    del p_fast, in_fast, p_jc, in_jc, p_inc, in_inc, runs_fast
+    loop["seconds"] = time.perf_counter() - t14
+    print(json.dumps({"device_loop": loop}))
+    phase_done("14 (the device loop)")
 
     # -- 8. device time alone ----------------------------------------------------------
     device_ms = {label: graph_ms(torch, fn, 5) for label, fn in device_only.items()}
@@ -2955,6 +3333,7 @@ def main() -> None:
     for k in kernels:  # the launches of phase 10's CLI, live updates, resume and GUI ticks
         k["session_launches"] = live_launches[k["name"]]
         k["serve_launches"] = serve_launches[k["name"]]  # phase 11's
+        k["device_loop_launches"] = loop_launches[k["name"]]  # phase 14's
     print(f"frames: default {frame['ms']:.3f} ms (plain {frame['plain_ms']:.3f}), "
           f"fast {fast_frame['ms']:.3f} ms (plain {fast_frame['plain_ms']:.3f}), "
           f"4K {frame4['ms']:.3f} ms (plain {frame4['plain_ms']:.3f}), "

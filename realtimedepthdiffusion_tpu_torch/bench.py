@@ -161,15 +161,6 @@ def chain_envelopes(step: Callable, carry0, k: int, n: int, readback: Callable,
     return envelope_ms(chains[1], n), envelope_ms(chains[k], n)
 
 
-def chained_ms(step: Callable, state0, K: int = 8, n: int = 3, name: str = "") -> float:
-    """bench_configs' per-frame ms: (t(K) - t(1)) / (K - 1), the envelopes
-    the min of ``n`` runs, each chain ending in a host readback of the sum
-    of every tensor of its last state."""
-    leaves = (lambda s: [s]) if isinstance(state0, torch.Tensor) else list
-    t1, tk = chain_envelopes(step, state0, K, n, lambda s: to_host(leaves(s)), name)
-    return (tk - t1) / (K - 1)
-
-
 def device_profile(fn: Callable[[], object], dev: torch.device) -> Dict[str, object]:
     """``fn()`` once under ``torch.profiler``, tracing the card alone: the
     device's summed time (ms), its count of launches and copies, and the

@@ -19,8 +19,13 @@ against a full re-solve.
 
 The window's size is fixed by the config (``incremental_window``, halved
 per level); its place follows the edit and is clamped to keep the window
-inside the level. Each level solve runs through ``core/solver.py:solve_level``,
-so on a card a window runs the same kernels as a level of its shape.
+inside the level. The centre is a (2,) int32 tensor on the solve's
+device, as the reference's is a traced array: each windowed level computes
+its window's origin there, crops by index tensors built from it and writes
+the window back by ``index_put_``, so nothing is read to the host, the
+shapes are fixed, and a CUDA graph captured at one centre replays at any
+other. Each level solve runs through ``core/solver.py:solve_level``, so on
+a card a window runs the same kernels as a level of its shape.
 """
 
 from __future__ import annotations
@@ -37,23 +42,46 @@ from .solver import solve_level
 
 
 def _ring(win: int, device=None) -> torch.Tensor:
-    """Boolean border ring of a win x win window."""
-    edge = torch.zeros(win, dtype=torch.bool, device=device)
-    edge[0] = edge[win - 1] = True
+    """Boolean border ring of a win x win window, made on the device (no
+    host value is copied in, so a CUDA graph can capture it)."""
+    idx = torch.arange(win, device=device)
+    edge = (idx == 0) | (idx == win - 1)
     return edge[:, None] | edge[None, :]
 
 
 def host_yx(name: str, yx) -> Tuple[int, int]:
-    """``yx`` as two Python ints. It must live on the host (a pair, a numpy
-    array or a CPU tensor): a CUDA tensor would cost a device sync each time
-    it is read, so it is refused."""
+    """``yx`` (a pair, a numpy array or a tensor on any device) as two
+    Python ints; a tensor on a card is read back, which waits for it."""
     if isinstance(yx, torch.Tensor):
-        if yx.device.type != "cpu":
-            raise ValueError(f"{name} must be host integers, got a tensor on {yx.device}; "
-                             "pass a pair of ints, a numpy array or a CPU tensor")
         yx = yx.tolist()
     y, x = (int(v) for v in yx)
     return y, x
+
+
+def _card(device: torch.device):
+    """(type, index) of a device, a card named without an index as the
+    current one."""
+    if device.type == "cuda" and device.index is None:
+        return "cuda", torch.cuda.current_device()
+    return device.type, device.index
+
+
+def device_yx(name: str, yx, device) -> torch.Tensor:
+    """``yx`` as a (2,) int32 tensor on ``device``: a tensor there is used
+    as it is; host integers, a numpy array or a CPU tensor are uploaded, as
+    ``jnp.asarray`` puts them on the device. A tensor on another device is
+    refused: the solve would read it across devices."""
+    device = torch.device(device)
+    if isinstance(yx, torch.Tensor):
+        if yx.device.type != "cpu" and _card(yx.device) != _card(device):
+            raise ValueError(f"{name} must be host integers or a tensor on the CPU or on "
+                             f"{device}, got a tensor on {yx.device}")
+        out = yx.to(device=device, dtype=torch.int32)
+    else:
+        out = torch.tensor([int(v) for v in yx], dtype=torch.int32, device=device)
+    if tuple(out.shape) != (2,):
+        raise ValueError(f"{name} must be a (y, x) pair, got shape {tuple(out.shape)}")
+    return out
 
 
 def clamp_origin(oy: int, ox: int, win_h: int, win_w: int, h: int, w: int) -> Tuple[int, int]:
@@ -64,6 +92,22 @@ def clamp_origin(oy: int, ox: int, win_h: int, win_w: int, h: int, w: int) -> Tu
     then clamp), which puts the window of an edit near the top or left edge
     at the far side of the image; here it goes to 0, next to the edit."""
     return min(max(oy, 0), h - win_h), min(max(ox, 0), w - win_w)
+
+
+def window_indices(center: torch.Tensor, level: int, win: int, h: int, w: int):
+    """The rows and columns (int64, on the centre's device) of level
+    ``level``'s win x win window around the level-0 ``center``: from
+    ``(center >> level) - win // 2``, clamped into [0, h - win] x [0, w -
+    win] (``clamp_origin``'s rule), computed on the device."""
+    ar = torch.arange(win, device=center.device)
+    oy = ((center[0] >> level) - win // 2).clamp(0, h - win)
+    ox = ((center[1] >> level) - win // 2).clamp(0, w - win)
+    return oy + ar, ox + ar
+
+
+def _crop(plane: torch.Tensor, rows: torch.Tensor, cols: torch.Tensor) -> torch.Tensor:
+    """``plane[rows][:, cols]``, gathered on the device."""
+    return plane.index_select(0, rows).index_select(1, cols)
 
 
 def solve_incremental(
@@ -81,12 +125,13 @@ def solve_incremental(
     level; the coarse levels keep the cascade's schedule. Returns (depth0,
     new_state); ``depth_state`` is left as it was.
 
-    ``center_yx`` is host integers (``host_yx``). The reference passes a
-    traced array so that a new centre does not recompile its program;
-    eager torch has nothing to recompile, and reads the centre on the host
-    to place the crops. Under the early exit, ``exit_log`` receives every
-    level solve in the order run."""
-    cy, cx = host_yx("center_yx", center_yx)
+    ``center_yx`` is a (2,) int32 tensor on the planes' device, or what
+    ``device_yx`` uploads there (a pair of ints, a numpy array, a CPU
+    tensor; an upload cannot happen while a CUDA graph is captured). Each
+    windowed level places its window on the device: its origin is
+    ``(centre >> level) - win // 2``, clamped into the level. Under the
+    early exit, ``exit_log`` receives every level solve in the order run."""
+    center = device_yx("center_yx", center_yx, mask0.device)
     levels = len(gray_pyr)
     L = levels - 1
     inc = cfg.incremental_iterations if cfg.incremental_iterations > 0 else cfg.max_iterations
@@ -126,17 +171,15 @@ def solve_incremental(
         if n_glob > 0:
             u = solve_level(u, masks[level], gray_pyr[level], level, L, n_glob, cfg, exit_log)
 
-        oy, ox = clamp_origin((cy >> level) - win // 2, (cx >> level) - win // 2,
-                              win, win, h, w)
-        rows, cols = slice(oy, oy + win), slice(ox, ox + win)
+        rows, cols = window_indices(center, level, win, h, w)
         # The frozen ring carries the far field into the window solve. The
         # weights come from the window's own crop, so those at its edge are
-        # a border's. The crops are views; solve_level copies what it needs.
-        m_solve = masks[level][rows, cols] | _ring(win, u.device)
-        u_w = solve_level(u[rows, cols], m_solve, gray_pyr[level][rows, cols], level, L, iters,
-                          cfg, exit_log)
+        # a border's.
+        m_solve = _crop(masks[level], rows, cols) | _ring(win, u.device)
+        u_w = solve_level(_crop(u, rows, cols), m_solve, _crop(gray_pyr[level], rows, cols),
+                          level, L, iters, cfg, exit_log)
         new = u.clone()
-        new[rows, cols] = u_w
+        new.index_put_((rows[:, None], cols[None, :]), u_w)
         state[level] = new
         delta = new - old
 

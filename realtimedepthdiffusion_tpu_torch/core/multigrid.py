@@ -78,8 +78,9 @@ def solve_cascade(
 ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, ...]]:
     """One coarse-to-fine solve; returns (depth0, new_depth_state). Level l
     runs ``cfg.level_iterations`` iterations (fewer under the early exit,
-    which reports each level to the list ``exit_log``, coarsest first),
-    then its pyrUp seeds level l-1."""
+    which reports each level to the list ``exit_log``, coarsest first; on
+    a card, once ``core/solver.py:read_exit_log`` has read it), then its
+    pyrUp seeds level l-1."""
     levels = len(gray_pyr)
     L = levels - 1
     sizes = [tuple(g.shape) for g in gray_pyr]

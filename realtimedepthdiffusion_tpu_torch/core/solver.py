@@ -14,8 +14,11 @@
 
 Every solver honours the residual early exit (``cfg.early_exit``): the
 level runs in chunks of ``cfg.residual_check_every`` iterations and stops
-once the residual drops below ``tolerance * 255``. The loop runs on the
-host and reads one scalar from the device per chunk; each chunk runs on
+once the residual drops below ``tolerance * 255``. The loop is decided on
+the device, as the reference's ``lax.while_loop``: every chunk is issued,
+and a device flag that the probes set turns the chunks after the exit
+into no-ops (``_chunked_early_exit``). Nothing is read back to the host
+inside a solve, so a CUDA graph holds the whole loop. Each chunk runs on
 the kernels or on the plain versions by the tensors' device
 (``ops/dispatch.py``).
 """
@@ -23,6 +26,7 @@ the kernels or on the plain versions by the tensors' device
 from __future__ import annotations
 
 import functools
+import math
 
 import numpy as np
 import torch
@@ -152,30 +156,92 @@ def residual_metric_fn(cfg: DiffusionConfig):
         ) from None
 
 
+def _host_loop(device: torch.device) -> bool:
+    """Whether the early exit reads its flag on the host: on the CPU only,
+    where that costs no wait. The tests turn it off there to run the
+    card's loop on the plain versions."""
+    return device.type == "cpu"
+
+
 def _chunked_early_exit(state, run, u_of, mask, wts, iters: int, cfg: DiffusionConfig,
                         exit_log=None):
     """Run iterations 0, 1, ... of a level in chunks, ``state =
-    run(state, i, n)``, while ``i < iters`` and the residual of
-    ``u_of(state)``, probed after each chunk, is ``>= tolerance*255``. A
-    chunk is ``min(residual_check_every, iters - i)`` iterations, so the
-    loop never passes the cap, and with an unreachable tolerance it visits
-    exactly the iterates of the fixed-count loop. Each probe reads one
-    scalar back to the host. A list given as ``exit_log`` receives a dict
-    of the level's shape, the iterations run, each probe's residual and
-    the threshold."""
+    run(state, i, n, stop)``, while ``i < iters`` and the residual of
+    ``u_of(state)``, probed after each chunk, is ``>= tolerance*255``: the
+    reference's ``lax.while_loop`` condition. A chunk is
+    ``min(residual_check_every, iters - i)`` iterations, so the loop never
+    passes the cap, and with an unreachable tolerance it visits exactly
+    the iterates of the fixed-count loop.
+
+    The loop is unrolled into its ceil(iters / residual_check_every) chunks
+    and decided on the device: a 0-d int32 flag ``stop``, which every
+    chunk's launches take, is set once a probe falls below the threshold;
+    from then on the chunks leave the state as it is, and the probes, which
+    still run, neither count nor set anything. A device count of the
+    iterations and probes run advances only while ``stop`` is clear, and
+    each probe's residual goes to a slot of its own. On a card nothing is
+    read back, so a CUDA graph holds every chunk; on the CPU the loop reads
+    the flag (no wait there) and stops issuing chunks once it is set, so
+    its chunks never see it set.
+
+    A list given as ``exit_log`` receives a dict of the level's shape, its
+    cap of iterations (``cap``: its chunks are all issued), the iterations
+    run, each probe's residual and the threshold. The counts
+    are read from the device once per solve, by ``read_exit_log``: on a
+    card they are filled in there, on the CPU at once."""
     tol = float(np.float32(cfg.tolerance) * np.float32(255.0))
     chunk = max(int(cfg.residual_check_every), 1)
     res_fn = residual_metric_fn(cfg)
-    i, res, probes = 0, float("inf"), []
-    while i < iters and res >= tol:
-        n = min(chunk, iters - i)
-        state = run(state, i, n)
-        i += n
-        res = res_fn(u_of(state), mask, wts).item()
-        probes.append(res)
+    dev = mask.device
+    on_host = _host_loop(dev)
+    n_chunks = -(-iters // chunk)
+    stop = torch.zeros((), dtype=torch.int32, device=dev)
+    done = torch.zeros(2, dtype=torch.int32, device=dev)  # iterations run, probes run
+    probes = torch.full((n_chunks,), math.nan, dtype=torch.float32, device=dev)
+    for c in range(n_chunks):
+        if on_host and bool(stop):
+            break
+        base = c * chunk
+        n = min(chunk, iters - base)
+        state = run(state, base, n, None if on_host else stop)
+        res = res_fn(u_of(state), mask, wts)
+        live = 1 - stop
+        done[0].add_(live, alpha=n)
+        done[1].add_(live)
+        probes[c] = res
+        stop.bitwise_or_(res.ge(tol).logical_not())  # NaN stops, as in the reference
     if exit_log is not None:
-        exit_log.append({"shape": tuple(mask.shape), "iters": i, "probes": probes, "tol": tol})
+        exit_log.append({"shape": tuple(mask.shape), "cap": iters, "tol": tol,
+                         "_device": (done, probes)})
+        if on_host:
+            read_exit_log(exit_log)
     return state
+
+
+def read_exit_log(exit_log):
+    """Fill in the iterations and probes of every entry of ``exit_log``
+    that ``_chunked_early_exit`` left on the device, with one copy to the
+    host per device; returns ``exit_log``. A probe after the exit is not
+    reported. The pipeline calls it after a solve (eager or replayed) that
+    was given a list; a caller of ``solve_level`` or ``solve_cascade`` on a
+    card calls it itself, after the solve."""
+    pending = [e for e in exit_log if "_device" in e]
+    by_device = {}
+    for e in pending:
+        by_device.setdefault(e["_device"][1].device, []).append(e)
+    for entries in by_device.values():
+        flat = torch.cat([t for e in entries
+                          for t in (e["_device"][0].to(torch.float32), e["_device"][1])])
+        flat = flat.cpu().tolist()
+        at = 0
+        for e in entries:
+            n_chunks = e["_device"][1].numel()
+            iters, n_probes = (int(v) for v in flat[at:at + 2])
+            e["iters"] = iters
+            e["probes"] = flat[at + 2:at + 2 + n_probes]
+            del e["_device"]
+            at += 2 + n_chunks
+    return exit_log
 
 
 def solve_level(
@@ -193,7 +259,8 @@ def solve_level(
     early exit, which reports to ``exit_log`` (``_chunked_early_exit``).
     On a ``dispatch.fused_level`` level the sweeps derive the weights
     themselves (K6), and the f32 planes are built only for the early exit's
-    probe."""
+    probe. On a card, the entries of ``exit_log`` are complete once
+    ``read_exit_log`` has read them."""
     dispatch.check_supported(cfg)
     if iters <= 0:
         return depth.to(torch.float32)

@@ -75,7 +75,9 @@ jc_sweep_fused_kernel(const float* __restrict__ u_in, const float* __restrict__ 
                       const unsigned char* __restrict__ d8,
                       const float* __restrict__ abc, const float* __restrict__ etab,
                       int h, int w, int base, int n_active, int k, int thr,
-                      int use_depth_rule) {
+                      int use_depth_rule, const int* __restrict__ stop) {
+  // A stopped launch runs no sweep and writes its input back, as K1's.
+  if (stop != nullptr && *stop) n_active = 0;
   extern __shared__ float smem[];
   const int ew = blockDim.x;
   const int eh = blockDim.y * R;
@@ -146,7 +148,7 @@ static int launch_fused(const float* u_in, const float* p_in, float* u_out, floa
                         const unsigned char* gray, const unsigned char* mask,
                         const unsigned char* d8, const float* abc, const float* etab, int h,
                         int w, int base, int n_active, int k, int thr, int use_depth_rule,
-                        int bx, int by, cudaStream_t stream) {
+                        int bx, int by, const int* stop, cudaStream_t stream) {
   const int eh = by * R;
   if (bx * by > MAXT || bx - 2 * k < 1 || eh - 2 * k < 1) return (int)cudaErrorInvalidValue;
   const size_t smem = jc_tile_smem(bx, by, R);
@@ -155,24 +157,26 @@ static int launch_fused(const float* u_in, const float* p_in, float* u_out, floa
   const dim3 grid((w + bx - 2 * k - 1) / (bx - 2 * k), (h + eh - 2 * k - 1) / (eh - 2 * k));
   jc_sweep_fused_kernel<R, MAXT><<<grid, dim3(bx, by), smem, stream>>>(
       u_in, p_in, u_out, p_out, gray, mask, d8, abc, etab, h, w, base, n_active, k, thr,
-      use_depth_rule);
+      use_depth_rule, stop);
   return (int)cudaGetLastError();
 }
 
 // (bx, by, rows_per_thread) is K1's CTA shape (sweep.cu:jc_sweep_tiles):
-// 8 rows a thread at up to 512 threads, or 6 at up to 1024.
+// 8 rows a thread at up to 512 threads, or 6 at up to 1024. stop is null,
+// or a device int that, when non-zero, turns the launch into a copy of
+// (u_in, p_in) to (u_out, p_out).
 extern "C" int jc_sweep_fused(const float* u_in, const float* p_in, float* u_out,
                               float* p_out, const unsigned char* gray,
                               const unsigned char* mask, const unsigned char* d8,
                               const float* abc, const float* etab, int h, int w, int base,
                               int n_active, int k, int thr, int use_depth_rule, int bx,
-                              int by, int rows_per_thread, void* stream) {
+                              int by, int rows_per_thread, const int* stop, void* stream) {
   const cudaStream_t s = (cudaStream_t)stream;
   if (rows_per_thread == 8)
     return launch_fused<8, 512>(u_in, p_in, u_out, p_out, gray, mask, d8, abc, etab, h, w,
-                                base, n_active, k, thr, use_depth_rule, bx, by, s);
+                                base, n_active, k, thr, use_depth_rule, bx, by, stop, s);
   if (rows_per_thread == 6)
     return launch_fused<6, 1024>(u_in, p_in, u_out, p_out, gray, mask, d8, abc, etab, h, w,
-                                 base, n_active, k, thr, use_depth_rule, bx, by, s);
+                                 base, n_active, k, thr, use_depth_rule, bx, by, stop, s);
   return (int)cudaErrorInvalidValue;
 }

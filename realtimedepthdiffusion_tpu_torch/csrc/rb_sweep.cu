@@ -224,7 +224,10 @@ rb_sweep_tiles_kernel(const float* __restrict__ u_in, float* __restrict__ u_out,
                       const float* __restrict__ inv,
                       const unsigned char* __restrict__ mask,
                       const float* __restrict__ om, int h, int w, int base,
-                      int n_active, int k, unsigned long long parity_bits) {
+                      int n_active, int k, unsigned long long parity_bits,
+                      const int* __restrict__ stop) {
+  // A stopped launch runs no iteration and writes its input back, as K1's.
+  if (stop != nullptr && *stop) n_active = 0;
   const int ring = 2 * k;
   // The extended tile's origin.
   const int y0 = blockIdx.y * (blockDim.y * R - 2 * ring) - ring;
@@ -241,7 +244,9 @@ __global__ void __launch_bounds__(MAXT)
 rb_sweep_resident_kernel(float* u, const float* __restrict__ bh,
                          const float* __restrict__ bv, const float* __restrict__ inv,
                          const unsigned char* __restrict__ mask,
-                         const float* __restrict__ om, int h, int w, int base, int n) {
+                         const float* __restrict__ om, int h, int w, int base, int n,
+                         const int* __restrict__ stop) {
+  if (stop != nullptr && *stop) return;  // stopped: the level stays as it is
   rb_tile_sweeps<R, C>(u, u, bh, bv, inv, mask, om, h, w, base, n, 0, 0, 0, 0);
 }
 
@@ -255,7 +260,8 @@ template <int R, int C, int MAXT>
 static int launch_rb_tiles(const float* u_in, float* u_out, const float* bh, const float* bv,
                            const float* inv, const unsigned char* mask, const float* om,
                            int nb, int h, int w, int base, int n_active, int k, int bx, int by,
-                           unsigned long long parity_bits, cudaStream_t stream) {
+                           unsigned long long parity_bits, const int* stop,
+                           cudaStream_t stream) {
   const int eh = by * R;
   const int ew = bx * C;
   if (bx * by > MAXT || ew - 4 * k < 1 || eh - 4 * k < 1 || (ew & 1) || nb < 1 || nb > 64)
@@ -265,51 +271,56 @@ static int launch_rb_tiles(const float* u_in, float* u_out, const float* bh, con
   if (err) return err;
   const dim3 grid((w + ew - 4 * k - 1) / (ew - 4 * k), (h + eh - 4 * k - 1) / (eh - 4 * k), nb);
   rb_sweep_tiles_kernel<R, C, MAXT><<<grid, dim3(bx, by), smem, stream>>>(
-      u_in, u_out, bh, bv, inv, mask, om, h, w, base, n_active, k, parity_bits);
+      u_in, u_out, bh, bv, inv, mask, om, h, w, base, n_active, k, parity_bits, stop);
   return (int)cudaGetLastError();
 }
 
 // (rows, cols) picks the instance, the pixels of one thread: 8 x 1 (K1's
 // column), 4 x 2, or 8 x 2, which holds the wider tiles that a ring of 17
 // and more needs. Plane z of the nb <= 64 is red at even y + x when bit z
-// of parity_bits is 0, at odd y + x when it is 1.
+// of parity_bits is 0, at odd y + x when it is 1. stop is null, or a
+// device int that, when non-zero, turns the launch into a copy of u_in to
+// u_out.
 extern "C" int rb_sweep_tiles(const float* u_in, float* u_out, const float* bh,
                               const float* bv, const float* inv,
                               const unsigned char* mask, const float* om, int nb, int h,
                               int w, int base, int n_active, int k, int bx, int by, int rows,
-                              int cols, unsigned long long parity_bits, void* stream) {
+                              int cols, unsigned long long parity_bits, const int* stop,
+                              void* stream) {
   const cudaStream_t s = (cudaStream_t)stream;
   if (rows == 8 && cols == 1)
     return launch_rb_tiles<8, 1, 512>(u_in, u_out, bh, bv, inv, mask, om, nb, h, w, base,
-                                      n_active, k, bx, by, parity_bits, s);
+                                      n_active, k, bx, by, parity_bits, stop, s);
   if (rows == 4 && cols == 2)
     return launch_rb_tiles<4, 2, 512>(u_in, u_out, bh, bv, inv, mask, om, nb, h, w, base,
-                                      n_active, k, bx, by, parity_bits, s);
+                                      n_active, k, bx, by, parity_bits, stop, s);
   if (rows == 8 && cols == 2)
     return launch_rb_tiles<8, 2, 512>(u_in, u_out, bh, bv, inv, mask, om, nb, h, w, base,
-                                      n_active, k, bx, by, parity_bits, s);
+                                      n_active, k, bx, by, parity_bits, stop, s);
   return (int)cudaErrorInvalidValue;
 }
 
 template <int R, int C, int MAXT>
 static int launch_rb_resident(float* u, const float* bh, const float* bv, const float* inv,
                               const unsigned char* mask, const float* om, int h, int w,
-                              int base, int n, int bx, int by, cudaStream_t stream) {
+                              int base, int n, int bx, int by, const int* stop,
+                              cudaStream_t stream) {
   if (bx * by > MAXT || bx * C < w || by * R < h) return (int)cudaErrorInvalidValue;
   const size_t smem = sizeof(float) * (size_t)(by * R + 2) * C * (bx + 2);
   int err = set_smem((const void*)rb_sweep_resident_kernel<R, C, MAXT>, smem);
   if (err) return err;
   rb_sweep_resident_kernel<R, C, MAXT><<<1, dim3(bx, by), smem, stream>>>(
-      u, bh, bv, inv, mask, om, h, w, base, n);
+      u, bh, bv, inv, mask, om, h, w, base, n, stop);
   return (int)cudaGetLastError();
 }
 
 // One CTA of bx x by threads, each with a patch of 4 x 2 pixels: up to 1024
-// threads at 64 registers each.
+// threads at 64 registers each. stop is null, or a device int that, when
+// non-zero, leaves u as it is.
 extern "C" int rb_sweep_resident(float* u, const float* bh, const float* bv,
                                  const float* inv, const unsigned char* mask,
                                  const float* om, int h, int w, int base, int n, int bx,
-                                 int by, void* stream) {
-  return launch_rb_resident<4, 2, 1024>(u, bh, bv, inv, mask, om, h, w, base, n, bx, by,
+                                 int by, const int* stop, void* stream) {
+  return launch_rb_resident<4, 2, 1024>(u, bh, bv, inv, mask, om, h, w, base, n, bx, by, stop,
                                         (cudaStream_t)stream);
 }

@@ -79,7 +79,11 @@ jc_sweep_tiles_kernel(const float* __restrict__ u_in, const float* __restrict__ 
                       const float* __restrict__ inv,
                       const unsigned char* __restrict__ mask,
                       const float* __restrict__ abc, int h, int w, int base,
-                      int n_active, int k) {
+                      int n_active, int k, const int* __restrict__ stop) {
+  // A stopped launch runs no sweep and writes its input back: the early
+  // exit's chunks ping-pong, and a CUDA graph fixes which buffer holds a
+  // chunk's result when it is captured.
+  if (stop != nullptr && *stop) n_active = 0;
   extern __shared__ float smem[];
   const int ew = blockDim.x;
   const int eh = blockDim.y * R;
@@ -132,7 +136,10 @@ jc_sweep_resident_kernel(float* __restrict__ u, float* __restrict__ p,
                          const float* __restrict__ inv,
                          const unsigned char* __restrict__ mask,
                          const float* __restrict__ abc, int h, int w, int rows, int base,
-                         int n) {
+                         int n, const int* __restrict__ stop) {
+  // A stopped launch leaves the level as it is. Every CTA of the cluster
+  // reads the same flag, so all return before the first cluster barrier.
+  if (stop != nullptr && *stop) return;
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = (int)cluster.block_rank();
   const int ncta = (int)cluster.num_blocks();
@@ -253,7 +260,8 @@ template <int R, int MAXT>
 static int launch_tiles(const float* u_in, const float* p_in, float* u_out, float* p_out,
                         const float* bh, const float* bv, const float* inv,
                         const unsigned char* mask, const float* abc, int nb, int h, int w,
-                        int base, int n_active, int k, int bx, int by, cudaStream_t stream) {
+                        int base, int n_active, int k, int bx, int by, const int* stop,
+                        cudaStream_t stream) {
   const int eh = by * R;
   if (bx * by > MAXT || bx - 2 * k < 1 || eh - 2 * k < 1) return (int)cudaErrorInvalidValue;
   const size_t smem = jc_tile_smem(bx, by, R);
@@ -261,25 +269,28 @@ static int launch_tiles(const float* u_in, const float* p_in, float* u_out, floa
   if (err) return err;
   const dim3 grid((w + bx - 2 * k - 1) / (bx - 2 * k), (h + eh - 2 * k - 1) / (eh - 2 * k), nb);
   jc_sweep_tiles_kernel<R, MAXT><<<grid, dim3(bx, by), smem, stream>>>(
-      u_in, p_in, u_out, p_out, bh, bv, inv, mask, abc, h, w, base, n_active, k);
+      u_in, p_in, u_out, p_out, bh, bv, inv, mask, abc, h, w, base, n_active, k, stop);
   return (int)cudaGetLastError();
 }
 
 // rows_per_thread picks the instance: 8 (at most 512 threads, up to 128
 // registers a thread) or 6 (at most 1024 threads, 64 registers), which
-// holds the wider tiles that a ring of 17-32 needs.
+// holds the wider tiles that a ring of 17-32 needs. stop is null, or a
+// device int that, when non-zero, turns the launch into a copy of
+// (u_in, p_in) to (u_out, p_out).
 extern "C" int jc_sweep_tiles(const float* u_in, const float* p_in, float* u_out,
                               float* p_out, const float* bh, const float* bv,
                               const float* inv, const unsigned char* mask,
                               const float* abc, int nb, int h, int w, int base, int n_active,
-                              int k, int bx, int by, int rows_per_thread, void* stream) {
+                              int k, int bx, int by, int rows_per_thread, const int* stop,
+                              void* stream) {
   const cudaStream_t s = (cudaStream_t)stream;
   if (rows_per_thread == 8)
     return launch_tiles<8, 512>(u_in, p_in, u_out, p_out, bh, bv, inv, mask, abc, nb, h, w,
-                                base, n_active, k, bx, by, s);
+                                base, n_active, k, bx, by, stop, s);
   if (rows_per_thread == 6)
     return launch_tiles<6, 1024>(u_in, p_in, u_out, p_out, bh, bv, inv, mask, abc, nb, h, w,
-                                 base, n_active, k, bx, by, s);
+                                 base, n_active, k, bx, by, stop, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -310,10 +321,12 @@ static int resident_config(cudaLaunchConfig_t* cfg, cudaLaunchAttribute* attr, i
   return 0;
 }
 
+// stop is null, or a device int that, when non-zero, leaves (u, p) as
+// they are.
 extern "C" int jc_sweep_resident(float* u, float* p, const float* bh, const float* bv,
                                  const float* inv, const unsigned char* mask,
                                  const float* abc, int h, int w, int base, int n, int cluster,
-                                 void* stream) {
+                                 const int* stop, void* stream) {
   if (cluster < 1 || cluster > MAX_CLUSTER || w > RESIDENT_MAX_W) return (int)cudaErrorInvalidValue;
   const int rows = (h + cluster - 1) / cluster;
   if (rows > RESIDENT_ROWS) return (int)cudaErrorInvalidValue;
@@ -323,7 +336,7 @@ extern "C" int jc_sweep_resident(float* u, float* p, const float* bh, const floa
                             (cudaStream_t)stream);
   if (err) return err;
   err = (int)cudaLaunchKernelEx(&cfg, jc_sweep_resident_kernel, u, p, bh, bv, inv, mask, abc,
-                                h, w, rows, base, n);
+                                h, w, rows, base, n, stop);
   if (err) return err;
   return (int)cudaGetLastError();
 }

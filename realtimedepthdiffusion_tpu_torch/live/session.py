@@ -18,10 +18,12 @@ The session drives the pipeline's program layer as the reference's does:
 the tables overlap the image's upload; under ``fast_start`` the second full
 solve of a pipeline captures its CUDA graph and later ones replay it
 (``pipeline.py``). The windowed path is gated on ``incremental_ready`` and
-its kick deferred past the frame, as in the reference; the windowed
-re-solve runs eagerly, so the gate is always open. A replay returns fresh
-tensors, so the ``depth0`` and ``depth_state`` the session keeps from frame
-to frame never change under a later one.
+its kick deferred past the frame, as in the reference: under
+``fast_start`` the first small edit takes the full warm re-solve and then
+captures the windowed re-solve's graph, and later edits replay it at their
+own centres. A replay returns fresh tensors, so the ``depth0`` and
+``depth_state`` the session keeps from frame to frame never change under a
+later one.
 """
 
 from __future__ import annotations

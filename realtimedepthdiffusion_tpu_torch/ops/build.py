@@ -44,20 +44,22 @@ I = ctypes.c_int
 # the pointer), ints as c_int. Each returns cudaGetLastError() as an int.
 SIGNATURES = {
     # u_in, p_in, u_out, p_out, bh, bv, inv, mask, abc, nb, h, w, base,
-    # n_active, k, bx, by, rows_per_thread, stream
-    "jc_sweep_tiles": (P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, P),
-    # u, p (in/out), bh, bv, inv, mask, abc, h, w, base, n, cluster, stream
-    "jc_sweep_resident": (P, P, P, P, P, P, P, I, I, I, I, I, P),
+    # n_active, k, bx, by, rows_per_thread, stop, stream
+    "jc_sweep_tiles": (P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, P, P),
+    # u, p (in/out), bh, bv, inv, mask, abc, h, w, base, n, cluster, stop,
+    # stream
+    "jc_sweep_resident": (P, P, P, P, P, P, P, I, I, I, I, I, P, P),
     # int* out
     "jc_resident_max_cluster": (ctypes.POINTER(I),),
     # u_in, u_out, bh, bv, inv, mask, om, nb, h, w, base, n_active, k, bx,
-    # by, rows, cols, parity_bits (64 bits, one per plane), stream
-    "rb_sweep_tiles": (P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, I, ctypes.c_uint64, P),
-    # u (in/out), bh, bv, inv, mask, om, h, w, base, n, bx, by, stream
-    "rb_sweep_resident": (P, P, P, P, P, P, I, I, I, I, I, I, P),
+    # by, rows, cols, parity_bits (64 bits, one per plane), stop, stream
+    "rb_sweep_tiles": (P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, I, ctypes.c_uint64, P,
+                       P),
+    # u (in/out), bh, bv, inv, mask, om, h, w, base, n, bx, by, stop, stream
+    "rb_sweep_resident": (P, P, P, P, P, P, I, I, I, I, I, I, P, P),
     # u_in, p_in, u_out, p_out, gray, mask, d8, abc, etab, h, w, base,
-    # n_active, k, thr, use_depth_rule, bx, by, rows_per_thread, stream
-    "jc_sweep_fused": (P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, I, P),
+    # n_active, k, thr, use_depth_rule, bx, by, rows_per_thread, stop, stream
+    "jc_sweep_fused": (P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, I, P, P),
     # rgb, depth, half, sat, tot (scratch of the table route, else null),
     # out, h, w, k, max_half, approx, exact_upto, stride, tile (0: the table
     # route), stream

@@ -95,7 +95,10 @@ def run_sweeps(depth: torch.Tensor, mask: torch.Tensor, wts, table: np.ndarray,
 def level_chunks(depth: torch.Tensor, mask: torch.Tensor, wts, table: np.ndarray,
                  solver: str = "jacobi_chebyshev"):
     """``(state, run, u_of)`` of one level for the residual early exit, on
-    the kernels or the plain version as ``run_sweeps`` routes."""
+    the kernels or the plain version as ``run_sweeps`` routes:
+    ``run(state, base, n, stop=None)`` runs iterations base .. base+n-1,
+    or leaves the state as it is where the early exit's 0-d int32 device
+    flag ``stop`` is set, which every kernel launch of the chunk reads."""
     return _pick(_CHUNKS[solver], depth)(depth, mask, wts, table)
 
 
@@ -110,5 +113,6 @@ def run_fused(depth: torch.Tensor, mask: torch.Tensor, gray: torch.Tensor, table
 def fused_chunks(depth: torch.Tensor, mask: torch.Tensor, gray: torch.Tensor,
                  table: np.ndarray, level: int, max_level: int, cfg: DiffusionConfig):
     """``(state, run, u_of)`` of a ``fused_level`` level for the residual
-    early exit, routed as ``run_fused``."""
+    early exit, routed as ``run_fused``; its ``run`` takes ``stop`` as
+    ``level_chunks``' does."""
     return _pick(_FUSED_CHUNKS, depth)(depth, mask, gray, table, level, max_level, cfg)

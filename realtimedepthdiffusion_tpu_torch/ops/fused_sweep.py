@@ -31,7 +31,7 @@ from ..config import DiffusionConfig
 from ..core.weights import _TINY, EdgeWeights, depth_threshold, level_d8, weights_from_base
 from . import build
 from .sweep import (MAX_TILE_SWEEPS, _check, _check_table, _first, _same_device, _stream,
-                    chunks_plain, device_table, ping_pong, tile_config)
+                    check_stop, chunks_plain, device_table, ping_pong, tile_config)
 
 # Sweeps per K6 launch: the ring of halo each tile carries and over which
 # one derivation of the tile's weights is spent. k = 8 beat 12 and 16 at 4K
@@ -88,10 +88,12 @@ def solve_level_fused_plain(depth, mask, gray, abc: np.ndarray, level: int, max_
 
 def jc_sweep_fused(u_in, p_in, u_out, p_out, gray, mask_u8, d8, abc_dev, etab,
                    base: int, n_active: int, thr: int, use_depth_rule: bool,
-                   k: int = FUSED_SWEEPS) -> None:
+                   k: int = FUSED_SWEEPS, stop=None) -> None:
     """K6: sweeps base .. base+n_active-1 of the (iters, 3) device table
     ``abc_dev``, reading (u_in, p_in) and writing (u_out, p_out), with the
-    weights derived from ``gray``, ``d8`` and the table ``etab``."""
+    weights derived from ``gray``, ``d8`` and the table ``etab``. Where the
+    device flag ``stop`` (``ops/sweep.py:check_stop``) is set, the launch
+    copies (u_in, p_in) to (u_out, p_out) instead."""
     h, w = u_in.shape
     for name, t in (("u_in", u_in), ("p_in", p_in), ("u_out", u_out), ("p_out", p_out)):
         _check(name, t, torch.float32, (h, w))
@@ -109,6 +111,7 @@ def jc_sweep_fused(u_in, p_in, u_out, p_out, gray, mask_u8, d8, abc_dev, etab,
             f"table of {abc_dev.shape[0]}"
         )
     bx, by, rows = tile_config(k)
+    stop_ptr = check_stop("jc_sweep_fused", stop, u_in.device)
     lib = build.load_library()
     # The launch goes to the current device: make it the tensors' one.
     with torch.cuda.device(u_in.device):
@@ -116,7 +119,7 @@ def jc_sweep_fused(u_in, p_in, u_out, p_out, gray, mask_u8, d8, abc_dev, etab,
             u_in.data_ptr(), p_in.data_ptr(), u_out.data_ptr(), p_out.data_ptr(),
             gray.data_ptr(), mask_u8.data_ptr(), d8.data_ptr(), abc_dev.data_ptr(),
             etab.data_ptr(), h, w, base, n_active, k, thr, int(use_depth_rule), bx, by, rows,
-            _stream(u_in),
+            stop_ptr, _stream(u_in),
         )
     build.check("jc_sweep_fused", err)
     jc_sweep_fused.launches += 1
@@ -129,19 +132,20 @@ def fused_chunks_cuda(depth: torch.Tensor, mask: torch.Tensor, gray: torch.Tenso
                       abc: np.ndarray, level: int, max_level: int,
                       cfg: DiffusionConfig = DiffusionConfig(), k: int = FUSED_SWEEPS):
     """``fused_chunks_plain`` on the card: each chunk is ceil(n/k) launches
-    of K6. d8 is taken once, from the level-entry depth."""
+    of K6, each handed the flag ``stop``. d8 is taken once, from the
+    level-entry depth."""
     u = depth.to(torch.float32).contiguous().clone()
     abc_dev = device_table(abc, u.device)
     thr = depth_threshold(level, max_level, cfg)
     planes = (gray.contiguous(), mask.to(torch.uint8).contiguous(),
               level_d8(depth).contiguous(), abc_dev, weight_exp_table(cfg, u.device))
 
-    def launch(u_in, p_in, u_out, p_out, b, n_active):
+    def launch(u_in, p_in, u_out, p_out, b, n_active, stop):
         jc_sweep_fused(u_in, p_in, u_out, p_out, *planes, b, n_active, thr or 0,
-                       thr is not None, k)
+                       thr is not None, k, stop)
 
-    def run(state, base, n):
-        return ping_pong(*state, launch, base, n, k)
+    def run(state, base, n, stop=None):
+        return ping_pong(*state, launch, base, n, k, stop)
 
     return (u, torch.zeros_like(u)), run, _first
 

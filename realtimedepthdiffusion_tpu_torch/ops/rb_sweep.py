@@ -21,7 +21,9 @@ Counterpart of the red-black section of
   kernels of one iterate; they change nothing here.
 - ``chunks_plain`` / ``chunks_cuda`` run a level's iterations in chunks for
   the residual early exit (``core/solver.py:_chunked_early_exit``); on the
-  card each chunk is one K5 launch or ceil(n/k) K4 launches.
+  card each chunk is one K5 launch or ceil(n/k) K4 launches, each handed
+  the early exit's device flag ``stop``, which turns it into a no-op (K5)
+  or a copy of its input (K4).
 - ``halo_block_rb_sweeps`` runs the iterations between two halo exchanges
   of the sharded step on a stack of halo-extended blocks: one K4 launch
   over the whole stack, whose ``parity`` per block keeps the whole image's
@@ -38,8 +40,8 @@ import numpy as np
 import torch
 
 from . import build
-from .sweep import (SMEM_PER_CTA, _check, _check_table, _same_device, _stream,
-                    device_table, left_up_weights, relax_plain)
+from .sweep import (SMEM_PER_CTA, _check, _check_table, _same_device, _stream, check_stop,
+                    device_table, left_up_weights, relax_plain, unless_stopped)
 
 # Iterations per K4 launch. One iteration is two half-sweeps, each of which
 # widens the dependency cone by a pixel, so a tile carries a ring of 2k. On
@@ -98,16 +100,18 @@ def _same(u):
 
 def chunks_plain(depth: torch.Tensor, mask: torch.Tensor, wts, om: np.ndarray):
     """A level's iterations in plain torch, as ``(state, run, u_of)``:
-    ``run(u, base, n)`` runs iterations base .. base+n-1 of the (iters, 2)
-    omega table ``om`` and returns the new u, which is the state."""
+    ``run(u, base, n, stop=None)`` runs iterations base .. base+n-1 of the
+    (iters, 2) omega table ``om``, unless the flag ``stop`` is set, and
+    returns the new u, which is the state."""
     mask = mask.to(torch.bool)
     red = red_black_parity(*depth.shape, device=depth.device)
 
-    def run(u, base, n):
+    def run(u0, base, n, stop=None):
+        u = u0
         for om_r, om_b in om[base:base + n].tolist():
             u = rb_iter_plain(u, wts.wl, wts.wr, wts.wu, wts.wd, wts.inv_count, mask,
                               red, om_r, om_b)
-        return u
+        return unless_stopped(stop, (u0,), (u,))[0]
 
     return depth.to(torch.float32), run, _same
 
@@ -175,12 +179,14 @@ def _parities(parity, nb: int):
 
 
 def rb_sweep_tiles(u_in, u_out, bh, bv, inv, mask_u8, om_dev, base: int, n_active: int,
-                   k: int = RB_TILE_ITERS, tile=None, parity=0) -> None:
+                   k: int = RB_TILE_ITERS, tile=None, parity=0, stop=None) -> None:
     """K4: iterations base .. base+n_active-1 of the (iters, 2) device
     omega table ``om_dev``, reading ``u_in`` and writing ``u_out``: (h, w)
     planes, or (nb, h, w) stacks of nb independent planes, one launch for
     every 64 of them. Red is where (y + x + parity) is even; ``parity`` is
-    one int, or one per plane. ``tile`` overrides ``rb_tile_config(k)``."""
+    one int, or one per plane. ``tile`` overrides ``rb_tile_config(k)``.
+    Where the device flag ``stop`` (``ops/sweep.py:check_stop``) is set,
+    the launch copies u_in to u_out instead."""
     if u_in.dim() not in (2, 3):
         raise ValueError(f"u_in: expected (h, w) or (nb, h, w), got {tuple(u_in.shape)}")
     shape = tuple(u_in.shape)
@@ -195,6 +201,7 @@ def rb_sweep_tiles(u_in, u_out, bh, bv, inv, mask_u8, om_dev, base: int, n_activ
         raise ValueError(f"n_active {n_active} exceeds k={k}")
     bx, by, rows, cols = _check_rb_tile(tile or rb_tile_config(k), k)
     parity = _parities(parity, nb)
+    stop_ptr = check_stop("rb_sweep_tiles", stop, u_in.device)
     lib = build.load_library()
     planes = (u_in, u_out, bh, bv, inv, mask_u8)
     # The launch goes to the current device: make it the tensors' one.
@@ -204,7 +211,7 @@ def rb_sweep_tiles(u_in, u_out, bh, bv, inv, mask_u8, om_dev, base: int, n_activ
             err = lib.rb_sweep_tiles(
                 *(t.data_ptr() + z * h * w * t.element_size() for t in planes),
                 om_dev.data_ptr(), min(RB_TILE_MAX_PLANES, nb - z), h, w, base, n_active, k,
-                bx, by, rows, cols, bits, _stream(u_in),
+                bx, by, rows, cols, bits, stop_ptr, _stream(u_in),
             )
             build.check("rb_sweep_tiles", err)
             rb_sweep_tiles.launches += 1
@@ -226,9 +233,11 @@ def rb_resident_fits(h: int, w: int) -> bool:
     return rb_resident_config(h, w) is not None
 
 
-def rb_sweep_resident(u, bh, bv, inv, mask_u8, om_dev, base: int, n: int) -> None:
+def rb_sweep_resident(u, bh, bv, inv, mask_u8, om_dev, base: int, n: int,
+                      stop=None) -> None:
     """K5: iterations base .. base+n-1 of the (iters, 2) device omega table
-    ``om_dev`` on the level ``u``, in place."""
+    ``om_dev`` on the level ``u``, in place; none where the device flag
+    ``stop`` is set."""
     h, w = u.shape
     _check("u", u, torch.float32, (h, w))
     _check_planes("rb_sweep_resident", (h, w), u, u, bh, bv, inv, mask_u8, om_dev, base, n)
@@ -236,12 +245,13 @@ def rb_sweep_resident(u, bh, bv, inv, mask_u8, om_dev, base: int, n: int) -> Non
     if shape is None:
         raise ValueError(f"a {h}x{w} level does not fit one CTA of "
                          f"{RB_RESIDENT_MAX_THREADS} threads, {RB_RESIDENT_PATCH} pixels each")
+    stop_ptr = check_stop("rb_sweep_resident", stop, u.device)
     lib = build.load_library()
     # The launch goes to the current device: make it the tensors' one.
     with torch.cuda.device(u.device):
         err = lib.rb_sweep_resident(
             u.data_ptr(), bh.data_ptr(), bv.data_ptr(), inv.data_ptr(), mask_u8.data_ptr(),
-            om_dev.data_ptr(), h, w, base, n, *shape[:2], _stream(u),
+            om_dev.data_ptr(), h, w, base, n, *shape[:2], stop_ptr, _stream(u),
         )
     build.check("rb_sweep_resident", err)
     rb_sweep_resident.launches += 1
@@ -250,35 +260,36 @@ def rb_sweep_resident(u, bh, bv, inv, mask_u8, om_dev, base: int, n: int) -> Non
 rb_sweep_resident.launches = 0
 
 
-def _tiles_chunk(u, bh, bv, inv, m8, om_dev, base, n, k, tile=None):
+def _tiles_chunk(u, bh, bv, inv, m8, om_dev, base, n, k, tile=None, stop=None):
     """Iterations base .. base+n-1 in ceil(n/k) K4 launches; u ping-pongs
     between the given buffer and a new one. Returns the one that holds the
-    result."""
+    result, which is the state unchanged where ``stop`` is set."""
     us = [u, torch.empty_like(u)]
     n_blocks = -(-n // k)
     for blk in range(n_blocks):
         b = base + blk * k
         rb_sweep_tiles(us[blk % 2], us[1 - blk % 2], bh, bv, inv, m8, om_dev, b,
-                       min(k, base + n - b), k, tile)
+                       min(k, base + n - b), k, tile, stop=stop)
     return us[n_blocks % 2]
 
 
 def chunks_cuda(depth: torch.Tensor, mask: torch.Tensor, wts, om: np.ndarray,
                 k: int = RB_TILE_ITERS):
     """``chunks_plain`` on the card: a chunk is one K5 launch when one CTA
-    holds the level, else ceil(n/k) K4 launches."""
+    holds the level, else ceil(n/k) K4 launches, each handed the flag
+    ``stop``."""
     u = depth.to(torch.float32).contiguous().clone()
     om_dev = device_table(om, u.device)
     planes = (wts.wr.contiguous(), wts.wd.contiguous(), wts.inv_count.contiguous(),
               mask.to(torch.uint8).contiguous())
 
     if rb_resident_fits(*u.shape):
-        def run(u, base, n):
-            rb_sweep_resident(u, *planes, om_dev, base, n)
+        def run(u, base, n, stop=None):
+            rb_sweep_resident(u, *planes, om_dev, base, n, stop)
             return u
     else:
-        def run(u, base, n):
-            return _tiles_chunk(u, *planes, om_dev, base, n, k)
+        def run(u, base, n, stop=None):
+            return _tiles_chunk(u, *planes, om_dev, base, n, k, stop=stop)
 
     return u, run, _same
 

@@ -21,7 +21,10 @@ Counterpart of ``realtimedepthdiffusion_tpu/ops/pallas_sweep.py``:
   carry (u, prev) from one to the next, for the residual early exit
   (``core/solver.py:_chunked_early_exit``); they are the counterpart of
   ``solve_level_strips_early_exit``. On the card a chunk is one K2 launch
-  on a level a cluster holds, else ceil(n/k) K1 launches.
+  on a level a cluster holds, else ceil(n/k) K1 launches. A chunk takes
+  the early exit's device flag ``stop``: where it is set, every launch of
+  the chunk leaves the state as it is (``stop`` on the kernels), so the
+  loop decides on the card and a CUDA graph can hold all its chunks.
 - ``device_table`` puts an iteration table on the card once per contents
   and device; every kernel wrapper reads its table from there.
 - ``halo_block_sweeps`` runs the sweeps between two halo exchanges of the
@@ -113,18 +116,28 @@ def _first(state):
     return state[0]
 
 
+def unless_stopped(stop, old, new):
+    """``new``, or ``old`` where the 0-d device flag ``stop`` is set: a
+    stopped kernel launch in plain torch. ``stop`` None is never set."""
+    if stop is None:
+        return new
+    halt = stop != 0
+    return tuple(torch.where(halt, o, n) for o, n in zip(old, new))
+
+
 def chunks_plain(depth: torch.Tensor, mask: torch.Tensor, wts, abc: np.ndarray):
     """A level's sweeps in plain torch, as ``(state, run, u_of)``:
-    ``run(state, base, n)`` runs sweeps base .. base+n-1 of the (iters, 3)
-    schedule ``abc`` on the (u, prev) state, and ``u_of(state)`` is u."""
+    ``run(state, base, n, stop=None)`` runs sweeps base .. base+n-1 of the
+    (iters, 3) schedule ``abc`` on the (u, prev) state, or leaves it where
+    the flag ``stop`` is set, and ``u_of(state)`` is u."""
     mask = mask.to(torch.bool)
 
-    def run(state, base, n):
+    def run(state, base, n, stop=None):
         u, prev = state
         for a, b, c in abc[base:base + n].tolist():
             u, prev = sweep_plain(u, prev, wts.wl, wts.wr, wts.wu, wts.wd,
                                   wts.inv_count, mask, a, b, c)
-        return u, prev
+        return unless_stopped(stop, state, (u, prev))
 
     u = depth.to(torch.float32)
     return (u, torch.zeros_like(u)), run, _first
@@ -154,6 +167,17 @@ def _same_device(fn: str, **tensors) -> None:
     for name, t in rest:
         if t.device != t0.device:
             raise ValueError(f"{fn}: {name} is on {t.device} but {first} on {t0.device}")
+
+
+def check_stop(fn: str, stop, device) -> int | None:
+    """The device address of the early exit's flag ``stop`` (a 0-d int32
+    tensor on ``device``), or None (null: no flag)."""
+    if stop is None:
+        return None
+    if stop.dtype != torch.int32 or stop.dim() != 0 or stop.device != device:
+        raise ValueError(f"{fn}: stop must be a 0-d int32 tensor on {device}, got "
+                         f"{tuple(stop.shape)} {stop.dtype} on {stop.device}")
+    return stop.data_ptr()
 
 
 def _check_table(name, t, cols):
@@ -192,11 +216,14 @@ def tile_config(k: int):
 
 
 def jc_sweep_tiles(u_in, p_in, u_out, p_out, bh, bv, inv, mask_u8, abc_dev,
-                   base: int, n_active: int, k: int = TILE_SWEEPS, tile=None) -> None:
+                   base: int, n_active: int, k: int = TILE_SWEEPS, tile=None,
+                   stop=None) -> None:
     """K1: sweeps base .. base+n_active-1 of the (iters, 3) device table
     ``abc_dev``, reading (u_in, p_in) and writing (u_out, p_out): (h, w)
     planes, or (nb, h, w) stacks of nb independent planes, one launch for
-    all. ``tile`` overrides ``tile_config(k)``."""
+    all. ``tile`` overrides ``tile_config(k)``. Where the device flag
+    ``stop`` (``check_stop``) is set, the launch copies (u_in, p_in) to
+    (u_out, p_out) instead."""
     if u_in.dim() not in (2, 3):
         raise ValueError(f"u_in: expected (h, w) or (nb, h, w), got {tuple(u_in.shape)}")
     shape = tuple(u_in.shape)
@@ -218,13 +245,15 @@ def jc_sweep_tiles(u_in, p_in, u_out, p_out, bh, bv, inv, mask_u8, abc_dev,
     bx, by, rows = tile or tile_config(k)
     if rows not in (6, 8) or bx * by > (512 if rows == 8 else 1024) or min(bx, by * rows) <= 2 * k:
         raise ValueError(f"tile {(bx, by, rows)} cannot carry a ring of {k}")
+    stop_ptr = check_stop("jc_sweep_tiles", stop, u_in.device)
     lib = build.load_library()
     # The launch goes to the current device: make it the tensors' one.
     with torch.cuda.device(u_in.device):
         err = lib.jc_sweep_tiles(
             u_in.data_ptr(), p_in.data_ptr(), u_out.data_ptr(), p_out.data_ptr(),
             bh.data_ptr(), bv.data_ptr(), inv.data_ptr(), mask_u8.data_ptr(),
-            abc_dev.data_ptr(), nb, h, w, base, n_active, k, bx, by, rows, _stream(u_in),
+            abc_dev.data_ptr(), nb, h, w, base, n_active, k, bx, by, rows, stop_ptr,
+            _stream(u_in),
         )
     build.check("jc_sweep_tiles", err)
     jc_sweep_tiles.launches += 1
@@ -282,10 +311,11 @@ def strip_route(h: int, w: int, l2_bytes: int, max_cluster: int) -> str:
 
 
 def jc_sweep_resident(u, p, bh, bv, inv, mask_u8, abc_dev, base: int, n: int,
-                      cluster: int) -> None:
+                      cluster: int, stop=None) -> None:
     """K2: sweeps base .. base+n-1 of the (iters, 3) device table
     ``abc_dev`` on the level (u, prev) = (``u``, ``p``), in place, on a
-    cluster of ``cluster`` CTAs."""
+    cluster of ``cluster`` CTAs; none where the device flag ``stop`` is
+    set."""
     h, w = u.shape
     for name, t in (("u", u), ("p", p), ("bh", bh), ("bv", bv), ("inv", inv)):
         _check(name, t, torch.float32, (h, w))
@@ -298,11 +328,13 @@ def jc_sweep_resident(u, p, bh, bv, inv, mask_u8, abc_dev, base: int, n: int,
         raise ValueError(f"a cluster of {cluster} does not run on {u.device}")
     if w > RESIDENT_MAX_W or -(-h // cluster) > RESIDENT_ROWS:
         raise ValueError(f"a {h}x{w} level does not fit a cluster of {cluster} CTAs")
+    stop_ptr = check_stop("jc_sweep_resident", stop, u.device)
     lib = build.load_library()
     with torch.cuda.device(u.device):
         err = lib.jc_sweep_resident(
             u.data_ptr(), p.data_ptr(), bh.data_ptr(), bv.data_ptr(), inv.data_ptr(),
-            mask_u8.data_ptr(), abc_dev.data_ptr(), h, w, base, n, cluster, _stream(u),
+            mask_u8.data_ptr(), abc_dev.data_ptr(), h, w, base, n, cluster, stop_ptr,
+            _stream(u),
         )
     build.check("jc_sweep_resident", err)
     jc_sweep_resident.launches += 1
@@ -325,33 +357,37 @@ def _solve_tiles(u, bh, bv, inv, m8, abc_dev, k):
                         abc_dev.shape[0], k)[0]
 
 
-def ping_pong(u, prev, launch, base, n, k):
+def ping_pong(u, prev, launch, base, n, k, stop=None):
     """Sweeps base .. base+n-1 in ceil(n/k) calls of ``launch(u_in, p_in,
-    u_out, p_out, b, n_active)``, a kernel of up to k sweeps; (u, prev)
-    ping-pong between the given pair and a new one, and the last launch runs
-    the remaining sweeps. Returns the pair that holds the result."""
+    u_out, p_out, b, n_active, stop)``, a kernel of up to k sweeps; (u,
+    prev) ping-pong between the given pair and a new one, and the last
+    launch runs the remaining sweeps. Returns the pair that holds the
+    result. Every launch takes the flag ``stop``: a stopped one copies its
+    input to its output, so the pair returned holds the state either way."""
     us = [u, torch.empty_like(u)]
     ps = [prev, torch.empty_like(u)]
     n_blocks = -(-n // k)
     for blk in range(n_blocks):
         src, dst = blk % 2, 1 - blk % 2
         b = base + blk * k
-        launch(us[src], ps[src], us[dst], ps[dst], b, min(k, base + n - b))
+        launch(us[src], ps[src], us[dst], ps[dst], b, min(k, base + n - b), stop)
     return us[n_blocks % 2], ps[n_blocks % 2]
 
 
-def _tiles_chunk(u, prev, bh, bv, inv, m8, abc_dev, base, n, k):
+def _tiles_chunk(u, prev, bh, bv, inv, m8, abc_dev, base, n, k, stop=None):
     """Sweeps base .. base+n-1 on K1 (``ping_pong``)."""
-    def launch(u_in, p_in, u_out, p_out, b, n_active):
-        jc_sweep_tiles(u_in, p_in, u_out, p_out, bh, bv, inv, m8, abc_dev, b, n_active, k)
+    def launch(u_in, p_in, u_out, p_out, b, n_active, stop):
+        jc_sweep_tiles(u_in, p_in, u_out, p_out, bh, bv, inv, m8, abc_dev, b, n_active, k,
+                       stop=stop)
 
-    return ping_pong(u, prev, launch, base, n, k)
+    return ping_pong(u, prev, launch, base, n, k, stop)
 
 
 def chunks_cuda(depth: torch.Tensor, mask: torch.Tensor, wts, abc: np.ndarray,
                 k: int = TILE_SWEEPS):
     """``chunks_plain`` on the card: each chunk is one K2 launch from its
-    ``base`` when a cluster holds the level, else ceil(n/k) launches of K1."""
+    ``base`` when a cluster holds the level, else ceil(n/k) launches of K1,
+    each handed the flag ``stop``."""
     u = depth.to(torch.float32).contiguous().clone()
     abc_dev = device_table(abc, u.device)
     planes = (wts.wr.contiguous(), wts.wd.contiguous(), wts.inv_count.contiguous(),
@@ -359,12 +395,12 @@ def chunks_cuda(depth: torch.Tensor, mask: torch.Tensor, wts, abc: np.ndarray,
     cluster = resident_cluster(*u.shape, resident_max_cluster(u.device))
 
     if cluster:
-        def run(state, base, n):
-            jc_sweep_resident(*state, *planes, abc_dev, base, n, cluster)
+        def run(state, base, n, stop=None):
+            jc_sweep_resident(*state, *planes, abc_dev, base, n, cluster, stop)
             return state
     else:
-        def run(state, base, n):
-            return _tiles_chunk(*state, *planes, abc_dev, base, n, k)
+        def run(state, base, n, stop=None):
+            return _tiles_chunk(*state, *planes, abc_dev, base, n, k, stop)
 
     return (u, torch.zeros_like(u)), run, _first
 

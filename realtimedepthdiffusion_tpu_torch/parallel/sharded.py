@@ -36,7 +36,8 @@ from ..core.color import rgb_to_gray
 from ..core.multigrid import (build_gray_pyramid, initial_depth_state, vcycle_polish,
                               vcycle_warm_config)
 from ..core.pyramid import pyr_up
-from ..core.solver import abc_schedule, rb_omegas, residual_metric_fn, solve_level
+from ..core.solver import (abc_schedule, rb_omegas, read_exit_log, residual_metric_fn,
+                           solve_level)
 from ..core.weights import edge_weights
 from ..ops.defocus import block_ring, defocus_block, defocus_block_sat, defocus_half_widths
 from ..ops.dispatch import check_supported
@@ -400,6 +401,8 @@ def _cascade_sharded(gray_pyr, mask0, value0, depth_state, mesh, cfg, halo, bloc
         if level > 0:
             up = _foreach_image(batched, lambda d: pyr_up(d, sizes[level - 1]), state[level])
             state[level - 1] = seed_depth(up, masks[level - 1], values[level - 1])
+    if exit_log is not None:  # the replicated levels' counts, left on the card
+        read_exit_log(exit_log)
     return state[0], tuple(state)
 
 

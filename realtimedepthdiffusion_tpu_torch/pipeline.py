@@ -28,22 +28,37 @@ the two give the same bits, and a session switches between them unseen
 - ``fast_start`` on with ``background_compile`` False (one-shot CLI runs,
   the directory server): eager for good, as the JAX package stays staged.
 
+The windowed incremental re-solve has its programs too, ``("inc",)`` and
+``("inc_fx", effect)``, as in the JAX pipeline (``pipeline.py:546-589,
+665-682``): its centre is a (2,) int32 tensor on the card and each window's
+origin is computed there (``core/incremental.py``), so one graph serves
+every centre. A call replays the program where it exists and matches;
+else it runs eagerly, and where no program exists yet captures it at its
+end, as JAX's ``solve_incremental`` compiles its plain ``jit`` at the first
+call. ``incremental_ready`` has the JAX gate's contract: True with
+``fast_start`` or background compiles off, or once the program exists;
+else False, and its kick captures the program (from stand-in tensors of
+the pipeline's shapes, after one eager run on them), so that the live loop
+never waits on a first call's capture.
+
 The first call of a program always runs eagerly, so the nvcc build, the
 card queries and the iteration tables on the card exist before a capture
 (``prewarm_async`` starts them on a thread). A call whose tensors differ in
 shape, dtype or device from the captured ones runs eagerly, as JAX sends
-them to plain ``jit``. What never captures: configs with the residual early
-exit (the host reads a residual per chunk), the windowed incremental
-re-solve (its window origin is host integers) and the sharded step. On
-the CPU nothing is captured: a program is the eager function itself, so
-the routing runs in the CPU tests. A capture that fails raises in the
-caller's frame.
+them to plain ``jit``. The residual early exit captures like any other
+config: its loop is decided on the card (``core/solver.py:
+_chunked_early_exit``), and a list given as ``exit_log`` is filled from the
+replay's own counts, read once after it. What never captures: the sharded
+step. On the CPU nothing is captured: a program is the eager function
+itself, so the routing runs in the CPU tests. A capture that fails raises
+in the caller's frame.
 """
 
 from __future__ import annotations
 
 import atexit
 import functools
+import gc
 import logging
 import os
 import threading
@@ -58,10 +73,10 @@ from . import ops
 from .config import DiffusionConfig
 from .core import effects as fx
 from .core.color import rgb_to_gray
-from .core.incremental import clamp_origin, host_yx, solve_incremental
+from .core.incremental import clamp_origin, device_yx, host_yx, solve_incremental
 from .core.multigrid import (build_annotation_pyramids, build_gray_pyramid,
                              initial_depth_state, solve_cascade, solve_vcycle)
-from .core.solver import level_schedule, residual_norm, residual_rms
+from .core.solver import level_schedule, read_exit_log, residual_norm, residual_rms
 from .core.weights import edge_weights
 from .ops import build, dispatch, sweep
 
@@ -126,13 +141,17 @@ def _fresh(tree):
 
 
 class _Program:
-    """One program of a pipeline: a solve, or a solve and an effect, for the
-    arguments' shapes. On a card, the call captured once into a CUDA graph
-    that reads static copies of the arguments; each call copies its
+    """One program of a pipeline: a solve, a windowed re-solve, either with
+    an effect, for the arguments' shapes. On a card, the call captured once
+    into a CUDA graph that reads static copies of the arguments, each on
+    the pipeline's device (a host centre's too); each call copies its
     arguments in, replays the graph and returns fresh copies of the outputs,
     so that no later replay changes a tensor a caller holds. Outputs that
-    are one tensor (depth0 and level 0 of the state) stay one. On the CPU,
-    the eager function itself.
+    are one tensor (depth0 and level 0 of the state) stay one. Under the
+    early exit the capture keeps the levels' device counts
+    (``core/solver.py:_chunked_early_exit``), and a call given an
+    ``exit_log`` reads them after its replay. On the CPU, the eager
+    function itself.
 
     The capture runs on the caller's thread, on a side stream, into the
     pipeline's memory pool, in ``thread_local`` mode: a CUDA call that is
@@ -149,16 +168,31 @@ class _Program:
         self.capture_s = 0.0
         if device.type != "cuda":
             return
+        # A graph holds no reference to its pipeline (``fn`` is a bound
+        # method of it), so a pipeline dropped by its caller goes at once
+        # rather than to the cyclic collector, which could otherwise destroy
+        # its graphs in the middle of another pipeline's capture, an
+        # operation that invalidates that capture. The collector is held
+        # off during a capture for the same reason.
+        self.fn = None
         t0 = time.perf_counter()
-        with torch.cuda.device(device):
-            self.static_in = _map(lambda t: torch.empty_like(t, memory_format=torch.contiguous_format),
-                                  args)
-            graph = torch.cuda.CUDAGraph()
-            before = ops.launch_counts()
-            with torch.cuda.graph(graph, pool=pool, stream=stream,
-                                  capture_error_mode="thread_local"):
-                self.static_out = fn(*self.static_in)
-            after = ops.launch_counts()
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.device(device):
+                self.static_in = _map(lambda t: torch.empty_like(
+                    t, device=device, memory_format=torch.contiguous_format), args)
+                self.sig = _signature(self.static_in)
+                self.static_log = []
+                graph = torch.cuda.CUDAGraph()
+                before = ops.launch_counts()
+                with torch.cuda.graph(graph, pool=pool, stream=stream,
+                                      capture_error_mode="thread_local"):
+                    self.static_out = fn(*self.static_in, self.static_log)
+                after = ops.launch_counts()
+        finally:
+            if collecting:
+                gc.enable()
         self.tally = {k: after[k] - before[k] for k in after if after[k] != before[k]}
         ops.add_launches({k: -n for k, n in self.tally.items()})
         self.graph, self.device = graph, device
@@ -167,14 +201,19 @@ class _Program:
     def matches(self, args) -> bool:
         return self.sig is not None and _signature(args) == self.sig
 
-    def __call__(self, *args):
+    def __call__(self, args, exit_log=None):
         if self.graph is None:
-            return self.fn(*args)
+            return self.fn(*args, exit_log)
         with torch.cuda.device(self.device):
             for dst, src in zip(_leaves(self.static_in), _leaves(args)):
                 dst.copy_(src)
             self.graph.replay()
             ops.add_launches(self.tally)
+            if exit_log is not None:
+                # The replay's own counts, read now, before a later replay
+                # writes them again.
+                exit_log.extend(dict(e) for e in self.static_log)
+                read_exit_log(exit_log)
             return _fresh(self.static_out)
 
 
@@ -187,7 +226,8 @@ class DepthPipeline:
     out as integers, and ``residuals`` shows how far each level of a depth
     state is from converged.
 
-    ``solve`` and ``solve_and_effect`` run through the program layer (the
+    ``solve``, ``solve_and_effect``, ``solve_incremental`` and
+    ``solve_incremental_and_effect`` run through the program layer (the
     module's docstring): ``prewarm_async``, ``wait_fused``,
     ``incremental_ready`` and ``background_compile`` are the JAX
     pipeline's hooks, with its contracts.
@@ -200,13 +240,11 @@ class DepthPipeline:
         self.device = torch.device(device)
         self.levels = cfg.num_levels(rows, cols)
         self._scheme = solve_vcycle if cfg.multigrid == "vcycle" else solve_cascade
-        # The program layer. _aot holds each program by key, ("solve",) and
-        # ("solve_fx", effect), as the JAX pipeline holds its executables.
+        # The program layer. _aot holds each program by key, ("solve",),
+        # ("solve_fx", effect), ("inc",) and ("inc_fx", effect), as the JAX
+        # pipeline holds its executables.
         self._aot: dict = {}
         self._fast = cfg.fast_start and cfg.multigrid != "vcycle"
-        # The early exit reads a residual per chunk on the host: nothing to
-        # capture.
-        self._capturable = not cfg.early_exit
         self._staged = False  # the first solve's preparation is done
         self._staged_thread: Optional[threading.Thread] = None
         self._staged_solves = 0
@@ -281,27 +319,46 @@ class DepthPipeline:
             self._stream = torch.cuda.Stream(self.device)
         return self._pool, self._stream
 
-    def _program_of(self, effect: Optional[int]):
-        """(key, eager function) of ``solve`` (``effect`` None) or of
-        ``solve_and_effect(effect, ...)``."""
-        if effect is None:
-            return ("solve",), self._solve_eager
-        return ("solve_fx", effect), functools.partial(self._solve_fx_eager, effect)
+    def _program_of(self, key):
+        """The eager function of the program ``key``: ("solve",),
+        ("solve_fx", effect), ("inc",) or ("inc_fx", effect)."""
+        if key[0] == "solve":
+            return self._solve_eager
+        if key[0] == "solve_fx":
+            return functools.partial(self._solve_fx_eager, key[1])
+        if key[0] == "inc":
+            return self._inc_eager
+        return functools.partial(self._inc_fx_eager, key[1])
+
+    @staticmethod
+    def _key(kind: str, effect: Optional[int]):
+        return (kind,) if effect is None else (kind + "_fx", effect)
+
+    def _capture(self, key, args) -> Optional[float]:
+        """Capture the program ``key`` for ``args`` unless it exists;
+        returns its capture and instantiation seconds (0 on the CPU), or
+        None where an argument is not a tensor."""
+        if _signature(args) is None:
+            return None
+        if key not in self._aot:
+            self._aot[key] = _Program(self._program_of(key), args, self.device,
+                                      *self._graph_pool())
+        return self._aot[key].capture_s
 
     def capture(self, effect: Optional[int], *args) -> Optional[float]:
         """Capture now, on this thread, the program of ``solve`` (``effect``
         None; ``args`` as ``solve`` takes them) or of ``solve_and_effect``
         for ``effect`` (``args`` as it takes them after the effect), unless
         it exists. Returns its capture and instantiation seconds (0 on the
-        CPU), or None where the config never captures (the early exit).
-        The kick and ``warmup.warm_shape`` call it; a capture that fails
-        raises."""
-        if not self._capturable or _signature(args) is None:
-            return None
-        key, fn = self._program_of(effect)
-        if key not in self._aot:
-            self._aot[key] = _Program(fn, args, self.device, *self._graph_pool())
-        return self._aot[key].capture_s
+        CPU). The kick and ``warmup.warm_shape`` call it; a capture that
+        fails raises."""
+        return self._capture(self._key("solve", effect), args)
+
+    def capture_incremental(self, effect: Optional[int], *args) -> Optional[float]:
+        """``capture`` for ``solve_incremental`` (``effect`` None) or
+        ``solve_incremental_and_effect``, ``args`` as they take them (the
+        centre in any form ``core/incremental.py:device_yx`` takes)."""
+        return self._capture(self._key("inc", effect), self._inc_args(args))
 
     def _kick(self, effect: Optional[int], args) -> None:
         """fast_start's kick: capture the program unless background
@@ -311,14 +368,46 @@ class DepthPipeline:
         if self.background_compile:
             self.capture(effect, *args)
 
+    def _standins(self, effect: Optional[int]):
+        """Zero tensors of the pipeline's shapes and dtypes, as
+        ``solve_incremental`` (``effect`` None) or
+        ``solve_incremental_and_effect`` takes them after the effect: the
+        JAX pipeline's ShapeDtypeStructs of its incremental programs."""
+        dev, plane = self.device, (self.rows, self.cols)
+        sizes = [self.cfg.level_size(self.rows, self.cols, lv) for lv in range(self.levels)]
+        gp = tuple(torch.zeros(s, dtype=torch.uint8, device=dev) for s in sizes)
+        mv = (torch.zeros(plane, dtype=torch.bool, device=dev),
+              torch.zeros(plane, dtype=torch.uint8, device=dev))
+        st = tuple(torch.zeros(s, dtype=torch.float32, device=dev) for s in sizes)
+        center = torch.zeros(2, dtype=torch.int32, device=dev)
+        rgb = () if effect is None else (torch.zeros(plane + (3,), dtype=torch.uint8,
+                                                     device=dev),)
+        return (gp, *rgb, *mv, st, center)
+
     def incremental_ready(self, effect: Optional[int] = None, kick: bool = True) -> bool:
-        """Whether the windowed incremental re-solve can run without waiting
-        on a program (the live loop's gate, kicking its compile if
-        ``kick``). Always True: the incremental re-solve runs eagerly (its
-        window origin is host integers, ``core/incremental.py``), so there
-        is nothing to wait on, as the JAX pipeline answers True when it has
-        nothing to compile."""
-        return True
+        """The live loop's gate (``realtimedepthdiffusion_tpu/pipeline.py:
+        564-589``): whether the windowed re-solve's program for ``effect``
+        exists. True when ``fast_start`` or background compiles are off (a
+        first call then runs eagerly and captures the program itself), and
+        once the program exists; else False,
+        and with ``kick`` its capture runs now, on this thread, as the
+        solve's kick does: one eager run on stand-in tensors of the
+        pipeline's shapes, which puts the incremental budgets' iteration
+        tables on the card, then the capture from them. ``kick=False``
+        only peeks: the live loop peeks before its frame and kicks after
+        it."""
+        if not self._fast or not self.background_compile:
+            return True
+        key = self._key("inc", effect)
+        if key in self._aot:
+            return True
+        if kick:
+            self._ensure_staged()
+            args = self._standins(effect)
+            if self.device.type == "cuda":
+                self._program_of(key)(*args)
+            self._capture(key, args)
+        return False
 
     def wait_fused(self, timeout: Optional[float] = None) -> bool:
         """Block until pending background programs land (warmup and test
@@ -326,28 +415,67 @@ class DepthPipeline:
         caller's thread before it returns, so none ever is."""
         return True
 
+    def _eager(self, fn, args, exit_log):
+        out = fn(*args, exit_log)
+        if exit_log is not None:
+            read_exit_log(exit_log)
+        return out
+
     def _route(self, effect: Optional[int], args, exit_log):
         """``realtimedepthdiffusion_tpu/pipeline.py:609-663`` for one
-        program: replay it where it exists and the arguments match; else
-        run eagerly, and capture where the routing says (the module's
-        docstring)."""
-        key, fn = self._program_of(effect)
+        program of ``solve``: replay it where it exists and the arguments
+        match; else run eagerly, and capture where the routing says (the
+        module's docstring)."""
+        key = self._key("solve", effect)
+        fn = self._program_of(key)
         prog = self._aot.get(key)
         if prog is not None:
-            return prog(*args) if prog.matches(args) else fn(*args, exit_log)
+            if prog.matches(args):
+                return prog(args, exit_log)
+            return self._eager(fn, args, exit_log)
         if self._fast:
             self._ensure_staged()
-            out = fn(*args, exit_log)
+            out = self._eager(fn, args, exit_log)
             self._staged_solves += 1
             if self._staged_solves >= 2:  # the JAX pipeline's deferral
                 self._kick(effect, args)
             return out
-        out = fn(*args, exit_log)
+        out = self._eager(fn, args, exit_log)
         self.capture(effect, *args)
+        return out
+
+    def _inc_args(self, args):
+        *rest, center = args
+        return (*rest, device_yx("center_yx", center, self.device))
+
+    def _route_incremental(self, effect: Optional[int], args, exit_log):
+        """``realtimedepthdiffusion_tpu/pipeline.py:665-682``: replay the
+        windowed re-solve's program where it exists and the arguments
+        match, else run eagerly; where no program exists, the call captures
+        it at its end (JAX's plain ``jit`` compiles at the first call)."""
+        key = self._key("inc", effect)
+        fn = self._program_of(key)
+        args = self._inc_args(args)
+        prog = self._aot.get(key)
+        if prog is not None and prog.matches(args):
+            return prog(args, exit_log)
+        out = self._eager(fn, args, exit_log)
+        if prog is None:
+            self._capture(key, args)
         return out
 
     def _solve_eager(self, gray_pyr, mask0, value0, depth_state, exit_log=None):
         return self._scheme(gray_pyr, mask0, value0, depth_state, self.cfg, exit_log)
+
+    def _inc_eager(self, gray_pyr, mask0, value0, depth_state, center, exit_log=None):
+        return solve_incremental(gray_pyr, mask0, value0, depth_state, center, self.cfg,
+                                 exit_log)
+
+    def _inc_fx_eager(self, effect, gray_pyr, rgb, mask0, value0, depth_state, center,
+                      exit_log=None):
+        depth0, state = self._inc_eager(gray_pyr, mask0, value0, depth_state, center, exit_log)
+        out = self.effect(effect, rgb, gray_pyr[0], torch.clamp(depth0, 0.0, 255.0))
+        return depth0, state, out
 
     def _solve_fx_eager(self, effect, gray_pyr, rgb, mask0, value0, depth_state, exit_log=None):
         depth0, state = self._solve_eager(gray_pyr, mask0, value0, depth_state, exit_log)
@@ -372,9 +500,9 @@ class DepthPipeline:
               value0: torch.Tensor, depth_state: Sequence[torch.Tensor], exit_log=None):
         """Full solve by the scheme ``cfg.multigrid`` names; returns (depth0_f32,
         new_depth_state), eagerly or by replaying its program (the module's
-        docstring). Under the early exit, which always runs eagerly, a list
-        given as ``exit_log`` receives each level's iterations and probes
-        (``core/solver.py:_chunked_early_exit``)."""
+        docstring). Under the early exit a list given as ``exit_log``
+        receives each level's iterations and probes
+        (``core/solver.py:_chunked_early_exit``), read once after the solve."""
         return self._route(None, (tuple(gray_pyr), mask0, value0, tuple(depth_state)), exit_log)
 
     def solve_and_effect(self, effect: int, gray_pyr, rgb, mask0, value0, depth_state,
@@ -387,20 +515,21 @@ class DepthPipeline:
     def solve_incremental(self, gray_pyr, mask0, value0, depth_state, center_yx,
                           exit_log=None):
         """Windowed warm re-solve around an edit at ``center_yx`` (level-0
-        coordinates, host integers; ``core/incremental.py``); returns
-        (depth0, new_state). ``depth_state`` comes from an earlier solve and
-        stays valid."""
-        return solve_incremental(gray_pyr, mask0, value0, depth_state, center_yx, self.cfg,
-                                 exit_log)
+        coordinates: a (2,) int32 tensor on the pipeline's device, or host
+        integers, a numpy array or a CPU tensor, which are uploaded;
+        ``core/incremental.py``); returns (depth0, new_state), eagerly or
+        by replaying its program (the module's docstring). ``depth_state``
+        comes from an earlier solve and stays valid."""
+        return self._route_incremental(
+            None, (tuple(gray_pyr), mask0, value0, tuple(depth_state), center_yx), exit_log)
 
     def solve_incremental_and_effect(self, effect: int, gray_pyr, rgb, mask0, value0,
                                      depth_state, center_yx, exit_log=None):
-        """``solve_incremental``, then the effect on the clipped depth;
-        returns (depth0, new_state, effect_rgb_u8)."""
-        depth0, state = self.solve_incremental(gray_pyr, mask0, value0, depth_state, center_yx,
-                                               exit_log)
-        out = self.effect(effect, rgb, gray_pyr[0], torch.clamp(depth0, 0.0, 255.0))
-        return depth0, state, out
+        """``solve_incremental``, then the effect on the clipped depth, as
+        one program; returns (depth0, new_state, effect_rgb_u8)."""
+        return self._route_incremental(
+            effect, (tuple(gray_pyr), rgb, mask0, value0, tuple(depth_state), center_yx),
+            exit_log)
 
     def update_annotation_window(self, mask_d, value_d, mask_win, value_win, origin):
         """The annotation planes with a dirty window written in at ``origin``

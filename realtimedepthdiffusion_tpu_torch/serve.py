@@ -36,7 +36,9 @@ device picks the kernels or their plain versions. The build cache of the
 kernels is ``utils/cache.py``'s. As the JAX server turns its background
 compile off, each shape's pipeline here sets ``background_compile`` False:
 under ``fast_start`` every pair solves eagerly and no CUDA graph is
-captured (``pipeline.py``).
+captured (``pipeline.py``), except under the residual early exit, whose
+eager solve issues every chunk: there the second pair of a shape captures
+the solve's graph, which later pairs replay.
 """
 
 from __future__ import annotations
@@ -341,9 +343,14 @@ def solve_pairs(
                 pipe = DepthPipeline(h, w, cfg, device=dev)
                 # Batch serving captures no program under fast_start, as
                 # the reference's server compiles no fused one: every pair
-                # solves eagerly. The first solve's preparation overlaps
-                # this pair's upload and gray pyramid.
-                pipe.background_compile = False
+                # solves eagerly. But under the residual early exit the
+                # eager solve issues every chunk from the host (the exit is
+                # decided on the card), where the reference's staged
+                # programs decide it on the device: there the second pair
+                # captures the solve's graph and later pairs replay it.
+                # The first solve's preparation overlaps this pair's upload
+                # and gray pyramid.
+                pipe.background_compile = cfg.early_exit
                 pipe.prewarm_async()
                 pipes[(h, w)] = pipe
             pipe = pipes[(h, w)]

@@ -10,8 +10,9 @@ size), and then runs each path the JAX tool compiles once, on a seeded
 image of each shape, printing its seconds under the JAX tool's names. Then
 it captures, in this process, the programs the JAX tool lowers there: the
 CUDA graph of ``solve`` and of ``solve+effect[e]`` for each effect
-(``DepthPipeline.capture``), printing each one's capture and instantiation
-seconds. Graphs, like the runs, warm only the process that makes them
+(``DepthPipeline.capture``), and with --incremental those of the windowed
+re-solve (``capture_incremental``), printing each one's capture and
+instantiation seconds. Graphs, like the runs, warm only the process that makes them
 (CUDA's module load, the allocator's first blocks, the card queries):
 another process gains the build alone, and a serving process that wants
 its first pair warm calls ``warm_shape`` itself first.
@@ -22,8 +23,7 @@ its first pair warm calls ``warm_shape`` itself first.
 
 Paths run per shape: solve, the gray pyramid, the u8/u16 depth readouts,
 solve+effect and the effect for each --effect, and (with --incremental) the
-windowed live re-solve with and without each effect (eager: it captures
-no graph); then the graphs. The fast-start path runs eagerly (the JAX
+windowed live re-solve with and without each effect; then the graphs. The fast-start path runs eagerly (the JAX
 tool's staged programs). --jobs bounds the nvcc processes of the build.
 """
 
@@ -92,8 +92,9 @@ def warm_shape(
     (or load) the kernels with at most ``jobs`` nvcc processes and ask the
     card for K2's largest cluster and its L2 size. Then run each path once
     on a seeded image of the shape, logging its seconds (to the end of its
-    device work), and capture the solve's programs, logging their capture
-    seconds (0 on the CPU, where nothing is captured)."""
+    device work), and capture the programs the JAX tool compiles (the
+    solve's, and with ``incremental`` the windowed re-solve's), logging
+    their capture seconds (0 on the CPU, where nothing is captured)."""
     import numpy as np
     import torch
 
@@ -143,12 +144,16 @@ def warm_shape(
         for e in effects:
             timed(f"incremental+effect[{e}]",
                   lambda: pipe.solve_incremental_and_effect(e, gp, rgb_d, m0, v0, state, center))
-    programs = [("solve", None, (gp, m0, v0, state))]
-    programs += [(f"solve+effect[{e}]", e, (gp, rgb_d, m0, v0, state)) for e in effects]
-    for name, e, args in programs:
-        dt = pipe.capture(e, *args)
-        log(f"  {rows}x{cols} {name} graph: "
-            + ("none (the early exit runs eagerly)" if dt is None else f"{dt:.3f} s"))
+    programs = [("solve", pipe.capture, None, (gp, m0, v0, state))]
+    programs += [(f"solve+effect[{e}]", pipe.capture, e, (gp, rgb_d, m0, v0, state))
+                 for e in effects]
+    if incremental:
+        programs.append(("incremental", pipe.capture_incremental, None,
+                         (gp, m0, v0, state, center)))
+        programs += [(f"incremental+effect[{e}]", pipe.capture_incremental, e,
+                      (gp, rgb_d, m0, v0, state, center)) for e in effects]
+    for name, capture, e, args in programs:
+        log(f"  {rows}x{cols} {name} graph: {capture(e, *args):.3f} s")
     return time.perf_counter() - t_shape
 
 

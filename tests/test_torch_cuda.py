@@ -352,7 +352,8 @@ def test_early_exit_on_card_equals_plain(dev, h, w, solver):
     want = u_of(tsolver._chunked_early_exit(state, run, u_of, mask, w2, 60, cfg, log))
     torch.cuda.synchronize()
     assert torch.equal(got, want)
-    assert log[0]["probes"] == log[1]["probes"]
+    tsolver.read_exit_log(log)  # the card's counts, read once after the solves
+    assert log[0]["probes"] == log[1]["probes"] and log[0]["iters"] == log[1]["iters"]
 
 
 def test_wrappers_reject_bad_arguments(dev):
@@ -795,13 +796,19 @@ def test_incremental_frame_equals_plain(dev, monkeypatch, solver, kernels, cente
 
 
 def test_device_center_is_refused_on_the_card(dev):
+    """A centre on a device other than the CPU and the pipeline's card is
+    refused; one on the card is the solve's own input, to the bits of the
+    same centre given as host integers."""
     from realtimedepthdiffusion_tpu_torch import DepthPipeline
 
     pipe = DepthPipeline(64, 64, DiffusionConfig(max_iterations=8), device=dev)
     z = torch.zeros((64, 64), device=dev)
+    args = ((z.to(torch.uint8),), z.bool(), z.to(torch.uint8), (z,))
     with pytest.raises(ValueError, match="host integers"):
-        pipe.solve_incremental((z.to(torch.uint8),), z.bool(), z.to(torch.uint8), (z,),
-                               torch.tensor([3, 3], device=dev))
+        pipe.solve_incremental(*args, torch.empty(2, dtype=torch.int32, device="meta"))
+    got, _ = pipe.solve_incremental(*args, torch.tensor([3, 3], dtype=torch.int32, device=dev))
+    want, _ = pipe.solve_incremental(*args, (3, 3))
+    assert torch.equal(got, want)
 
 
 @pytest.mark.parametrize("h,w", [(96, 128), (270, 480), (181, 243)])
@@ -1012,8 +1019,10 @@ def test_replayed_frame_equals_eager(dev, name, rows, cols, cfg_kw):
 
 def test_replay_mismatch_runs_eagerly_and_fast_profile_captures_nothing(dev, monkeypatch):
     """A uint8 mask does not match the captured bool mask: the solve runs
-    eagerly (no replay) with the same numbers. Under ``--profile fast``
-    (the residual early exit) no program is ever stored."""
+    eagerly (no replay) with the same numbers. ``--profile fast`` (the
+    residual early exit), which once stored no program, now captures at
+    its second frame like any config: the replays fill the exit log from
+    their own counts, and launch what the eager frames launch."""
     from realtimedepthdiffusion_tpu_torch import DepthPipeline, pipeline
     from realtimedepthdiffusion_tpu_torch.core import effects as fx
 
@@ -1041,9 +1050,179 @@ def test_replay_mismatch_runs_eagerly_and_fast_profile_captures_nothing(dev, mon
         fast_start=True), device=dev)
     rgb_d, gpyr = fast.prepare_image(rgb)
     state = fast.initial_state()
-    for _ in range(3):
+    counts = []
+    for i in range(3):
         log = []
         ops.reset_launch_counts()
         _, state, _ = fast.solve_and_effect(fx.EFFECT_DEFOCUS, gpyr, rgb_d, m, v, state, log)
         assert log and ops.launch_counts()["defocus_box"] == 1
-    assert fast._aot == {} and fast.wait_fused() and fast.capture(None, gpyr, m, v, state) is None
+        assert all(len(e["probes"]) >= 1 and "_device" not in e for e in log)
+        assert (("solve_fx", fx.EFFECT_DEFOCUS) in fast._aot) == (i >= 1)
+        counts.append(ops.launch_counts())
+    assert counts[0] == counts[1] == counts[2]
+    assert fast.wait_fused() and fast.capture(None, gpyr, m, v, state) >= 0.0
+
+
+def _flag(dev, value):
+    """The early exit's flag: None (no flag), or a 0-d int32 on the card."""
+    return None if value is None else torch.full((), value, dtype=torch.int32, device=dev)
+
+
+def _jc_plain(u, p, wts, mask, abc):
+    for a, b, c in abc.tolist():
+        u, p = sweep.sweep_plain(u, p, wts.wl, wts.wr, wts.wu, wts.wd, wts.inv_count, mask,
+                                 a, b, c)
+    return u, p
+
+
+def _rb_plain(u, wts, mask, om):
+    red = rb_sweep.red_black_parity(*u.shape, device=u.device)
+    for om_r, om_b in om.tolist():
+        u = rb_sweep.rb_iter_plain(u, wts.wl, wts.wr, wts.wu, wts.wd, wts.inv_count, mask, red,
+                                   om_r, om_b)
+    return u
+
+
+@pytest.mark.parametrize("kernel", ["K1", "K2", "K4", "K5", "K6"])
+@pytest.mark.parametrize("flag", [None, 0, 1])
+def test_stop_flag(dev, kernel, flag):
+    """Each sweep kernel under the early exit's flag: set, a launch leaves
+    its output equal to its input (K1, K4 and K6 copy their input across,
+    as the ping-pong of a captured chunk needs; K2 and K5 return); clear or
+    null, it equals its plain version bit for bit. Every launch counts."""
+    from realtimedepthdiffusion_tpu_torch.core.weights import depth_threshold, level_d8
+
+    h, w = (67, 120) if kernel in ("K2", "K5") else (135, 240)
+    depth, mask, wts, abc = _level(dev, h, w, 8, seed=h + len(kernel))
+    cfg = DiffusionConfig()
+    m8 = mask.to(torch.uint8)
+    planes = (wts.wr.contiguous(), wts.wd.contiguous(), wts.inv_count.contiguous(), m8)
+    prev = torch.from_numpy(np.random.default_rng(h).random((h, w), np.float32) * 255).to(dev)
+    stop = _flag(dev, flag)
+    nan = lambda: torch.full_like(depth, float("nan"))  # noqa: E731
+    fn = {"K1": sweep.jc_sweep_tiles, "K2": sweep.jc_sweep_resident,
+          "K4": rb_sweep.rb_sweep_tiles, "K5": rb_sweep.rb_sweep_resident,
+          "K6": fused_sweep.jc_sweep_fused}[kernel]
+    before = fn.launches
+    if kernel in ("K1", "K2", "K6"):
+        abc_dev = sweep.device_table(abc, dev)
+        u_in, p_in = depth.clone(), prev.clone()
+        if kernel == "K1":
+            u_out, p_out = nan(), nan()
+            fn(u_in, p_in, u_out, p_out, *planes, abc_dev, 0, 8, 8, stop=stop)
+            want = _jc_plain(depth, prev, wts, mask, abc)
+        elif kernel == "K2":
+            u_out, p_out = u_in, p_in
+            fn(u_in, p_in, *planes, abc_dev, 0, 8, sweep.resident_max_cluster(dev), stop)
+            want = _jc_plain(depth, prev, wts, mask, abc)
+        else:
+            gray = torch.from_numpy(np.random.default_rng(w).integers(
+                0, 256, (h, w), dtype=np.uint8)).to(dev)
+            u_out, p_out = nan(), nan()
+            thr = depth_threshold(1, 2, cfg)
+            fn(u_in, p_in, u_out, p_out, gray, m8, level_d8(depth), abc_dev,
+               fused_sweep.weight_exp_table(cfg, dev), 0, 8, thr or 0, thr is not None, 8, stop)
+            fwts = fused_sweep.derive_weights_plain(gray, level_d8(depth), 1, 2, cfg)
+            want = _jc_plain(depth, prev, fwts, mask, abc)
+        got = (u_out, p_out)
+        held = (depth, prev)
+    else:
+        om = rb_omegas(8, cfg)
+        om_dev = sweep.device_table(om, dev)
+        u_in = depth.clone()
+        if kernel == "K4":
+            u_out = nan()
+            fn(u_in, u_out, *planes, om_dev, 0, 8, 8, stop=stop)
+        else:
+            u_out = u_in
+            fn(u_in, *planes, om_dev, 0, 8, stop)
+        got, held, want = (u_out,), (depth,), (_rb_plain(depth, wts, mask, om),)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    expect = held if flag == 1 else want
+    assert all(torch.equal(a, b) for a, b in zip(got, expect)), (kernel, flag)
+    if flag == 1:
+        assert not torch.equal(want[0], held[0])  # a clear flag would have moved it
+
+
+@pytest.mark.parametrize("name,cfg_kw", [
+    ("fast profile", {"solver": "red_black", "early_exit": True, "tolerance": 1e-3,
+                      "residual_metric": "rms"}),
+    ("jacobi_chebyshev early exit", {"early_exit": True, "tolerance": 1e-3}),
+])
+def test_replayed_early_exit_frame_equals_eager(dev, name, cfg_kw):
+    """fast_start frames of ``solve_and_effect(EFFECT_DEFOCUS)`` under the
+    residual early exit at 1080p: the graph captured at the second frame
+    replays the later ones, whose levels exit on the card. Each frame
+    equals the eager function on the same inputs bit for bit, with the
+    same iterations and probes per level, and launches what it launches
+    (every chunk; those after a level's exit run as no-ops)."""
+    from realtimedepthdiffusion_tpu_torch import DepthPipeline
+    from realtimedepthdiffusion_tpu_torch.core import effects as fx
+    from realtimedepthdiffusion_tpu_torch.core.solver import read_exit_log
+
+    rows, cols = 1080, 1920
+    pipe = DepthPipeline(rows, cols, DiffusionConfig(fast_start=True, **cfg_kw), device=dev)
+    rgb, mask, value = _photo(rows, cols, 21)
+    rgb_d, gpyr = pipe.prepare_image(rgb)
+    state = pipe.initial_state()
+    exited = False
+    for i in range(5):
+        if i == 3:
+            mask[500:530, 40:90], value[500:530, 40:90] = True, 96
+        m, v = torch.from_numpy(mask).to(dev), torch.from_numpy(value).to(dev)
+        log, want_log = [], []
+        ops.reset_launch_counts()
+        got = pipe.solve_and_effect(fx.EFFECT_DEFOCUS, gpyr, rgb_d, m, v, state, log)
+        counts = ops.launch_counts()
+        ops.reset_launch_counts()
+        want = pipe._solve_fx_eager(fx.EFFECT_DEFOCUS, tuple(gpyr), rgb_d, m, v, tuple(state),
+                                    want_log)
+        read_exit_log(want_log)
+        assert counts == ops.launch_counts()
+        torch.cuda.synchronize()
+        assert torch.equal(got[0], want[0]) and torch.equal(got[2], want[2]), (name, i)
+        assert all(torch.equal(a, b) for a, b in zip(got[1], want[1])), (name, i)
+        assert log == want_log and len(log) == len(gpyr), (name, i)
+        assert (("solve_fx", fx.EFFECT_DEFOCUS) in pipe._aot) == (i >= 1)
+        exited |= any(e["iters"] < pipe.cfg.level_iterations(len(gpyr), len(gpyr) - 1 - j)
+                      for j, e in enumerate(log))
+        state = got[1]
+    assert exited  # some level left before its cap
+
+
+@pytest.mark.parametrize("solver", ["jacobi_chebyshev", "red_black"])
+def test_replayed_incremental_frame_equals_eager_at_every_centre(dev, solver):
+    """The windowed re-solve's program, captured by ``incremental_ready``'s
+    kick from stand-in tensors (centre (0, 0)), replayed at a centre inside,
+    at both near corners, past the far corner and at an edge: each frame
+    equals the eager function at its centre bit for bit and launches what
+    it launches."""
+    from realtimedepthdiffusion_tpu_torch import DepthPipeline
+    from realtimedepthdiffusion_tpu_torch.core import effects as fx
+
+    rows, cols = 1080, 1920
+    cfg = DiffusionConfig(fast_start=True, solver=solver, incremental_iterations=120)
+    pipe = DepthPipeline(rows, cols, cfg, device=dev)
+    pipe.background_compile = True
+    rgb, mask, value = _photo(rows, cols, 22)
+    rgb_d, gpyr = pipe.prepare_image(rgb)
+    m, v = torch.from_numpy(mask).to(dev), torch.from_numpy(value).to(dev)
+    _, state = pipe.solve(gpyr, m, v, pipe.initial_state())
+    assert not pipe.incremental_ready(fx.EFFECT_HAZE)  # the kick captures
+    assert pipe.incremental_ready(fx.EFFECT_HAZE)
+    prog = pipe._aot[("inc_fx", fx.EFFECT_HAZE)]
+    for center in [(540, 960), (3, 3), (1075, 7), (5000, 5000), (300, 1919)]:
+        mask[max(center[0] - 20, 0):center[0] + 20, max(center[1] - 20, 0):center[1] + 20] = True
+        m = torch.from_numpy(mask).to(dev)
+        ops.reset_launch_counts()
+        got = pipe.solve_incremental_and_effect(fx.EFFECT_HAZE, gpyr, rgb_d, m, v, state, center)
+        counts = ops.launch_counts()
+        ops.reset_launch_counts()
+        want = pipe._inc_fx_eager(fx.EFFECT_HAZE, tuple(gpyr), rgb_d, m, v, tuple(state), center)
+        assert counts == ops.launch_counts() and counts == {
+            k: prog.tally.get(k, 0) for k in counts}
+        torch.cuda.synchronize()
+        assert torch.equal(got[0], want[0]) and torch.equal(got[2], want[2]), center
+        assert all(torch.equal(a, b) for a, b in zip(got[1], want[1])), center
+        state = got[1]

@@ -252,10 +252,11 @@ def _session(cfg_kw, monkeypatch):
 def test_incremental_gate_never_blocks(monkeypatch):
     """While incremental_ready says no, the live loop takes the full warm
     re-solve and kicks after the frame; once it says yes, small strokes take
-    the windowed path. The port's windowed re-solve runs eagerly, so its
-    gate is always open: the closed gate is forced here."""
+    the windowed path. The gate is closed until the windowed re-solve's
+    program exists, as JAX's is until its compile lands; here it is held
+    closed, kick included, and then opened by a kick."""
     s, win = _session({}, monkeypatch)
-    assert s.pipe.incremental_ready(None, kick=False)
+    assert not s.pipe.incremental_ready(None, kick=False)
     gate = []
     monkeypatch.setattr(type(s.pipe), "incremental_ready",
                         lambda self, effect=None, kick=True: gate.append(kick) or False)
@@ -267,6 +268,7 @@ def test_incremental_gate_never_blocks(monkeypatch):
 
     monkeypatch.undo()
     win = _Spy(monkeypatch, "solve_incremental")
+    assert not s.pipe.incremental_ready(None)  # the kick captures the program
     assert s.pipe.incremental_ready(None) and s.pipe.wait_fused(timeout=120)
     s.paint(50, 42)
     s.solve()
@@ -321,7 +323,7 @@ def test_one_shot_headless_skips_background_compile(tmp_path, monkeypatch):
 def test_warmup_tool(capsys):
     """warm_shape runs each path and then reports the programs the JAX tool
     lowers, ``solve`` and ``solve+effect[e]``, with their capture seconds (0
-    on the CPU); under the early exit they run eagerly and it says so."""
+    on the CPU); under the early exit too, which captures like any config."""
     from realtimedepthdiffusion_tpu_torch import warmup
 
     lines = []
@@ -335,7 +337,7 @@ def test_warmup_tool(capsys):
     lines.clear()
     warmup.warm_shape(H, W, dataclasses.replace(cfg, early_exit=True), [], False,
                       log=lines.append, device="cpu")
-    assert f"  {H}x{W} solve graph: none (the early exit runs eagerly)" in lines
+    assert f"  {H}x{W} solve graph: 0.000 s" in lines
 
 
 def test_fast_start_env_default(monkeypatch):

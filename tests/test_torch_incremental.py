@@ -133,7 +133,9 @@ def test_center_forms_agree(port_run, center):
 
 
 def test_device_center_is_refused():
-    """A centre on a device is refused: reading it would wait for the device."""
+    """A centre on a device other than the CPU and the pipeline's is
+    refused: the solve would read it across devices. (One on the
+    pipeline's device is used as it is, and a host centre is uploaded.)"""
     pipe = DepthPipeline(64, 64, DiffusionConfig(max_iterations=8), device="cpu")
     z = torch.zeros(64, 64)
     with pytest.raises(ValueError, match="host integers"):

@@ -229,12 +229,14 @@ def test_pending_rects_survive_checkpoint(resumable, tmp_path):
     for a, b in zip(r.depth_state, s.depth_state):
         assert torch.equal(a, b)
     calls = []
-    real = r.pipe.solve_incremental
-    r.pipe.solve_incremental = lambda *a, **kw: (calls.append(1), real(*a, **kw))[1]
+    for name in ("solve_incremental", "solve_incremental_and_effect"):
+        real = getattr(r.pipe, name)
+        setattr(r.pipe, name,
+                lambda *a, real=real, name=name, **kw: (calls.append(name), real(*a, **kw))[1])
     got, want = r.solve(), s.solve()
-    # One windowed solve per rect (the last with the effect, which goes
-    # through solve_incremental too).
-    assert calls == [1, 1] and r.last_upload_bytes == 2 * H * W
+    # One windowed solve per rect, the last with the effect.
+    assert calls == ["solve_incremental", "solve_incremental_and_effect"]
+    assert r.last_upload_bytes == 2 * H * W
     assert np.array_equal(got, want) and torch.equal(r.depth0, s.depth0)
     assert torch.equal(r.artistic, s.artistic)
     for a, b in zip(r.depth_state, s.depth_state):

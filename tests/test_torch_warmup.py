@@ -24,7 +24,9 @@ def build_dir(monkeypatch):
 
 def test_warmup_tool(tmp_path, capsys, monkeypatch, build_dir):
     """rtdd-warmup-torch runs every path for the requested shape, prints
-    each under the JAX tool's names, and points the build at the cache."""
+    each under the JAX tool's names, captures the programs the JAX tool
+    compiles (the windowed re-solve's too) and points the build at the
+    cache."""
     monkeypatch.setenv("RTDD_CACHE_DIR", str(tmp_path / "cache"))
     rc = warmup.main([
         "--size", "64x96", "--effect", "h", "--incremental", "40",
@@ -38,7 +40,8 @@ def test_warmup_tool(tmp_path, capsys, monkeypatch, build_dir):
              if line.startswith("  64x96 ")]
     assert names == ["card", "gray_pyramid", "solve", "depth_u8", "depth_u16",
                      "solve+effect[3]", "effect[3]", "incremental", "incremental+effect[3]",
-                     "solve graph", "solve+effect[3] graph"]
+                     "solve graph", "solve+effect[3] graph", "incremental graph",
+                     "incremental+effect[3] graph"]
     assert "build" not in names  # the CPU builds nothing
     assert (tmp_path / "cache").exists()
     assert build.library_path().parent == tmp_path / "cache"
