@@ -55,10 +55,12 @@ Phases, each printed on its own lines; any failure raises and exits non-zero:
    ``batched_step(make_mesh(8), 1080, 1920, ..., EFFECT_DEFOCUS)`` steps on
    a batch of 4 (mesh (2, 2, 2)), which must launch exactly 244 K1 (one per
    exchange over the card's 16 blocks) and 16 K3-block per step and give the
-   single-device depth and defocus per image bit for bit; one sharded
+   single-device depth and defocus per image bit for bit (the step is
+   captured at its first call and replayed at the next two); one sharded
    ``--profile fast`` step on mesh (1, 2, 2), which must launch K4 once per
-   exchange and card, within RMSE 1e-3 of the single-device fast solve; a 270x480 step equal to the same step on the
-   plain versions; and ``dryrun_multichip(8)``. The last 1080p step runs
+   exchange of every chunk of each level's cap and card, within RMSE 1e-3
+   of the single-device fast solve; a 270x480 step equal to the same step
+   on the plain versions; and ``dryrun_multichip(8)``. The last 1080p step runs
    once more under ``torch.profiler``: its device time by kernel, over the
    same step's unprofiled time, is the step's device busy share; so do the
    timed default, fast and 4K frames of phases 4-6.
@@ -66,7 +68,7 @@ Phases, each printed on its own lines; any failure raises and exits non-zero:
 8. Takes the device time alone of K1, K3, K4, K5 and K6 at the shapes
    above and of phase 9's windows: the launches of a level or an effect are
    captured once into a CUDA graph and replayed, so that the host paces
-   nothing between them. It runs last, after phases 9 to 14.
+   nothing between them. It runs last, after phases 9 to 15.
 9. Drives the paths that run the kernels at other shapes or beside plain
    torch ops. The windows of the incremental re-solve: K1 on a 384x384
    level-0 window and K2 on a 192x192 level-1 window (K4 on both under
@@ -187,6 +189,19 @@ Phases, each printed on its own lines; any failure raises and exits non-zero:
    device time of a replayed fast frame against the same frame with the
    loop read on the host (chunks after the exit never issued). One
    ``{"device_loop": ...}`` JSON line.
+15. Drives the sharded step as one program (``parallel/sharded.py:
+   batched_step``: a CUDA graph per argument signature), after phase 14
+   and before phase 8. With the counts at 0, the phase's main path: phase
+   7's 1080p step of 4 on mesh (2, 2, 2) and its sharded ``--profile
+   fast`` step of one image on (1, 2, 2), each through a new
+   ``batched_step``, three calls each (a scribble added at the third):
+   the first eager, capturing the step, the rest replaying it, each equal
+   to ``fn.eager`` on the same inputs bit for bit (depth, state, effect,
+   exit log) and launching what it launches and what the routes give.
+   Then chains of four steps eager and replayed in turns (CUDA events and
+   the host clock), one replay and one eager step under the profiler
+   (device time, busy share), and each graph's capture seconds. One
+   ``{"sharded_program": ...}`` JSON line.
 
 Each phase prints its seconds. The line before the last is a JSON object
 of the kernels, each with its launches on its main path, its largest
@@ -969,16 +984,12 @@ def main() -> None:
         full, rest = divmod(n, every)
         return [every] * full + [rest] * (rest > 0)
 
-    def exit_chunks(e, every):
-        """The chunks the sharded step's early exit ran (its loop reads
-        each probe on the host): full chunks of ``every`` between two
-        probes, then what was left of its cap."""
-        return split(e["iters"], every)
-
     def issued_chunks(e, every):
-        """The chunks a single-device early exit issues: every chunk of
-        the level's cap, decided on the card (those after the exit run as
-        no-ops, core/solver.py:_chunked_early_exit)."""
+        """The chunks an early exit issues, on one device or sharded: every
+        chunk of the level's cap, full chunks of ``every`` and the tail,
+        decided on the card (those after the exit run as no-ops,
+        core/solver.py:_chunked_early_exit, parallel/sharded.py:
+        _ShardedLevel.solve)."""
         return split(e["cap"], every)
 
     def rb_exit_launches(log, every, want):
@@ -1416,8 +1427,8 @@ def main() -> None:
     fm_d, fv_d = torch.from_numpy(smask).to(dev), torch.from_numpy(svalue).to(dev)
     fst = fpipe.initial_state()
     for attempt in range(12):
-        img = imgs[attempt] if attempt < n_img else seeded_image(rng, H, W)
-        _, fgp = fpipe.prepare_image(img)
+        fast_img = imgs[attempt] if attempt < n_img else seeded_image(rng, H, W)
+        _, fgp = fpipe.prepare_image(fast_img)
         slog = []
         f1, _ = fpipe.solve(fgp, fm_d, fv_d, fst, slog)
         margin = min(abs(q - e["tol"]) / e["tol"] for e in slog for q in e["probes"])
@@ -1429,15 +1440,16 @@ def main() -> None:
     flog = []
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    fdepth, _, fout = fstep(torch.from_numpy(img)[None].to(dev), fm_d[None], fv_d[None],
+    fdepth, _, fout = fstep(torch.from_numpy(fast_img)[None].to(dev), fm_d[None], fv_d[None],
                             tuple(t[None] for t in fst), flog)
     torch.cuda.synchronize()
     fast_step_s = time.perf_counter() - t0
     fast_halo = {k: v for k, v in ops.launch_counts().items() if v}
     # One K4 launch per exchange (k iterations of a chunk) on each card
-    # that holds slots; every 1080p level is sharded on this mesh.
+    # that holds slots, for every chunk of each level's cap and the tail;
+    # every 1080p level is sharded on this mesh.
     exchanges = sum(-(-n // halo) for e in flog
-                    for n in exit_chunks(e, fast_cfg.residual_check_every))
+                    for n in issued_chunks(e, fast_cfg.residual_check_every))
     want_halo = {"rb_sweep_tiles": len(set(mesh4.devices.values())) * exchanges,
                  "defocus_block": mesh4.shape["dy"] * mesh4.shape["dx"]}
     if fast_halo != want_halo:
@@ -1446,7 +1458,8 @@ def main() -> None:
     levels = [{"shape": list(e["shape"]), "iterations": e["iters"], "single_device": se["iters"],
                "probes": [round(q, 6) for q in e["probes"]]} for e, se in zip(flog, slog)]
     print(f"sharded fast step, seeded image {attempt} (probes >= {margin:.2%} from the threshold) "
-          f"on mesh {mesh4.shape}: {fast_step_s * 1e3:.3f} ms (host clock), launches "
+          f"on mesh {mesh4.shape}: {fast_step_s * 1e3:.3f} ms (host clock; eager, then its "
+          f"capture), launches "
           f"{json.dumps(fast_halo)}; RMSE {rmse:.3e} against the single-device fast solve "
           f"(bar 1e-3); tol {flog[0]['tol']:.6f}; {json.dumps(levels)}")
     if not rmse <= 1e-3:
@@ -1471,7 +1484,8 @@ def main() -> None:
                    require_equal(torch, "270x480 step defocus", runs["kernels"][1],
                                  runs["plain"][1]))
     print(f"sharded {h3}x{w3} step, batch 2 on mesh {mesh8.shape}: kernels "
-          f"{runs['kernels'][2] * 1e3:.3f} ms, plain {runs['plain'][2] * 1e3:.3f} ms (host clock), "
+          f"{runs['kernels'][2] * 1e3:.3f} ms (eager, then its capture), plain "
+          f"{runs['plain'][2] * 1e3:.3f} ms (host clock), "
           f"max_abs_err {step_err}")
 
     print(f"dryrun_multichip(8): {json.dumps(dryrun.dryrun_multichip(8, device='cuda'))}")
@@ -3078,7 +3092,7 @@ def main() -> None:
         if not loop_launches[name]:
             raise AssertionError(f"phase 14's main path never launched {name}")
 
-    def turns(name, runs, st0, n):
+    def turns(name, runs, st0, n, label="device loop"):
         """Chains of n calls, each from the last one's state, eager and
         replayed in turns (eager, replay, replay, eager); ms per call by
         CUDA events around the chain and by the host clock to its end."""
@@ -3096,7 +3110,7 @@ def main() -> None:
             end.synchronize()
             out[kind_].append({"event_ms": start.elapsed_time(end) / n,
                                "host_ms": (time.perf_counter() - t0_) * 1e3 / n})
-        print(f"device loop {name}: chains of {n}, ms per call in turns: {json.dumps(out)}")
+        print(f"{label} {name}: chains of {n}, ms per call in turns: {json.dumps(out)}")
         return out
 
     loop["fast"]["chains"], runs_fast = chains("--profile fast (device loop)", p_fast, in_fast, 16)
@@ -3201,6 +3215,111 @@ def main() -> None:
     loop["seconds"] = time.perf_counter() - t14
     print(json.dumps({"device_loop": loop}))
     phase_done("14 (the device loop)")
+
+    # -- 15. the sharded step as one program: a CUDA graph per signature ---------------
+    t15 = time.perf_counter()
+    sprog = {"card": card}
+
+    def step_program(name, fn, rgb, scenes, st, want):
+        """Calls of a new ``batched_step`` ``fn`` on ``rgb`` under each (mask,
+        value) of ``scenes``, each from the last one's state: the first runs
+        eagerly and captures the step, the rest replay it. Each call must
+        equal ``fn.eager`` on the same inputs bit for bit (depth, state,
+        effect, exit log) and launch what it launches, ``want``. Returns the
+        last inputs and the phase's line for the step."""
+        paths, levels = [], []
+        for i, (m, v) in enumerate(scenes):
+            paths.append("replay" if fn.programs else "eager")
+            log, want_log = [], []
+            before = ops.launch_counts()
+            got = fn(rgb, m, v, st, log)
+            mid = ops.launch_counts()
+            eager = fn.eager(rgb, m, v, st, want_log)
+            read_exit_log(want_log)
+            after = ops.launch_counts()
+            torch.cuda.synchronize()
+            got_n = {k: mid[k] - before[k] for k in mid if mid[k] != before[k]}
+            eager_n = {k: after[k] - mid[k] for k in mid if after[k] != mid[k]}
+            if got_n != eager_n or got_n != want(log):
+                raise AssertionError(f"{name} call {i} ({paths[-1]}): launched {got_n}, the "
+                                     f"eager step {eager_n}, the routes {want(log)}")
+            for part, a, b in (("depth", got[0], eager[0]), ("effect", got[2], eager[2]),
+                               *((f"state L{l_}", x, y) for l_, (x, y) in
+                                 enumerate(zip(got[1], eager[1])))):
+                if a.shape != b.shape or not torch.equal(a, b):
+                    raise AssertionError(f"{name} call {i} ({paths[-1]}): {part} differs from the "
+                                         f"eager step (max abs {max_abs(torch, a, b)})")
+            if log != want_log:
+                raise AssertionError(f"{name} call {i}: exit log {log}, eager {want_log}")
+            levels.append([{"iters": e["iters"], "cap": e["cap"], "probes": len(e["probes"])}
+                           for e in log])
+            st = got[1]
+        prog, = fn.programs.values()
+        if paths != ["eager"] + ["replay"] * (len(scenes) - 1) or prog.tally != got_n:
+            raise AssertionError(f"{name}: calls took {paths}, the graph's tally {prog.tally}")
+        line = {"paths": paths, "capture_s": prog.capture_s, "launches_per_step": prog.tally,
+                "levels": levels if any(levels) else None}
+        print(f"sharded program {name}: {len(scenes)} calls equal to the eager step bit for "
+              f"bit; {json.dumps(line)}")
+        return (rgb, *scenes[-1], st), line
+
+    def step_times(name, fn, inputs, n):
+        """Chains of n steps eager and replayed in turns, and one replay
+        and one eager step under the profiler (device time, busy share)."""
+        rgb, m, v, st0 = inputs
+        line = {"chains": turns(name, {"eager": lambda s_: fn.eager(rgb, m, v, s_)[1],
+                                       "replay": lambda s_: fn(rgb, m, v, s_)[1]}, st0, n,
+                                label="sharded program")}
+        for kind_, run in (("replay", lambda: fn(rgb, m, v, st0)),
+                           ("eager", lambda: fn.eager(rgb, m, v, st0))):
+            step_ms_ = time_ms(torch, run, 5 if kind_ == "replay" else 2)
+            tr = traced(f"sharded program {name}, {kind_}", run, step_ms_)
+            line[kind_] = {"step_ms": step_ms_, "device_ms": tr["device_ms"],
+                           "device_launches": tr["device_launches"], "busy": tr["busy"]}
+        return line
+
+    # The main path of this phase: the step of phase 7 (1080p, 4 images on
+    # mesh (2, 2, 2)) and the sharded fast step (one image on mesh (1, 2,
+    # 2)), each through a new batched_step, a scribble added at the third
+    # call.
+    m2, v2 = m_b.clone(), v_b.clone()
+    m2[:, 500:530, 40:90], v2[:, 500:530, 40:90] = True, 96
+    fm2, fv2 = fm_d[None].clone(), fv_d[None].clone()
+    fm2[:, 500:530, 40:90], fv2[:, 500:530, 40:90] = True, 96
+    cards4 = len(set(mesh4.devices.values()))
+
+    def fast_want(log):
+        return {"rb_sweep_tiles": cards4 * sum(
+                    -(-n // halo) for e in log
+                    for n in issued_chunks(e, fast_cfg.residual_check_every)),
+                "defocus_block": mesh4.shape["dy"] * mesh4.shape["dx"]}
+
+    step15 = sharded.batched_step(mesh8, H, W, cfg, fx.EFFECT_DEFOCUS)[0]
+    fast15 = sharded.batched_step(mesh4, H, W, fast_cfg, fx.EFFECT_DEFOCUS)[0]
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    in15, sprog["step"] = step_program(
+        f"1080p step of {n_img} on {mesh8.shape}", step15, rgb_b,
+        [(m_b, v_b), (m_b, v_b), (m2, v2)],
+        tuple(torch.stack([s_] * n_img) for s_ in pipe.initial_state()), lambda log: want_step)
+    in15f, sprog["fast"] = step_program(
+        f"1080p fast step of 1 on {mesh4.shape}", fast15, torch.from_numpy(fast_img)[None].to(dev),
+        [(fm_d[None], fv_d[None]), (fm_d[None], fv_d[None]), (fm2, fv2)],
+        tuple(t[None] for t in fst), fast_want)
+    torch.cuda.synchronize()
+    prog_launches = ops.launch_counts()
+    sprog["main_path_s"] = time.perf_counter() - t0
+    sprog["launches"] = {k: v for k, v in prog_launches.items() if v}
+    print(f"sharded program main path: launches {json.dumps(sprog['launches'])}")
+    for name in ("jc_sweep_tiles", "rb_sweep_tiles", "defocus_block"):
+        if not prog_launches[name]:
+            raise AssertionError(f"phase 15's main path never launched {name}")
+    sprog["step"].update(step_times(f"1080p step of {n_img}", step15, in15, 4))
+    sprog["fast"].update(step_times("1080p fast step of 1", fast15, in15f, 4))
+    del step15, fast15, in15, in15f
+    sprog["seconds"] = time.perf_counter() - t15
+    print(json.dumps({"sharded_program": sprog}))
+    phase_done("15 (the sharded program)")
 
     # -- 8. device time alone ----------------------------------------------------------
     device_ms = {label: graph_ms(torch, fn, 5) for label, fn in device_only.items()}
@@ -3334,6 +3453,7 @@ def main() -> None:
         k["session_launches"] = live_launches[k["name"]]
         k["serve_launches"] = serve_launches[k["name"]]  # phase 11's
         k["device_loop_launches"] = loop_launches[k["name"]]  # phase 14's
+        k["sharded_program_launches"] = prog_launches[k["name"]]  # phase 15's
     print(f"frames: default {frame['ms']:.3f} ms (plain {frame['plain_ms']:.3f}), "
           f"fast {fast_frame['ms']:.3f} ms (plain {fast_frame['plain_ms']:.3f}), "
           f"4K {frame4['ms']:.3f} ms (plain {frame4['plain_ms']:.3f}), "

@@ -41,7 +41,7 @@ import torch
 
 from . import build
 from .sweep import (SMEM_PER_CTA, _check, _check_table, _same_device, _stream, check_stop,
-                    device_table, left_up_weights, relax_plain, unless_stopped)
+                    device_table, left_up_weights, relax_plain, table_rows, unless_stopped)
 
 # Iterations per K4 launch. One iteration is two half-sweeps, each of which
 # widens the dependency cone by a pixel, so a tile carries a ring of 2k. On
@@ -305,9 +305,10 @@ def solve_level_rb_cuda(depth: torch.Tensor, mask: torch.Tensor, wts, om: np.nda
     return run(u, 0, om.shape[0])
 
 
-def halo_block_rb_sweeps_plain(u_e, bh_e, bv_e, inv_e, m_e, parity, om):
+def halo_block_rb_sweeps_plain(u_e, bh_e, bv_e, inv_e, m_e, parity, om, stop=None):
     """Plain version of ``halo_block_rb_sweeps``: ``rb_iter_plain`` once per
-    row of ``om``, on each block alone."""
+    row of ``om``, on each block alone; where the flag ``stop`` is set, the
+    blocks as they came (``unless_stopped``)."""
     wl, wu = left_up_weights(bh_e, bv_e)
     mask = m_e.to(torch.bool)
     h, w = u_e.shape[-2:]
@@ -317,25 +318,27 @@ def halo_block_rb_sweeps_plain(u_e, bh_e, bv_e, inv_e, m_e, parity, om):
         red = torch.stack([red_black_parity(h, w, device=u_e.device, parity=q)
                            for q in _parities(parity, u_e.shape[0])])
     u = u_e
-    for om_r, om_b in om.tolist():
+    for om_r, om_b in table_rows(om):
         u = rb_iter_plain(u, wl, bh_e, wu, bv_e, inv_e, mask, red, om_r, om_b)
-    return u
+    return unless_stopped(stop, (u_e,), (u,))[0]
 
 
-def halo_block_rb_sweeps(u_e, bh_e, bv_e, inv_e, m_e, parity, om):
+def halo_block_rb_sweeps(u_e, bh_e, bv_e, inv_e, m_e, parity, om, stop=None):
     """The (n, 2) omegas ``om`` on a halo-extended (h, w) block of the
     sharded step, or on an (nb, h, w) stack of them, red where (y + x +
     parity) is even in block coordinates: ``parity`` is that of the block's
     global origin, one int per block of a stack. Plain torch for CPU
     tensors, one K4 launch over the whole stack with n_active = k = n for
-    CUDA tensors; the result is a new tensor. The caller's halo is at
-    least 2n wide (each iteration reads two rings) and it crops them."""
+    CUDA tensors, handed the early exit's flag ``stop``
+    (``ops/sweep.py:check_stop``; a stopped launch copies the blocks
+    across); the result is a new tensor. The caller's halo is at least 2n
+    wide (each iteration reads two rings) and it crops them."""
     if u_e.device.type == "cpu":
-        return halo_block_rb_sweeps_plain(u_e, bh_e, bv_e, inv_e, m_e, parity, om)
+        return halo_block_rb_sweeps_plain(u_e, bh_e, bv_e, inv_e, m_e, parity, om, stop)
     if not u_e.is_cuda:
         raise ValueError(f"halo_block_rb_sweeps: unsupported device {u_e.device}")
     n = om.shape[0]
     u_out = torch.empty_like(u_e)
     rb_sweep_tiles(u_e, u_out, bh_e, bv_e, inv_e, m_e.to(torch.uint8), om, 0,
-                   n, n, parity=parity)
+                   n, n, parity=parity, stop=stop)
     return u_out

@@ -405,32 +405,43 @@ def chunks_cuda(depth: torch.Tensor, mask: torch.Tensor, wts, abc: np.ndarray,
     return (u, torch.zeros_like(u)), run, _first
 
 
-def halo_block_sweeps_plain(u_e, p_e, bh_e, bv_e, inv_e, m_e, abc):
+def table_rows(table):
+    """The rows of an iteration table (numpy or a tensor), each item a 0-d
+    tensor: what a plain version iterates without reading a device table
+    back to the host (the values, float32, give the bits Python floats
+    would)."""
+    return torch.as_tensor(table).unbind(0)
+
+
+def halo_block_sweeps_plain(u_e, p_e, bh_e, bv_e, inv_e, m_e, abc, stop=None):
     """Plain version of ``halo_block_sweeps``: ``sweep_plain`` once per row
-    of ``abc``, on each block alone."""
+    of ``abc``, on each block alone; where the flag ``stop`` is set, the
+    blocks as they came (``unless_stopped``)."""
     wl, wu = left_up_weights(bh_e, bv_e)
     mask = m_e.to(torch.bool)
     u, prev = u_e, p_e
-    for a, b, c in abc.tolist():
+    for a, b, c in table_rows(abc):
         u, prev = sweep_plain(u, prev, wl, bh_e, wu, bv_e, inv_e, mask, a, b, c)
-    return u, prev
+    return unless_stopped(stop, (u_e, p_e), (u, prev))
 
 
-def halo_block_sweeps(u_e, p_e, bh_e, bv_e, inv_e, m_e, abc):
+def halo_block_sweeps(u_e, p_e, bh_e, bv_e, inv_e, m_e, abc, stop=None):
     """The (n, 3) schedule ``abc`` on a halo-extended (h, w) block of the
     sharded step, or on an (nb, h, w) stack of them; returns (u, prev).
     Plain torch for CPU tensors, one K1 launch over the whole stack with
-    n_active = k = n for CUDA tensors.
+    n_active = k = n for CUDA tensors, handed the early exit's flag
+    ``stop`` (``check_stop``): a stopped launch copies the blocks across,
+    which leaves the interiors as they were.
 
     K1 reads zeros past each block where the TPU kernel's rolls wrap around;
     either way only the outer n rings are wrong, and the caller, whose halo
     is at least n wide, crops them."""
     if u_e.device.type == "cpu":
-        return halo_block_sweeps_plain(u_e, p_e, bh_e, bv_e, inv_e, m_e, abc)
+        return halo_block_sweeps_plain(u_e, p_e, bh_e, bv_e, inv_e, m_e, abc, stop)
     if not u_e.is_cuda:
         raise ValueError(f"halo_block_sweeps: unsupported device {u_e.device}")
     n = abc.shape[0]
     u_out, p_out = torch.empty_like(u_e), torch.empty_like(u_e)
     jc_sweep_tiles(u_e, p_e, u_out, p_out, bh_e, bv_e, inv_e, m_e.to(torch.uint8),
-                   abc, 0, n, n)
+                   abc, 0, n, n, stop=stop)
     return u_out, p_out

@@ -12,12 +12,18 @@ Levels whose blocks would be thinner than the exchange run replicated,
 through the single-device ``core/solver.py:solve_level`` per image, on the
 home device.
 
-One process drives every slot, as one JAX program drives its mesh; the
-residual early exit is a host loop that reduces the slots' partial sums to
-one number per chunk, so every slot stops at the same iteration. The
-kernels and the plain versions compute the same bits as the single-device
-path, so a sharded level equals the single-device level exactly; only the
-early exit's residual is summed in another order.
+One process drives every slot, as one JAX program drives its mesh. The
+residual early exit is decided on the device, as JAX's ``lax.while_loop``
+over a residual gathered by ``psum``/``pmax``: the slots' partial sums
+reach the home device by device-to-device copies, where one probe per
+chunk sets a flag that every later launch of the level takes, so every
+slot stops at the same iteration and the host reads nothing inside a step
+(``_ShardedLevel.solve``). ``batched_step`` keeps the whole step as a CUDA
+graph per argument signature where one card holds every slot, as JAX
+compiles ``jax.jit(step)`` once per shape. The kernels and the plain
+versions compute the same bits as the single-device path, so a sharded
+level equals the single-device level exactly; only the early exit's
+residual is summed in another order.
 """
 
 from __future__ import annotations
@@ -31,6 +37,7 @@ import torch.nn.functional as F
 
 from ..config import DiffusionConfig
 from ..core import effects as fx
+from ..core import solver as core_solver
 from ..core.annotation import annotation_pyr_down, seed_depth
 from ..core.color import rgb_to_gray
 from ..core.multigrid import (build_gray_pyramid, initial_depth_state, vcycle_polish,
@@ -44,6 +51,7 @@ from ..ops.dispatch import check_supported
 from ..ops.rb_sweep import halo_block_rb_sweeps, halo_block_rb_sweeps_plain
 from ..ops.sweep import (device_table, halo_block_sweeps, halo_block_sweeps_plain, left_up_weights,
                          relax_plain)
+from ..utils.program import Program, leaves, signature
 from .halo import extend_into, extend_with_halo
 from .mesh import SlotMesh
 
@@ -107,17 +115,18 @@ def level_is_sharded(mesh: SlotMesh, h: int, w: int, solver: str,
     return dy * dx > 1 and h // dy >= width and w // dx >= width
 
 
-def _residual_reduce(mesh: SlotMesh, d, m, cfg: DiffusionConfig) -> float:
+def _residual_reduce(mesh: SlotMesh, d, m, cfg: DiffusionConfig) -> torch.Tensor:
     """The one residual every slot agrees on, from each slot's per-pixel
-    |relax(u) - u| blocks ``d`` and its mask blocks ``m`` ((n, h, w) each),
-    read back to the host. max: the largest off-mask value over all slots.
-    rms: each image's sum of squares and off-mask count added over its
-    slots, then the largest per-image rms (the exit waits for every image
-    of the batch)."""
+    |relax(u) - u| blocks ``d`` and its mask blocks ``m`` ((n, h, w) each):
+    a 0-d float32 tensor on the home device, where each slot's partial
+    result arrives by a device-to-device copy. max: the largest off-mask
+    value over all slots. rms: each image's sum of squares and off-mask
+    count added over its slots, then the largest per-image rms (the exit
+    waits for every image of the batch)."""
     home = mesh.home
     if cfg.residual_metric == "max":
         per_slot = [torch.where(m[s], 0.0, d[s]).amax().to(home) for s in mesh.slots]
-        return torch.stack(per_slot).max().item()
+        return torch.stack(per_slot).max()
     sq, cnt = {}, {}
     for s in mesh.slots:
         sq[s] = torch.where(m[s], 0.0, d[s] * d[s]).sum(dim=(-2, -1)).to(home)
@@ -125,14 +134,14 @@ def _residual_reduce(mesh: SlotMesh, d, m, cfg: DiffusionConfig) -> float:
     rows = [[s for s in mesh.slots if s[0] == p] for p in range(mesh.shape["batch"])]
     sq_img = torch.stack([torch.stack([sq[s] for s in row]).sum(0) for row in rows])
     cnt_img = torch.stack([torch.stack([cnt[s] for s in row]).sum(0) for row in rows])
-    return torch.sqrt(sq_img / torch.clamp(cnt_img, min=1.0)).max().item()
+    return torch.sqrt(sq_img / torch.clamp(cnt_img, min=1.0)).max()
 
 
 class _ShardedLevel:
     """One level's padded planes scattered over the mesh and extended once
-    by the exchange width, the probe of the early exit, and the host loop
-    that runs chunks of iterations until the probe or the budget says stop.
-    The solvers below supply ``state``, ``run`` and ``u_of``.
+    by the exchange width, the probe of the early exit, and the loop that
+    runs chunks of iterations until the probe or the budget says stop. The
+    solvers below supply ``state``, ``run`` and ``u_of``.
 
     The extended blocks of every slot on a device lie in one (N, h+2w,
     w+2w) stack per device, slot after slot (``at``), so one kernel launch
@@ -210,7 +219,7 @@ class _ShardedLevel:
             return {d: host for d in self.stack_len}
         return {d: device_table(table, d) for d in self.stack_len}
 
-    def residual(self, us, cfg) -> float:
+    def residual(self, us, cfg) -> torch.Tensor:
         u1 = extend_with_halo(self.mesh, us, 1)
         d = {}
         for s in self.mesh.slots:
@@ -222,30 +231,72 @@ class _ShardedLevel:
         return _residual_reduce(self.mesh, d, self.m, cfg)
 
     def solve(self, state, run, u_of, iters, cfg, exit_log, shape):
-        """Fixed count, or the early exit under JAX's contract: full chunks
-        while they fit the budget and the last probe is >= tolerance*255,
-        then the truncated tail if the probe still says go. Returns (state,
-        iters_done, last probe); iters_done is ``iters`` when the tail ran."""
+        """``state = run(state, base, n, stop)`` for a fixed count, or the
+        early exit under JAX's contract (``lax.while_loop`` then
+        ``lax.cond``): full chunks of ``residual_check_every`` while they
+        fit the budget and the last probe is >= tolerance*255, then the
+        truncated tail if the probe still says go, which counts as the
+        whole budget.
+
+        The loop is decided on the device, as the single-device one
+        (``core/solver.py:_chunked_early_exit``): its iters // chunk full
+        chunks and the tail are all issued, each handed ``stop``, a 0-d
+        int32 flag per device that holds slots (the home device's, copied
+        to the others after each probe), which a probe after a full chunk
+        sets where the residual is below the threshold or NaN; a stopped
+        chunk leaves the state as it is. Device counts of the iterations
+        and probes advance while the flag is clear, and each probe's
+        residual goes to a slot of its own. On the CPU the loop reads the
+        flag (no wait there) and stops issuing chunks, handing them none.
+
+        Under the early exit, appends to a list given as ``exit_log`` the
+        single-device entry: the level's shape, its cap, the threshold and
+        the device counts, which ``read_exit_log`` turns into ``iters`` and
+        ``probes`` (on the CPU at once)."""
         if not cfg.early_exit:
-            return run(state, 0, iters), iters, math.inf
+            return run(state, 0, iters, None)
         tol = float(np.float32(cfg.tolerance) * np.float32(255.0))
         chunk = max(int(cfg.residual_check_every), 1)
-        i, res, probes = 0, math.inf, []
-        while i + chunk <= iters and res >= tol:
-            state = run(state, i, chunk)
-            i += chunk
+        n_full, rem = divmod(iters, chunk)
+        home = self.mesh.home
+        on_host = core_solver._host_loop(home)
+        stop = torch.zeros((), dtype=torch.int32, device=home)
+        flags = {d: stop if d == home else torch.zeros_like(stop, device=d)
+                 for d in self.stack_len}
+        handed = None if on_host else flags
+        done = torch.zeros(2, dtype=torch.int32, device=home)  # iterations run, probes run
+        probes = torch.full((n_full,), math.nan, dtype=torch.float32, device=home)
+        for c in range(n_full):
+            if on_host and bool(stop):
+                break
+            state = run(state, c * chunk, chunk, handed)
             res = self.residual(u_of(state), cfg)
-            probes.append(res)
-        if res >= tol and i < iters:
-            state = run(state, i, iters - i)
-            i = iters
+            live = 1 - stop
+            done[0].add_(live, alpha=chunk)
+            done[1].add_(live)
+            probes[c] = res
+            stop.bitwise_or_(res.ge(tol).logical_not())  # NaN stops, as in JAX
+            for f in flags.values():
+                if f is not stop:
+                    f.copy_(stop)
+        if rem and not (on_host and bool(stop)):
+            state = run(state, n_full * chunk, rem, handed)
+            done[0].add_(1 - stop, alpha=rem)
         if exit_log is not None:
-            exit_log.append({"shape": shape, "iters": i, "probes": probes, "tol": tol})
-        return state, i, res
+            exit_log.append({"shape": shape, "cap": iters, "tol": tol, "_device": (done, probes)})
+            if on_host:
+                read_exit_log(exit_log)
+        return state
 
 
 def _one_device(mesh) -> bool:
     return len(set(mesh.devices.values())) == 1
+
+
+def _flag(stop, device) -> dict:
+    """The keyword that hands ``device``'s early-exit flag to a block
+    function; none without flags."""
+    return {} if stop is None else {"stop": stop[device]}
 
 
 def _jc_level(mesh, u, planes, m, iters, cfg, k, blocks, exit_log, shape):
@@ -254,28 +305,28 @@ def _jc_level(mesh, u, planes, m, iters, cfg, k, blocks, exit_log, shape):
     weights = {d: tuple(st[d] for st in lv.stacks) for d in lv.stack_len}
     u_e, p_e = lv.stack(lv.u0), lv.stack(lv.u0)
 
-    def exchange(state, base, n):
+    def exchange(state, base, n, stop):
         """One halo exchange of (u, prev) into each device's stacks, then
-        n <= k sweeps over each stack in one call. The state is each
-        device's (u, prev) stacks with a ring, which only the interiors of
-        matter. A call writes new tensors, so no stack is both its input
-        and its output."""
+        n <= k sweeps over each stack in one call, given each device's
+        early-exit flag. The state is each device's (u, prev) stacks with a
+        ring, which only the interiors of matter. A call writes new
+        tensors, so no stack is both its input and its output."""
         lv.refill(state[0], u_e)
         lv.refill(state[1], p_e)
         block_calls["jacobi_chebyshev"] += lv.n_blocks
-        out = {d: blocks.jc(u_e[d], p_e[d], *weights[d], tables[d][base:base + n])
+        out = {d: blocks.jc(u_e[d], p_e[d], *weights[d], tables[d][base:base + n],
+                            **_flag(stop, d))
                for d in weights}
         return tuple({d: o[t] for d, o in out.items()} for t in (0, 1))
 
-    def run(state, base, n):
+    def run(state, base, n, stop):
         for b0 in range(base, base + n, k):
-            state = exchange(state, b0, min(k, base + n - b0))
+            state = exchange(state, b0, min(k, base + n - b0), stop)
         return state
 
     state = (lv.stack(lv.u0), lv.stack({s: torch.zeros_like(b) for s, b in lv.u0.items()}))
-    state, done, res = lv.solve(state, run, lambda st: lv.crop(st[0]), iters, cfg, exit_log,
-                                shape)
-    return lv.crop(state[0]), done, res
+    state = lv.solve(state, run, lambda st: lv.crop(st[0]), iters, cfg, exit_log, shape)
+    return lv.crop(state[0])
 
 
 def _rb_level(mesh, u, planes, m, iters, cfg, k, blocks, exit_log, shape):
@@ -291,23 +342,25 @@ def _rb_level(mesh, u, planes, m, iters, cfg, k, blocks, exit_log, shape):
         parity[d] += [(i * lv.hb + j * lv.wb) & 1] * lv.nb
     u_e = lv.stack(lv.u0)
 
-    def exchange(state, base, n):
+    def exchange(state, base, n, stop):
         """One 2k-halo exchange of u into each device's stack, then n <= k
-        iterations over each stack in one call. The state is each device's
-        stack of u with a ring, which only the interiors of matter. A call
-        writes a new tensor, so no stack is both its input and its output."""
+        iterations over each stack in one call, given each device's
+        early-exit flag. The state is each device's stack of u with a ring,
+        which only the interiors of matter. A call writes a new tensor, so
+        no stack is both its input and its output."""
         lv.refill(state, u_e)
         block_calls["red_black"] += lv.n_blocks
-        return {d: blocks.rb(u_e[d], *weights[d], parity[d], tables[d][base:base + n])
+        return {d: blocks.rb(u_e[d], *weights[d], parity[d], tables[d][base:base + n],
+                             **_flag(stop, d))
                 for d in weights}
 
-    def run(state, base, n):
+    def run(state, base, n, stop):
         for b0 in range(base, base + n, k):
-            state = exchange(state, b0, min(k, base + n - b0))
+            state = exchange(state, b0, min(k, base + n - b0), stop)
         return state
 
-    state, done, res = lv.solve(lv.stack(lv.u0), run, lv.crop, iters, cfg, exit_log, shape)
-    return lv.crop(state), done, res
+    state = lv.solve(lv.stack(lv.u0), run, lv.crop, iters, cfg, exit_log, shape)
+    return lv.crop(state)
 
 
 def solve_level_sharded(depth, mask, gray, level: int, max_level: int, iters: int,
@@ -321,18 +374,31 @@ def solve_level_sharded(depth, mask, gray, level: int, max_level: int, iters: in
     replicates them over the batch axis, to the same result), or (B, H, W)
     batches, whose B divides by the batch axis.
 
-    ``return_info=True`` returns ``(out, iters_done, residual)``:
-    ``iters_done < iters`` exactly when the early exit fired, ``iters_done
-    == iters`` when the whole budget ran (the truncated tail included), and
-    ``residual`` is the last full chunk's probe (+inf with no probe). Under
-    the early exit, a list given as ``exit_log`` receives the level's
-    iterations and probes."""
-    return _level_sharded(depth, mask, gray, level, max_level, iters, mesh, cfg, halo,
-                          return_info, _KERNELS, exit_log)
+    ``return_info=True`` returns ``(out, iters_done, residual)`` as Python
+    numbers, read from the device once after the level: ``iters_done <
+    iters`` exactly when the early exit fired, ``iters_done == iters`` when
+    the whole budget ran (the truncated tail included), and ``residual`` is
+    the last full chunk's probe (+inf with no probe). Under the early exit,
+    a list given as ``exit_log`` receives the level's entry
+    (``_ShardedLevel.solve``), read here once."""
+    entries = []
+    out = _level_sharded(depth, mask, gray, level, max_level, iters, mesh, cfg, halo, _KERNELS,
+                         entries)
+    read_exit_log(entries)
+    if exit_log is not None:
+        exit_log.extend(entries)
+    if not return_info:
+        return out
+    if not entries:
+        return out, max(iters, 0), math.inf
+    e, = entries
+    return out, e["iters"], e["probes"][-1] if e["probes"] else math.inf
 
 
-def _level_sharded(depth, mask, gray, level, max_level, iters, mesh, cfg, halo, return_info,
-                   blocks, exit_log):
+def _level_sharded(depth, mask, gray, level, max_level, iters, mesh, cfg, halo, blocks,
+                   exit_log):
+    """``solve_level_sharded``'s level on ``blocks``; an early-exit entry goes
+    to ``exit_log`` unread."""
     _check_solver(cfg)
     residual_metric_fn(cfg)  # refuse an unknown metric before any work
     batched = depth.dim() == 3
@@ -342,8 +408,7 @@ def _level_sharded(depth, mask, gray, level, max_level, iters, mesh, cfg, halo, 
     h, w = depth.shape[-2:]
     if iters <= 0:
         out = depth.to(torch.float32)
-        out = out if batched else out[0]
-        return (out, 0, math.inf) if return_info else out
+        return out if batched else out[0]
     dy, dx = mesh.shape["dy"], mesh.shape["dx"]
     wts = [edge_weights(g, d, level, max_level, cfg) for g, d in zip(gray, depth)]
     pad = (0, _pad_up(w, dx) - w, 0, _pad_up(h, dy) - h)
@@ -353,10 +418,9 @@ def _level_sharded(depth, mask, gray, level, max_level, iters, mesh, cfg, halo, 
     planes = [F.pad(torch.stack([getattr(wt, name) for wt in wts]), pad)
               for name in ("wr", "wd", "inv_count")]
     run = _rb_level if cfg.solver == "red_black" else _jc_level
-    us, done, res = run(mesh, u, planes, m, iters, cfg, halo, blocks, exit_log, (h, w))
+    us = run(mesh, u, planes, m, iters, cfg, halo, blocks, exit_log, (h, w))
     out = mesh.gather(us)[..., :h, :w]
-    out = out if batched else out[0]
-    return (out, done, res) if return_info else out
+    return out if batched else out[0]
 
 
 def solve_cascade_sharded(gray_pyr, mask0, value0, depth_state, mesh: SlotMesh,
@@ -365,9 +429,14 @@ def solve_cascade_sharded(gray_pyr, mask0, value0, depth_state, mesh: SlotMesh,
     """The coarse-to-fine solve with a shard-or-replicate choice per level
     (``level_is_sharded``); single images or batches (a leading axis).
     Replicated levels run ``solve_level`` per image on the home device, so
-    on a card they take K1, K2 or K6 as a single image would."""
-    return _cascade_sharded(gray_pyr, mask0, value0, depth_state, mesh, cfg, halo, _KERNELS,
-                            exit_log)
+    on a card they take K1, K2 or K6 as a single image would. A list given
+    as ``exit_log`` receives every level's early exit, read once after the
+    solve."""
+    out = _cascade_sharded(gray_pyr, mask0, value0, depth_state, mesh, cfg, halo, _KERNELS,
+                           exit_log)
+    if exit_log is not None:
+        read_exit_log(exit_log)
+    return out
 
 
 def _cascade_sharded(gray_pyr, mask0, value0, depth_state, mesh, cfg, halo, blocks, exit_log):
@@ -390,7 +459,7 @@ def _cascade_sharded(gray_pyr, mask0, value0, depth_state, mesh, cfg, halo, bloc
         if level_is_sharded(mesh, *sizes[level], cfg.solver, halo):
             state[level] = _level_sharded(
                 state[level], masks[level], gray_pyr[level], level, L, iters, mesh, cfg, halo,
-                False, blocks, exit_log)
+                blocks, exit_log)
         elif blocks.plain:
             raise ValueError(f"plain=True holds only sharded levels, and the {sizes[level]} level "
                              f"runs replicated on mesh {mesh.shape}, on the kernels")
@@ -401,8 +470,6 @@ def _cascade_sharded(gray_pyr, mask0, value0, depth_state, mesh, cfg, halo, bloc
         if level > 0:
             up = _foreach_image(batched, lambda d: pyr_up(d, sizes[level - 1]), state[level])
             state[level - 1] = seed_depth(up, masks[level - 1], values[level - 1])
-    if exit_log is not None:  # the replicated levels' counts, left on the card
-        read_exit_log(exit_log)
     return state[0], tuple(state)
 
 
@@ -414,9 +481,13 @@ def solve_vcycle_sharded(gray_pyr, mask0, value0, depth_state, mesh: SlotMesh,
     error-correction cycles per image on the home device. The polish is
     plain torch ops and launches no kernel of the port (the reference leaves
     it to XLA's partitioner), so it has nothing to shard. Single images or
-    batches (a leading axis)."""
-    return _vcycle_sharded(gray_pyr, mask0, value0, depth_state, mesh, cfg, halo, _KERNELS,
-                           exit_log)
+    batches (a leading axis). ``exit_log`` as ``solve_cascade_sharded``
+    fills it."""
+    out = _vcycle_sharded(gray_pyr, mask0, value0, depth_state, mesh, cfg, halo, _KERNELS,
+                          exit_log)
+    if exit_log is not None:
+        read_exit_log(exit_log)
+    return out
 
 
 def _vcycle_sharded(gray_pyr, mask0, value0, depth_state, mesh, cfg, halo, blocks, exit_log):
@@ -468,19 +539,44 @@ def _defocus_sharded(mesh, full_h, full_w, cfg, blocks):
     return apply
 
 
+def step_captures(device_type: str, one_device: bool, plain: bool) -> bool:
+    """Whether ``batched_step`` keeps its step as CUDA graphs: on a card,
+    where one device holds every slot (one ``torch.cuda.graph`` captures
+    one device's stream), on the kernels (the plain versions are the
+    kernels' yardstick, run eagerly). Elsewhere the step runs eagerly."""
+    return device_type == "cuda" and one_device and not plain
+
+
 def batched_step(mesh: SlotMesh, rows: int, cols: int, cfg: DiffusionConfig = DiffusionConfig(),
                  effect: int = fx.EFFECT_HAZE, halo: int = DEFAULT_HALO, *, plain: bool = False):
     """The full multi-device step: data parallel over a batch of images (the
-    'batch' axis), each image sharded over ('dy', 'dx').
+    'batch' axis), each image sharded over ('dy', 'dx'); the counterpart of
+    JAX's ``jax.jit(step)``.
 
     Returns (fn, make_example_args): fn(rgb (B, H, W, 3) uint8, mask, value
     (B, H, W), depth_state (a (B, h_l, w_l) tensor per level), exit_log=None)
     -> (depth (B, H, W), new_state, effect (B, H, W, 3) uint8), with B a
     multiple of the batch axis. The glue (gray pyramid, annotation
     pyramids, pyrUp, the pointwise effects) runs per image on the home
-    device; the defocus runs sharded. ``plain=True`` runs the blocks' plain
-    versions even on a card, to hold the kernels to them; it raises where a
-    level would run replicated, which only the kernels' routes solve."""
+    device; the defocus runs sharded; the early exit is decided on the
+    device (``_ShardedLevel.solve``), and a list given as ``exit_log``
+    receives every level's entry, read once after the step.
+
+    Where ``step_captures`` says so (a mesh on one card, on the kernels),
+    ``fn`` keeps a program per argument signature (``utils/program.py``),
+    as JAX's jit compiles per shape: the first call with a signature whose
+    tensors lie on the mesh's home device runs eagerly and captures the
+    step into a CUDA graph at its end; later calls replay it, copying the
+    arguments into the graph's static tensors and returning copies of its
+    outputs, with the capture's kernel launches and ``block_calls`` added
+    to the counts. A capture that fails raises. The graphs share a memory
+    pool of their own. Eager, and said so here: ``plain=True`` (the blocks'
+    plain versions even on a card, to hold the kernels to them; it raises
+    where a level would run replicated, which only the kernels' routes
+    solve), CPU meshes, and a mesh whose slots span several cards, which
+    still runs on the kernels with the loop decided on the devices.
+    ``fn.eager`` is the step itself (it leaves ``exit_log`` unread) and
+    ``fn.programs`` its programs by signature."""
     _check_solver(cfg)
     blocks = _PLAIN if plain else _KERNELS
     scheme = _vcycle_sharded if cfg.multigrid == "vcycle" else _cascade_sharded
@@ -505,6 +601,27 @@ def batched_step(mesh: SlotMesh, rows: int, cols: int, cfg: DiffusionConfig = Di
         out = render(rgb, gray0, torch.clamp(depth0, 0.0, 255.0))
         return depth0, new_state, out
 
+    captures = step_captures(mesh.home.type, _one_device(mesh), plain)
+    programs = {}
+    pool = []  # the graphs' memory pool and capture stream, made at the first capture
+
+    def fn(rgb, mask, value, depth_state, exit_log=None):
+        args = (rgb, mask, value, tuple(depth_state))
+        sig = signature(args)
+        prog = programs.get(sig)
+        if prog is not None:
+            return prog(args, exit_log)
+        out = step(*args, exit_log)
+        if exit_log is not None:
+            read_exit_log(exit_log)
+        if captures and sig is not None and all(t.device == mesh.home for t in leaves(args)):
+            if not pool:
+                pool.extend((torch.cuda.graph_pool_handle(), torch.cuda.Stream(mesh.home)))
+            programs[sig] = Program(step, args, mesh.home, *pool, counter=block_calls)
+        return out
+
+    fn.eager, fn.programs = step, programs
+
     def make_example_args(batch: int | None = None):
         """JAX's example inputs, on the home device: a seeded random image
         and two scribbles per image."""
@@ -521,4 +638,4 @@ def batched_step(mesh: SlotMesh, rows: int, cols: int, cfg: DiffusionConfig = Di
         return (torch.from_numpy(rgb).to(home), torch.from_numpy(mask).to(home),
                 torch.from_numpy(value).to(home), state)
 
-    return step, make_example_args
+    return fn, make_example_args

@@ -48,8 +48,10 @@ shape, dtype or device from the captured ones runs eagerly, as JAX sends
 them to plain ``jit``. The residual early exit captures like any other
 config: its loop is decided on the card (``core/solver.py:
 _chunked_early_exit``), and a list given as ``exit_log`` is filled from the
-replay's own counts, read once after it. What never captures: the sharded
-step. On the CPU nothing is captured: a program is the eager function
+replay's own counts, read once after it. The sharded step keeps programs
+of its own, one per argument signature (``parallel/sharded.py:
+batched_step``), on the same ``_Program`` (``utils/program.py``). On the
+CPU nothing is captured: a program is the eager function
 itself, so the routing runs in the CPU tests. A capture that fails raises
 in the caller's frame.
 """
@@ -58,7 +60,6 @@ from __future__ import annotations
 
 import atexit
 import functools
-import gc
 import logging
 import os
 import threading
@@ -69,7 +70,6 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from . import ops
 from .config import DiffusionConfig
 from .core import effects as fx
 from .core.color import rgb_to_gray
@@ -79,6 +79,11 @@ from .core.multigrid import (build_annotation_pyramids, build_gray_pyramid,
 from .core.solver import level_schedule, read_exit_log, residual_norm, residual_rms
 from .core.weights import edge_weights
 from .ops import build, dispatch, sweep
+# The programs (``utils/program.py``, shared with the sharded step); the
+# tests and chip_smoke.py reach them by these names here.
+from .utils.program import Program as _Program
+from .utils.program import fresh as _fresh  # noqa: F401
+from .utils.program import signature as _signature
 
 # prewarm_async's threads are daemons, so nothing during a session waits on
 # them; but one still inside the nvcc build or a CUDA call when the
@@ -99,122 +104,6 @@ def _join_prewarm_threads() -> None:
 
 
 atexit.register(_join_prewarm_threads)
-
-
-def _leaves(args) -> list:
-    """The tensors of a call's arguments, a tuple of tensors standing for
-    its tensors (the pyramids)."""
-    out = []
-    for a in args:
-        out.extend(a if isinstance(a, (tuple, list)) else (a,))
-    return out
-
-
-def _signature(args):
-    """(the arguments' structure, each leaf's shape, dtype and device), or
-    None where a leaf is not a tensor."""
-    leaves = _leaves(args)
-    if not all(isinstance(t, torch.Tensor) for t in leaves):
-        return None
-    return (tuple(len(a) if isinstance(a, (tuple, list)) else None for a in args),
-            tuple((tuple(t.shape), t.dtype, t.device) for t in leaves))
-
-
-def _map(fn, tree):
-    """``fn`` on every tensor of a (possibly nested) tuple."""
-    if isinstance(tree, (tuple, list)):
-        return tuple(_map(fn, t) for t in tree)
-    return fn(tree)
-
-
-def _fresh(tree):
-    """A copy of every tensor of ``tree``; a tensor that stands twice is
-    copied once, and both places get that copy."""
-    copies = {}
-
-    def one(t):
-        if id(t) not in copies:
-            copies[id(t)] = t.clone()
-        return copies[id(t)]
-
-    return _map(one, tree)
-
-
-class _Program:
-    """One program of a pipeline: a solve, a windowed re-solve, either with
-    an effect, for the arguments' shapes. On a card, the call captured once
-    into a CUDA graph that reads static copies of the arguments, each on
-    the pipeline's device (a host centre's too); each call copies its
-    arguments in, replays the graph and returns fresh copies of the outputs,
-    so that no later replay changes a tensor a caller holds. Outputs that
-    are one tensor (depth0 and level 0 of the state) stay one. Under the
-    early exit the capture keeps the levels' device counts
-    (``core/solver.py:_chunked_early_exit``), and a call given an
-    ``exit_log`` reads them after its replay. On the CPU, the eager
-    function itself.
-
-    The capture runs on the caller's thread, on a side stream, into the
-    pipeline's memory pool, in ``thread_local`` mode: a CUDA call that is
-    unsafe during a capture fails it only when it comes from this thread,
-    while the server's IO threads and a prewarm thread go on. The kernel
-    wrappers count what the capture would have launched; those counts are
-    taken back out, and each replay adds them (``ops.add_launches``)."""
-
-    def __init__(self, fn, args, device: torch.device, pool=None, stream=None):
-        self.fn = fn
-        self.sig = _signature(args)
-        self.graph = None
-        self.tally = {}
-        self.capture_s = 0.0
-        if device.type != "cuda":
-            return
-        # A graph holds no reference to its pipeline (``fn`` is a bound
-        # method of it), so a pipeline dropped by its caller goes at once
-        # rather than to the cyclic collector, which could otherwise destroy
-        # its graphs in the middle of another pipeline's capture, an
-        # operation that invalidates that capture. The collector is held
-        # off during a capture for the same reason.
-        self.fn = None
-        t0 = time.perf_counter()
-        collecting = gc.isenabled()
-        gc.disable()
-        try:
-            with torch.cuda.device(device):
-                self.static_in = _map(lambda t: torch.empty_like(
-                    t, device=device, memory_format=torch.contiguous_format), args)
-                self.sig = _signature(self.static_in)
-                self.static_log = []
-                graph = torch.cuda.CUDAGraph()
-                before = ops.launch_counts()
-                with torch.cuda.graph(graph, pool=pool, stream=stream,
-                                      capture_error_mode="thread_local"):
-                    self.static_out = fn(*self.static_in, self.static_log)
-                after = ops.launch_counts()
-        finally:
-            if collecting:
-                gc.enable()
-        self.tally = {k: after[k] - before[k] for k in after if after[k] != before[k]}
-        ops.add_launches({k: -n for k, n in self.tally.items()})
-        self.graph, self.device = graph, device
-        self.capture_s = time.perf_counter() - t0
-
-    def matches(self, args) -> bool:
-        return self.sig is not None and _signature(args) == self.sig
-
-    def __call__(self, args, exit_log=None):
-        if self.graph is None:
-            return self.fn(*args, exit_log)
-        with torch.cuda.device(self.device):
-            for dst, src in zip(_leaves(self.static_in), _leaves(args)):
-                dst.copy_(src)
-            self.graph.replay()
-            ops.add_launches(self.tally)
-            if exit_log is not None:
-                # The replay's own counts, read now, before a later replay
-                # writes them again.
-                exit_log.extend(dict(e) for e in self.static_log)
-                read_exit_log(exit_log)
-            return _fresh(self.static_out)
 
 
 class DepthPipeline:

@@ -1226,3 +1226,128 @@ def test_replayed_incremental_frame_equals_eager_at_every_centre(dev, solver):
         assert torch.equal(got[0], want[0]) and torch.equal(got[2], want[2]), center
         assert all(torch.equal(a, b) for a, b in zip(got[1], want[1])), center
         state = got[1]
+
+
+@pytest.mark.parametrize("route", ["K1", "K4"])
+@pytest.mark.parametrize("flag", [None, 0, 1])
+def test_halo_block_stack_stop_flag(dev, route, flag):
+    """K1 and K4 over a stack of 4 extended blocks, as the sharded step
+    launches them, under the early exit's flag: set, the launch leaves its
+    input (a copy across); clear or null, it equals the plain version."""
+    blocks = [_halo_block(dev, 37, 53, seed=40 + i) for i in range(4)]
+    u, p, bh, bv, inv, m = (torch.stack(t).contiguous() for t in zip(*blocks))
+    stop = _flag(dev, flag)
+    if route == "K1":
+        abc = abc_schedule(13, DiffusionConfig())[5:]
+        got = sweep.halo_block_sweeps(u, p, bh, bv, inv, m, sweep.device_table(abc, dev), stop)
+        want = sweep.halo_block_sweeps_plain(u, p, bh, bv, inv, m, abc)
+        held = (u, p)
+    else:
+        om = rb_omegas(13, DiffusionConfig())[5:]
+        par = [0, 1, 1, 0]
+        got = (rb_sweep.halo_block_rb_sweeps(u, bh, bv, inv, m, par, sweep.device_table(om, dev),
+                                             stop),)
+        want = (rb_sweep.halo_block_rb_sweeps_plain(u, bh, bv, inv, m, par, om),)
+        held = (u,)
+    torch.cuda.synchronize()
+    expect = held if flag == 1 else want
+    assert all(torch.equal(a, b) for a, b in zip(got, expect)), (route, flag)
+    assert not torch.equal(want[0], held[0])
+
+
+def _step_counts():
+    from realtimedepthdiffusion_tpu_torch.parallel import sharded
+
+    return {k: n for k, n in ops.launch_counts().items() if n}, dict(+sharded.block_calls)
+
+
+def _reset_counts():
+    from realtimedepthdiffusion_tpu_torch.parallel import sharded
+
+    ops.reset_launch_counts()
+    sharded.block_calls.clear()
+
+
+@pytest.mark.parametrize("name,cfg_kw,effect", [
+    ("jacobi_chebyshev defocus", {}, "defocus"),
+    ("red-black early exit", {"solver": "red_black", "early_exit": True, "tolerance": 1e-3,
+                              "residual_metric": "rms"}, "defocus"),
+    ("V-cycle", {"multigrid": "vcycle"}, "haze"),
+])
+def test_replayed_sharded_step_equals_eager(dev, name, cfg_kw, effect):
+    """``batched_step`` on 8 slots of one card at 270x480: the first call
+    runs eagerly and captures the step; later calls replay it. Each equals
+    the eager step on the same inputs bit for bit (depth, state, effect,
+    exit log) and counts what it launches (kernels and ``block_calls``).
+    A second signature (a batch of 4) runs eagerly, then captures its own."""
+    from realtimedepthdiffusion_tpu_torch.core import effects as fx
+    from realtimedepthdiffusion_tpu_torch.core.solver import read_exit_log
+    from realtimedepthdiffusion_tpu_torch.parallel import mesh, sharded
+
+    eff = {"defocus": fx.EFFECT_DEFOCUS, "haze": fx.EFFECT_HAZE}[effect]
+    m = mesh.make_mesh(8, device=dev)
+    fn, make_args = sharded.batched_step(m, 270, 480, DiffusionConfig(**cfg_kw), eff)
+    for batch, calls in ((2, 3), (4, 2)):
+        rgb, mask, value, state = make_args(batch)
+        for i in range(calls):
+            if i == 2:
+                mask = mask.clone()
+                mask[:, 100:120, 200:240], value[:, 100:120, 200:240] = True, 96
+            log, want_log = [], []
+            _reset_counts()
+            got = fn(rgb, mask, value, state, log)
+            counts = _step_counts()
+            _reset_counts()
+            want = fn.eager(rgb, mask, value, state, want_log)
+            read_exit_log(want_log)
+            torch.cuda.synchronize()
+            assert counts == _step_counts() and counts[0], (name, batch, i)
+            assert torch.equal(got[0], want[0]) and torch.equal(got[2], want[2]), (name, batch, i)
+            assert all(torch.equal(a, b) for a, b in zip(got[1], want[1])), (name, batch, i)
+            assert log == want_log and bool(log) == ("early_exit" in cfg_kw), (name, batch, i)
+            assert len(fn.programs) == 1 + (batch == 4), (name, batch, i)
+            state = got[1]
+    assert all(p.graph is not None for p in fn.programs.values())
+
+
+def test_multichip_serve_replays_from_its_second_batch(dev, tmp_path, monkeypatch):
+    """``serve.solve_pairs_multichip`` with a batch of 2 on 8 slots of one
+    card over six 96x128 pairs: the bucket's step captures at its first
+    batch and replays the second and third; every PNG equals the
+    single-device frame's."""
+    from realtimedepthdiffusion_tpu_torch import io, serve
+    from realtimedepthdiffusion_tpu_torch.core import effects as fx
+    from realtimedepthdiffusion_tpu_torch.parallel import mesh
+    from realtimedepthdiffusion_tpu_torch.pipeline import DepthPipeline
+    from realtimedepthdiffusion_tpu_torch.utils import program
+
+    cfg = DiffusionConfig()
+    for sub in ("images", "annotations"):
+        (tmp_path / sub).mkdir()
+    for i in range(6):
+        rgb, mask, value = _photo(96, 128, 30 + i)
+        io.imwrite(str(tmp_path / "images" / f"p{i}.png"), rgb)
+        io.save_annotation(str(tmp_path / "annotations" / f"p{i}.png"), mask, value)
+    pairs = serve.discover_pairs(str(tmp_path / "images"), str(tmp_path / "annotations"))
+    replays = []
+    real = program.Program.__call__
+    monkeypatch.setattr(program.Program, "__call__",
+                        lambda self, *a: (replays.append(self.graph is not None),
+                                          real(self, *a))[1])
+    written = serve.solve_pairs_multichip(pairs, str(tmp_path / "out"), cfg, fx.EFFECT_DEFOCUS,
+                                          batch=2, mesh=mesh.make_mesh(8, device=dev),
+                                          depth16=True, device=dev)
+    assert all(written) and replays == [True, True]
+    pipe = DepthPipeline(96, 128, cfg, device=dev)
+    for img, ann in pairs:
+        stem = serve._stem(img)
+        rgb_d, gpyr = pipe.prepare_image(io.imread_rgb(img))
+        mask, value = io.load_annotation(ann, cfg)
+        depth, _, art = pipe._solve_fx_eager(
+            fx.EFFECT_DEFOCUS, tuple(gpyr), rgb_d, torch.from_numpy(mask).to(dev),
+            torch.from_numpy(value).to(dev), pipe.initial_state())
+        want = {"depth": pipe.depth_u8(depth).cpu().numpy(),
+                "depth16": pipe.depth_u16(depth).cpu().numpy(), "effect": art.cpu().numpy()}
+        for kind, arr in want.items():
+            got = io.png_decode(open(tmp_path / "out" / f"{stem}_{kind}.png", "rb").read())
+            assert np.array_equal(got, arr), (stem, kind)
