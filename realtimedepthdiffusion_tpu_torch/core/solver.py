@@ -218,29 +218,40 @@ def _chunked_early_exit(state, run, u_of, mask, wts, iters: int, cfg: DiffusionC
     return state
 
 
-def read_exit_log(exit_log):
+def read_exit_log(exit_log, wait: bool = True):
     """Fill in the iterations and probes of every entry of ``exit_log``
-    that ``_chunked_early_exit`` left on the device, with one copy to the
-    host per device; returns ``exit_log``. A probe after the exit is not
-    reported. The pipeline calls it after a solve (eager or replayed) that
-    was given a list; a caller of ``solve_level`` or ``solve_cascade`` on a
-    card calls it itself, after the solve."""
-    pending = [e for e in exit_log if "_device" in e]
-    by_device = {}
-    for e in pending:
-        by_device.setdefault(e["_device"][1].device, []).append(e)
-    for entries in by_device.values():
-        flat = torch.cat([t for e in entries
-                          for t in (e["_device"][0].to(torch.float32), e["_device"][1])])
-        flat = flat.cpu().tolist()
-        at = 0
-        for e in entries:
-            n_chunks = e["_device"][1].numel()
-            iters, n_probes = (int(v) for v in flat[at:at + 2])
-            e["iters"] = iters
-            e["probes"] = flat[at + 2:at + 2 + n_probes]
-            del e["_device"]
-            at += 2 + n_chunks
+    that ``_chunked_early_exit`` left on the device; returns ``exit_log``.
+    A probe after the exit is not reported. The pipeline calls it after a
+    solve (eager or replayed) that was given a list; a caller of
+    ``solve_level`` or ``solve_cascade`` on a card calls it itself, after
+    the solve.
+
+    The read is copies alone, no kernel: each entry's counts and probes go
+    to the host as they are, on a card into pinned memory without waiting,
+    in stream order (so a later replay that writes them again does not
+    reach the copies). ``wait=False`` stops there; a later call waits for
+    the copies, once per device, and fills the entries in."""
+    events = {}
+    for e in exit_log:
+        dev = e.pop("_device", None)
+        if dev is not None:
+            e["_host"] = tuple(t.to("cpu", non_blocking=True) for t in dev)
+            if dev[1].device.type == "cuda":
+                e["_event"] = events.setdefault(dev[1].device, torch.cuda.Event())
+    for device, event in events.items():
+        event.record(torch.cuda.current_stream(device))
+    if not wait:
+        return exit_log
+    for e in exit_log:
+        host = e.pop("_host", None)
+        if host is None:
+            continue
+        event = e.pop("_event", None)
+        if event is not None:
+            event.synchronize()
+        done, probes = host
+        e["iters"] = int(done[0])
+        e["probes"] = probes[:int(done[1])].tolist()
     return exit_log
 
 

@@ -24,6 +24,19 @@ captures the windowed re-solve's graph, and later edits replay it at their
 own centres. A replay returns fresh tensors, so the ``depth0`` and
 ``depth_state`` the session keeps from frame to frame never change under a
 later one.
+
+The session's ``timer`` (``utils/timing.py:StageTimer``) holds its stages
+``upload`` and ``solve`` (host clock ending at a device sync; on a
+profiler's timeline ``session.upload`` and ``session.solve``, each with
+the solve's number as its argument), its spans ``session.mask`` (the
+host's scribble compare), ``session.window_solve`` (an update's windowed
+re-solves) and ``session.u8_readback`` (the wait for the solve and the u8
+map's copy), and its pipelines' program spans (``pipeline.py``). While a
+profiler runs, the solve's early exit is read after the readback, with
+copies alone, into the counters ``exit.chunks_issued`` (every chunk of
+each level's cap, as a card issues them), ``exit.chunks_live`` (those
+whose probe ran before the exit), ``exit.px`` (the pixels of each level or
+window solved) and ``exit.px_iters_run`` (pixels times iterations run).
 """
 
 from __future__ import annotations
@@ -38,10 +51,11 @@ import torch
 
 from ..config import DiffusionConfig
 from ..core import effects as fx
+from ..core.solver import read_exit_log
 from ..io import depth_to_u8, depth_to_u16, imwrite, load_annotation, save_annotation
 from ..native.runtime import Arena, NativeRuntime
 from ..pipeline import DepthPipeline
-from ..utils.timing import StageTimer
+from ..utils.timing import StageTimer, profiling
 
 _KEY_EFFECT = {"b": fx.EFFECT_DEFOCUS, "g": fx.EFFECT_DESATURATION, "h": fx.EFFECT_HAZE}
 
@@ -68,7 +82,8 @@ class DepthSession:
         self.cfg = cfg
         self.rows, self.cols = rgb.shape[:2]
         self.rgb_np = np.array(rgb[..., :3], dtype=np.uint8, order="C")  # the session's own copy
-        self.pipe = DepthPipeline(self.rows, self.cols, cfg, device=self.device)
+        self.timer = StageTimer(device=self.device, prefix="session.")
+        self.pipe = self._pipeline(cfg)
         # fast_start: the first solve's preparation (the build, the card
         # queries, the tables) runs on a thread while the image uploads and
         # its gray pyramid is built; the first solve joins it.
@@ -102,7 +117,6 @@ class DepthSession:
         # does not pass depth16 explicitly, so the GUI 's' key honors the
         # flag the session was launched with.
         self.save_depth16 = False
-        self.timer = StageTimer(device=self.device)
         self.last_solve_ms = 0.0
         self.last_upload_bytes = 0  # what the last solve() sent to the device
         self.solve_count = 0
@@ -112,7 +126,14 @@ class DepthSession:
         self._inc_pipe: Optional[DepthPipeline] = None
         if cfg.incremental_iterations > 0:
             inc_cfg = dataclasses.replace(cfg, max_iterations=cfg.incremental_iterations)
-            self._inc_pipe = DepthPipeline(self.rows, self.cols, inc_cfg, device=self.device)
+            self._inc_pipe = self._pipeline(inc_cfg)
+
+    def _pipeline(self, cfg: DiffusionConfig) -> DepthPipeline:
+        """A pipeline that records into the session's timer and leaves the
+        early exit's counts to the session's own read."""
+        pipe = DepthPipeline(self.rows, self.cols, cfg, device=self.device, timer=self.timer)
+        pipe.exit_wait = False
+        return pipe
 
     # ------------------------------------------------------------ annotation
     def load_annotation_file(self, path: str) -> None:
@@ -243,7 +264,9 @@ class DepthSession:
         use_local = use_local and not inc_kick_wanted
         centers = [((r[0] + r[2]) // 2, (r[1] + r[3]) // 2) for r in rects] if use_local else []
         self.last_upload_bytes = 0
-        with self.timer.stage("upload"):
+        exit_log = [] if self.cfg.early_exit and profiling() else None
+        number = str(self.solve_count)
+        with self.timer.stage("upload", number):
             # The dirty rects gate (and crop) the host->device annotation
             # transfer: under --live the solve runs every frame, but
             # unchanged annotations reuse the device copies, and small
@@ -251,7 +274,9 @@ class DepthSession:
             if self._mask_d is None or (rects and not use_local):
                 # torch.tensor copies: a later stroke on the arena-backed
                 # planes does not reach the device copy, even on the CPU.
-                self._mask_d = torch.tensor(self.mask_np != 0, device=self.device)
+                with self.timer.span("session.mask"):
+                    mask_np = self.mask_np != 0
+                self._mask_d = torch.tensor(mask_np, device=self.device)
                 self._value_d = torch.tensor(self.value_np, device=self.device)
                 self.last_upload_bytes = 2 * self.rows * self.cols
             elif use_local:
@@ -260,39 +285,57 @@ class DepthSession:
                     ox = window_origin(cx, rect[1], rect[3], self.cols, s_win)
                     rows, cols = slice(oy, oy + s_win), slice(ox, ox + s_win)
                     # Both windows are copies of the arena's bytes.
-                    mw = torch.from_numpy(self.mask_np[rows, cols] != 0)
-                    vw = torch.from_numpy(self.value_np[rows, cols].copy())
+                    with self.timer.span("session.mask"):
+                        mw = torch.from_numpy(self.mask_np[rows, cols] != 0)
+                        vw = torch.from_numpy(self.value_np[rows, cols].copy())
                     self._mask_d, self._value_d = self.pipe.update_annotation_window(
                         self._mask_d, self._value_d, mw, vw, (oy, ox))
                     self.last_upload_bytes += 2 * s_win * s_win
             mask_d, value_d = self._mask_d, self._value_d
             self.dirty_rects = []
-        with self.timer.stage("solve"):
+        with self.timer.stage("solve", number):
             if use_local:
                 # One windowed re-solve per rect; the active effect renders
                 # once, with the last window's solve (it sees every rect's
                 # updated state).
-                for i, center in enumerate(centers):
-                    if self.effect == fx.EFFECT_NONE or i < len(centers) - 1:
-                        self.depth0, self.depth_state = self.pipe.solve_incremental(
-                            self.gray_pyr, mask_d, value_d, self.depth_state, center)
-                    else:
-                        self.depth0, self.depth_state, self.artistic = (
-                            self.pipe.solve_incremental_and_effect(
-                                self.effect, self.gray_pyr, self.rgb, mask_d, value_d,
-                                self.depth_state, center))
+                with self.timer.span("session.window_solve"):
+                    for i, center in enumerate(centers):
+                        if self.effect == fx.EFFECT_NONE or i < len(centers) - 1:
+                            self.depth0, self.depth_state = self.pipe.solve_incremental(
+                                self.gray_pyr, mask_d, value_d, self.depth_state, center,
+                                exit_log)
+                        else:
+                            self.depth0, self.depth_state, self.artistic = (
+                                self.pipe.solve_incremental_and_effect(
+                                    self.effect, self.gray_pyr, self.rgb, mask_d, value_d,
+                                    self.depth_state, center, exit_log))
             elif self.effect == fx.EFFECT_NONE:
                 self.depth0, self.depth_state = pipe.solve(
-                    self.gray_pyr, mask_d, value_d, self.depth_state)
+                    self.gray_pyr, mask_d, value_d, self.depth_state, exit_log)
             else:
                 self.depth0, self.depth_state, self.artistic = pipe.solve_and_effect(
-                    self.effect, self.gray_pyr, self.rgb, mask_d, value_d, self.depth_state)
-            u8 = self.pipe.depth_u8(self.depth0).cpu().numpy()
+                    self.effect, self.gray_pyr, self.rgb, mask_d, value_d, self.depth_state,
+                    exit_log)
+            with self.timer.span("session.u8_readback"):
+                u8 = self.pipe.depth_u8(self.depth0).cpu().numpy()
+            if exit_log:
+                self._count_exits(read_exit_log(exit_log))
         if inc_kick_wanted:
             self.pipe.incremental_ready(fx_key)
         self.solve_count += 1
         self.last_solve_ms = (time.perf_counter() - t0) * 1000.0
         return u8
+
+    def _count_exits(self, exit_log) -> None:
+        """The early exit's counters (the module's docstring) over the
+        levels of one solve's ``exit_log``."""
+        chunk = max(int(self.cfg.residual_check_every), 1)
+        for e in exit_log:
+            px = e["shape"][0] * e["shape"][1]
+            self.timer.count("exit.chunks_issued", -(-e["cap"] // chunk))
+            self.timer.count("exit.chunks_live", len(e["probes"]))
+            self.timer.count("exit.px", px)
+            self.timer.count("exit.px_iters_run", px * e["iters"])
 
     # --------------------------------------------------------------- effects
     def set_effect_key(self, key: str) -> None:

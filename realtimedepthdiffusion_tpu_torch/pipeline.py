@@ -48,12 +48,21 @@ shape, dtype or device from the captured ones runs eagerly, as JAX sends
 them to plain ``jit``. The residual early exit captures like any other
 config: its loop is decided on the card (``core/solver.py:
 _chunked_early_exit``), and a list given as ``exit_log`` is filled from the
-replay's own counts, read once after it. The sharded step keeps programs
-of its own, one per argument signature (``parallel/sharded.py:
-batched_step``), on the same ``_Program`` (``utils/program.py``). On the
-CPU nothing is captured: a program is the eager function
-itself, so the routing runs in the CPU tests. A capture that fails raises
-in the caller's frame.
+replay's own counts, read once after it (with ``exit_wait`` off, only
+copied: the caller's ``read_exit_log`` completes it). The sharded step
+keeps programs of its own, one per argument signature
+(``parallel/sharded.py:batched_step``), on the same ``_Program``
+(``utils/program.py``). On the CPU nothing is captured: a program is the
+eager function itself, so the routing runs in the CPU tests. A capture
+that fails raises in the caller's frame.
+
+The program layer's spans (``utils/timing.py``) go into the ``timer`` a
+pipeline is given (the session's), and onto a running profiler's timeline
+with or without one: ``program.call`` from a route's decision to its
+return, ``program.eager`` around an eager run, and ``Program``'s own
+(``program.capture``, ``program.copy_in``, ``program.replay``,
+``program.copy_out``). The counts of ``program.replay`` and
+``program.eager`` are the replayed and the eager solves.
 """
 
 from __future__ import annotations
@@ -84,6 +93,7 @@ from .ops import build, dispatch, sweep
 from .utils.program import Program as _Program
 from .utils.program import fresh as _fresh  # noqa: F401
 from .utils.program import signature as _signature
+from .utils.timing import span
 
 # prewarm_async's threads are daemons, so nothing during a session waits on
 # them; but one still inside the nvcc build or a CUDA call when the
@@ -120,11 +130,19 @@ class DepthPipeline:
     module's docstring): ``prewarm_async``, ``wait_fused``,
     ``incremental_ready`` and ``background_compile`` are the JAX
     pipeline's hooks, with its contracts.
+
+    ``timer``, a ``utils/timing.py:StageTimer``, receives the program
+    layer's spans (the module's docstring). ``exit_wait`` False: a solve
+    given an ``exit_log`` only starts its counts' copies to the host, and
+    the caller completes them with ``read_exit_log`` after a wait of its
+    own (the session, which reads them after its depth map's readback).
     """
 
     def __init__(self, rows: int, cols: int, cfg: DiffusionConfig = DiffusionConfig(), *,
-                 device):
+                 device, timer=None):
         dispatch.check_supported(cfg)
+        self.timer = timer
+        self.exit_wait = True
         self.rows, self.cols, self.cfg = rows, cols, cfg
         self.device = torch.device(device)
         self.levels = cfg.num_levels(rows, cols)
@@ -231,7 +249,7 @@ class DepthPipeline:
             return None
         if key not in self._aot:
             self._aot[key] = _Program(self._program_of(key), args, self.device,
-                                      *self._graph_pool())
+                                      *self._graph_pool(), timer=self.timer)
         return self._aot[key].capture_s
 
     def capture(self, effect: Optional[int], *args) -> Optional[float]:
@@ -305,10 +323,11 @@ class DepthPipeline:
         return True
 
     def _eager(self, fn, args, exit_log):
-        out = fn(*args, exit_log)
-        if exit_log is not None:
-            read_exit_log(exit_log)
-        return out
+        with span("program.eager", self.timer):
+            out = fn(*args, exit_log)
+            if exit_log is not None:
+                read_exit_log(exit_log, self.exit_wait)
+            return out
 
     def _route(self, effect: Optional[int], args, exit_log):
         """``realtimedepthdiffusion_tpu/pipeline.py:609-663`` for one
@@ -318,20 +337,21 @@ class DepthPipeline:
         key = self._key("solve", effect)
         fn = self._program_of(key)
         prog = self._aot.get(key)
-        if prog is not None:
-            if prog.matches(args):
-                return prog(args, exit_log)
-            return self._eager(fn, args, exit_log)
-        if self._fast:
-            self._ensure_staged()
+        with span("program.call", self.timer):
+            if prog is not None:
+                if prog.matches(args):
+                    return prog(args, exit_log, self.exit_wait)
+                return self._eager(fn, args, exit_log)
+            if self._fast:
+                self._ensure_staged()
+                out = self._eager(fn, args, exit_log)
+                self._staged_solves += 1
+                if self._staged_solves >= 2:  # the JAX pipeline's deferral
+                    self._kick(effect, args)
+                return out
             out = self._eager(fn, args, exit_log)
-            self._staged_solves += 1
-            if self._staged_solves >= 2:  # the JAX pipeline's deferral
-                self._kick(effect, args)
+            self.capture(effect, *args)
             return out
-        out = self._eager(fn, args, exit_log)
-        self.capture(effect, *args)
-        return out
 
     def _inc_args(self, args):
         *rest, center = args
@@ -344,14 +364,15 @@ class DepthPipeline:
         it at its end (JAX's plain ``jit`` compiles at the first call)."""
         key = self._key("inc", effect)
         fn = self._program_of(key)
-        args = self._inc_args(args)
-        prog = self._aot.get(key)
-        if prog is not None and prog.matches(args):
-            return prog(args, exit_log)
-        out = self._eager(fn, args, exit_log)
-        if prog is None:
-            self._capture(key, args)
-        return out
+        with span("program.call", self.timer):
+            args = self._inc_args(args)
+            prog = self._aot.get(key)
+            if prog is not None and prog.matches(args):
+                return prog(args, exit_log, self.exit_wait)
+            out = self._eager(fn, args, exit_log)
+            if prog is None:
+                self._capture(key, args)
+            return out
 
     def _solve_eager(self, gray_pyr, mask0, value0, depth_state, exit_log=None):
         return self._scheme(gray_pyr, mask0, value0, depth_state, self.cfg, exit_log)

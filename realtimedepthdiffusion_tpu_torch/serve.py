@@ -62,6 +62,7 @@ from .io import (
     imwrite,
     load_annotation,
 )
+from .utils.timing import span
 
 _EFFECT_BY_KEY = {"b": fx.EFFECT_DEFOCUS, "g": fx.EFFECT_DESATURATION, "h": fx.EFFECT_HAZE}
 
@@ -201,6 +202,14 @@ def solve_pairs(
     device; the pool decodes and encodes numpy arrays. ``prefetch=0,
     io_workers=1`` degrades to the strictly sequential order of
     operations. Outputs are bit-identical either way.
+
+    While a ``torch.profiler`` runs, the dispatching thread's waits and
+    work are spans on its timeline (``utils/timing.py:span``):
+    ``serve.decode_wait`` (a decode's result), ``serve.upload`` (the
+    pair's uploads and gray pyramid), ``serve.dispatch`` (the solve's
+    launches, the u8 map and the readback's start),
+    ``serve.readback_wait`` (a readback's event) and ``serve.encode_wait``
+    (the blocking waits on the encodes). The IO threads have none.
     """
     from collections import deque
     from concurrent.futures import ThreadPoolExecutor
@@ -270,8 +279,9 @@ def solve_pairs(
                     (i, img_path)
                 )
                 return
-            if event is not None:
-                event.synchronize()  # the pair's readback is complete
+            with span("serve.readback_wait"):
+                if event is not None:
+                    event.synchronize()  # the pair's readback is complete
             if stats_out is not None:
                 stats_out[img_path] = time.perf_counter() - t_dispatch
             depth_np, d16_np, art_np = (
@@ -318,7 +328,8 @@ def solve_pairs(
         while loads:
             i, fut = loads.popleft()
             try:
-                rgb, mask, value = fut.result()
+                with span("serve.decode_wait"):
+                    rgb, mask, value = fut.result()
             except Exception as e:
                 if not keep_going:
                     raise
@@ -354,22 +365,25 @@ def solve_pairs(
                 pipe.prewarm_async()
                 pipes[(h, w)] = pipe
             pipe = pipes[(h, w)]
-            rgb_d, gpyr = pipe.prepare_image(_upload(rgb, dev))
-            state = pipe.initial_state()
-            mask_d, value_d = _upload(mask, dev), _upload(value, dev)
+            with span("serve.upload"):
+                rgb_d, gpyr = pipe.prepare_image(_upload(rgb, dev))
+                state = pipe.initial_state()
+                mask_d, value_d = _upload(mask, dev), _upload(value, dev)
             stem = stems[i]
-            if effect is None:
-                depth, _ = pipe.solve(gpyr, mask_d, value_d, state)
-                art = None
-            else:
-                depth, _, art = pipe.solve_and_effect(
-                    effect, gpyr, rgb_d, mask_d, value_d, state
-                )
-            # depth is converted to u8 ON DEVICE (pipe.depth_u8, bit-equal
-            # to io.depth_to_u8): a 4x smaller readback than f32.
-            outs = (pipe.depth_u8(depth),
-                    pipe.depth_u16(depth) if depth16 else None, art)
-            host, event = _start_readback(outs, dev)
+            with span("serve.dispatch"):
+                if effect is None:
+                    depth, _ = pipe.solve(gpyr, mask_d, value_d, state)
+                    art = None
+                else:
+                    depth, _, art = pipe.solve_and_effect(
+                        effect, gpyr, rgb_d, mask_d, value_d, state
+                    )
+                # depth is converted to u8 ON DEVICE (pipe.depth_u8,
+                # bit-equal to io.depth_to_u8): a 4x smaller readback than
+                # f32.
+                outs = (pipe.depth_u8(depth),
+                        pipe.depth_u16(depth) if depth16 else None, art)
+                host, event = _start_readback(outs, dev)
             inflight.append((i, pairs[i][0], stem, outs, host, event, t_dispatch))
             # Keep up to min(prefetch, 2) solves in flight beyond the one
             # just queued: their readback overlaps the host dispatching
@@ -379,10 +393,12 @@ def solve_pairs(
             drain_writes(block=False)
             # Bound host memory: if PNG encode is the bottleneck, block on
             # the oldest writes instead of accumulating encoded frames.
-            drain_writes(block=True, keep=2 * io_workers + 4)
+            with span("serve.encode_wait"):
+                drain_writes(block=True, keep=2 * io_workers + 4)
         while inflight:
             drain_solve()
-        drain_writes(block=True)
+        with span("serve.encode_wait"):
+            drain_writes(block=True)
     return written
 
 

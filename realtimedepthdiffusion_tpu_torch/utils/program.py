@@ -17,6 +17,7 @@ import torch
 
 from .. import ops
 from ..core.solver import read_exit_log
+from .timing import span
 
 
 def leaves(args) -> list:
@@ -78,10 +79,18 @@ class Program:
     wrappers count what the capture would have launched; those counts are
     taken back out, and each replay adds them (``ops.add_launches``). So
     does ``counter``, a ``collections.Counter`` that ``fn`` adds to (the
-    sharded step's ``block_calls``)."""
+    sharded step's ``block_calls``).
 
-    def __init__(self, fn, args, device: torch.device, pool=None, stream=None, counter=None):
+    Spans (``utils/timing.py``; in ``timer`` where one is given, on a
+    running profiler's timeline always): ``program.capture`` around the
+    capture, and per call ``program.copy_in``, ``program.replay`` and
+    ``program.copy_out``, or ``program.eager`` for the eager function on
+    the CPU."""
+
+    def __init__(self, fn, args, device: torch.device, pool=None, stream=None, counter=None,
+                 timer=None):
         self.fn = fn
+        self.timer = timer
         self.sig = signature(args)
         self.graph = None
         self.tally = {}
@@ -100,7 +109,7 @@ class Program:
         collecting = gc.isenabled()
         gc.disable()
         try:
-            with torch.cuda.device(device):
+            with span("program.capture", timer), torch.cuda.device(device):
                 self.static_in = map_tensors(lambda t: torch.empty_like(
                     t, device=device, memory_format=torch.contiguous_format), args)
                 self.sig = signature(self.static_in)
@@ -126,19 +135,26 @@ class Program:
     def matches(self, args) -> bool:
         return self.sig is not None and signature(args) == self.sig
 
-    def __call__(self, args, exit_log=None):
+    def __call__(self, args, exit_log=None, wait: bool = True):
+        """Replay for ``args``; under the early exit a list given as
+        ``exit_log`` receives the replay's counts, read as
+        ``read_exit_log(exit_log, wait)`` reads them."""
         if self.graph is None:
-            return self.fn(*args, exit_log)
+            with span("program.eager", self.timer):
+                return self.fn(*args, exit_log)
         with torch.cuda.device(self.device):
-            for dst, src in zip(leaves(self.static_in), leaves(args)):
-                dst.copy_(src)
-            self.graph.replay()
+            with span("program.copy_in", self.timer):
+                for dst, src in zip(leaves(self.static_in), leaves(args)):
+                    dst.copy_(src)
+            with span("program.replay", self.timer):
+                self.graph.replay()
             ops.add_launches(self.tally)
             if self.counter is not None:
                 self.counter.update(self.counted)
             if exit_log is not None:
-                # The replay's own counts, read now, before a later replay
-                # writes them again.
+                # The replay's own counts, copied now, before a later
+                # replay writes them again.
                 exit_log.extend(dict(e) for e in self.static_log)
-                read_exit_log(exit_log)
-            return fresh(self.static_out)
+                read_exit_log(exit_log, wait)
+            with span("program.copy_out", self.timer):
+                return fresh(self.static_out)

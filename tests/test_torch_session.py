@@ -326,6 +326,23 @@ def test_reports_match_jax(runs):
     assert timing.startswith("Processing Time:") and "upload" in timing and "solve" in timing
 
 
+def test_timing_report_counts_and_spans():
+    """The 't' key's report of a traced solve under the early exit: the
+    stages and spans in ms, the early exit's counters as plain counts."""
+    rgb, _, _ = synthetic_pair(64, 64, 7)
+    s = DepthSession(rgb, DiffusionConfig(max_iterations=30, early_exit=True,
+                                          residual_check_every=5, solver="red_black"),
+                     device="cpu")
+    s.paint(32, 32)
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+        s.solve()
+    lines = dict(ln.strip().split(": ", 1) for ln in s.timing_report().splitlines()[1:])
+    for name in ("solve", "upload", "session.mask", "session.u8_readback", "program.call"):
+        assert lines[name].endswith(" ms") and " calls = " in lines[name], name
+    for name in ("exit.chunks_issued", "exit.chunks_live", "exit.px", "exit.px_iters_run"):
+        assert int(lines[name]) > 0, name
+
+
 def test_no_card_raises():
     rgb, _, _ = synthetic_pair(32, 48, 3)
     if torch.cuda.is_available():
