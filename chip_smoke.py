@@ -18,8 +18,10 @@ Phases, each printed on its own lines; any failure raises and exits non-zero:
    two ``torch.cumsum`` calls that give the table alone; K4 on L0 and L1
    (and timed there under its CTA shapes at k = 2, 4 and 8) and K5 on L4
    with the red-black omegas, whole and in split runs from a base, beside
-   K4 on the same level.
-   Every comparison must be exact (max abs difference 0).
+   K4 on the same level; the early exit's probe kernel on L0 and on a
+   384x384 window, both metrics, timed live and after the exit.
+   Every comparison must be exact (max abs difference 0), but the probe's
+   rms residual (within 1e-5: the kernel sums its squares in float64).
 4. Drives the default path: ``DepthPipeline(1080, 1920, device="cuda")`` and
    three ``solve_and_effect(EFFECT_DEFOCUS, ...)`` updates with a scribble
    added before the second. Checks finite depth, exact scribbles, the
@@ -33,7 +35,8 @@ Phases, each printed on its own lines; any failure raises and exits non-zero:
    through K4, K5 and K3, the iterations and residual probes of every
    level, and the frames' K4 and K5 launches (every chunk of each level's
    cap is issued, the exit being decided on the card: one K5, or one K4
-   per k iterations, a chunk), a kernel frame against the plain frame,
+   per k iterations, and one probe launch a chunk), a kernel frame against
+   the plain frame (its probes plain too),
    and a small solve against the CPU's. Then one ``solver="jacobi"`` frame and one Jacobi-Chebyshev
    early-exit frame, each exact against the plain frame.
 6. Drives the 4K path at 2160x3840: K6 against its plain version (and K1)
@@ -253,6 +256,12 @@ INT32_OPS_S = 16.75e12
 # right and the lower neighbour, each 2 subtracts, 2 abs, a compare, a
 # lookup and a select, then 3 adds, a compare, a divide and a select).
 JC_OPS, RB_OPS, K6_DERIVE_OPS = 16, 16, 20
+# The probe (csrc/probe.cu): 5 multiplies, 3 adds, the clamp's 2 compares,
+# the subtract, the square and its float64 add.
+PROBE_OPS = 13
+# Probe launches in each graph that phase 8 times: one launch of a few
+# microseconds lies below what a replay's own launch costs.
+PROBE_GRAPH_LAUNCHES = 100
 # K3's (floating-point, integer) operations, counted from csrc/defocus.cu:
 # per pixel, the half-width (a max, a multiply, a divide and a convert; a
 # halving and a min), which defocus_block is handed instead; per pixel of
@@ -492,6 +501,8 @@ def require_equal(torch, name, got, want):
 
 
 def main() -> None:
+    from unittest import mock
+
     import torch
 
     if not torch.cuda.is_available():
@@ -508,7 +519,7 @@ def main() -> None:
     from realtimedepthdiffusion_tpu_torch.core.solver import abc_schedule, rb_omegas
     from realtimedepthdiffusion_tpu_torch.core.weights import edge_weights
     from realtimedepthdiffusion_tpu_torch.ops import (build, defocus, dispatch, fused_sweep,
-                                                      rb_sweep, sweep)
+                                                      probe, rb_sweep, sweep)
 
     mark = [time.perf_counter()]
 
@@ -552,12 +563,12 @@ def main() -> None:
     n_levels = len(gray_pyr)
     L = n_levels - 1
 
-    def level_case(gp, level):
+    def level_case(gp, level, r=rng):
         h, w = gp[level].shape
-        field = rng.random((h // 8 + 2, w // 8 + 2)) * 255.0
+        field = r.random((h // 8 + 2, w // 8 + 2)) * 255.0
         depth = np.kron(field, np.ones((8, 8)))[:h, :w].astype(np.float32)
-        mask = rng.random((h, w)) < 0.02
-        value = rng.integers(0, 255, (h, w)).astype(np.uint8)
+        mask = r.random((h, w)) < 0.02
+        value = r.integers(0, 255, (h, w)).astype(np.uint8)
         depth_t = seed_depth(torch.from_numpy(depth).to(dev), torch.from_numpy(mask).to(dev),
                              torch.from_numpy(value).to(dev))
         mask_t = torch.from_numpy(mask).to(dev)
@@ -745,6 +756,68 @@ def main() -> None:
           f"across, down, rows, columns), in chunks of {every} max_abs_err "
           f"{k5['split_max_abs_err']}; K4 on the same level {k5['k4_ms']:.3f} ms")
 
+    # The early exit's probe (csrc/probe.cu) against its plain version on
+    # 1080p L0 and on a 384x384 window of it, both metrics: the same flag
+    # and counts, the rms residual within 1e-5 (its squares summed in
+    # float64 against torch's float32), the max exact. Timed live (the flag
+    # clear, tol 0: it never stops) and after the exit (the flag set: one
+    # launch whose blocks return), as the host launches it and replayed from
+    # a graph of PROBE_GRAPH_LAUNCHES launches (phase 8, per launch), beside
+    # the plain version; bound: u, the five weight planes and the mask read
+    # once, 25 bytes a pixel.
+    def check_probe(name, gp):
+        depth_t, mask_t, wts, _ = level_case(gp, 0, np.random.default_rng(SEED + 18))
+        h, w = depth_t.shape
+        m8 = mask_t.to(torch.uint8)
+        planes = (wts.wl, wts.wr, wts.wu, wts.wd, wts.inv_count)
+        scratch = probe.probe_scratch(h, w, dev)
+
+        def flags(stop=0):
+            return (torch.full((), stop, dtype=torch.int32, device=dev),
+                    torch.zeros(2, dtype=torch.int32, device=dev), torch.zeros(1, device=dev))
+
+        def kernel(metric, tol, fl):
+            return lambda: probe.residual_probe(depth_t, *planes, m8, 25, 0, tol, metric, *fl,
+                                                *scratch)
+
+        def plain(metric, tol, fl):
+            return lambda: probe.probe_plain(depth_t, mask_t, wts, metric, 25, 0, tol, *fl)
+
+        line = {"shape": [h, w], "max_rel_err": 0.0}
+        for metric in probe.METRICS:
+            res = float(probe.residual_plain(depth_t, mask_t, wts, metric))
+            for tol in (res * 0.5, res * 2.0):
+                got, want = flags(), flags()
+                kernel(metric, tol, got)()
+                plain(metric, tol, want)()
+                torch.cuda.synchronize()
+                rel = abs(float(got[2]) - float(want[2])) / float(want[2])
+                if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+                        and rel <= (1e-5 if metric == "rms" else 0.0)):
+                    raise AssertionError(f"probe {name} {metric} at tol {tol}: kernel "
+                                         f"{[t.tolist() for t in got]}, plain "
+                                         f"{[t.tolist() for t in want]}")
+                line["max_rel_err"] = max(line["max_rel_err"], rel)
+        live, dead = flags(), flags(1)
+        line["ms"] = time_ms(torch, kernel("rms", 0.0, live), 20)
+        line["dead_ms"] = time_ms(torch, kernel("rms", 0.0, dead), 20)
+        line["plain_ms"] = time_ms(torch, plain("rms", 0.0, flags()), 10)
+        if int(live[0]) or int(dead[1][1]):
+            raise AssertionError(f"probe {name}: the live probe stopped or the dead one counted")
+        def many(fn):
+            return lambda: [fn() for _ in range(PROBE_GRAPH_LAUNCHES)]
+
+        device_only[f"probe {name}"] = many(kernel("rms", 0.0, live))
+        device_only[f"probe {name} after the exit"] = many(kernel("rms", 0.0, dead))
+        device_only[f"probe {name} plain"] = many(plain("rms", 0.0, flags()))
+        line["bound_ms"], line["bound_by"] = bound(25 * h * w, PROBE_OPS * h * w)
+        print(f"probe {name}: {json.dumps(line)}")
+        return line
+
+    probe_l0 = check_probe("L0", gray_pyr)
+    probe_win = check_probe("window 384", [gray_pyr[0][300:684, 500:884].contiguous()]
+                            + list(gray_pyr[1:]))
+
     ramp = np.linspace(0.0, 255.0, W, dtype=np.float32)[None, :].repeat(H, 0)
     ramp = np.clip(ramp + rng.normal(0.0, 6.0, (H, W)).astype(np.float32), 0.0, 255.0)
     depth_fx = torch.from_numpy(ramp).to(dev)
@@ -866,7 +939,11 @@ def main() -> None:
 
     # The same update by the plain versions on the card must equal the
     # kernel path's bit for bit: same glue and routes, kernels equal to
-    # their twins.
+    # their twins. The early exit's probe is its plain version too; its rms
+    # sum differs from the kernel's in the last bits, which moves no exit
+    # on these scenes (every probe lies far further from the threshold).
+    plain_probes = (probe.level_probe_plain,) * 2
+
     def plain_level(c, depth, mask, gray, level, max_level, iters):
         table = solver._SCHEDULES[c.solver](iters, c)
         wts = edge_weights(gray, depth, level, max_level, c)
@@ -877,7 +954,8 @@ def main() -> None:
             chunks = rb_sweep.chunks_plain if c.solver == "red_black" else sweep.chunks_plain
             st, run, u_of = chunks(depth, mask, wts, table)
         if c.early_exit:
-            return u_of(solver._chunked_early_exit(st, run, u_of, mask, wts, iters, c))
+            with mock.patch.object(dispatch, "_PROBE", plain_probes):
+                return u_of(solver._chunked_early_exit(st, run, u_of, mask, wts, iters, c))
         return u_of(run(st, 0, iters))
 
     def plain_frame(c, gp, st, scene):
@@ -995,9 +1073,12 @@ def main() -> None:
     def rb_exit_launches(log, every, want):
         """Add to ``want`` the launches of a red-black early exit's levels:
         per chunk issued, one K5 launch where the level fits one CTA, else
-        one K4 launch per k iterations."""
+        one K4 launch per k iterations, and one probe launch where the
+        level's probes are the kernel."""
         for e in log:
             chunks = issued_chunks(e, every)
+            if e["probe"] == "kernel":
+                want["residual_probe"] += len(chunks)
             if rb_sweep.rb_resident_fits(*e["shape"]):
                 want["rb_sweep_resident"] += len(chunks)
             else:
@@ -1043,7 +1124,8 @@ def main() -> None:
                      DiffusionConfig(early_exit=True, tolerance=1e-3))):
         line = compare_frames(name, DepthPipeline(H, W, c, device="cuda"), fstate, fast_scene,
                               timed=False)
-        want = {"jc_sweep_tiles", "jc_sweep_resident", "defocus_box"}
+        want = {"jc_sweep_tiles", "jc_sweep_resident", "defocus_box"} | (
+            {"residual_probe"} if c.early_exit else set())
         if set(line["launches"]) != want:
             raise AssertionError(f"{name} frame launched {line['launches']}, not {want}")
     phase_done("5 (the fast path)")
@@ -1156,7 +1238,7 @@ def main() -> None:
                              DepthPipeline(H4, W4, ee_cfg, device="cuda"), state4, scene4,
                              timed=False, exit_log=log4)
     if set(ee4["launches"]) != {"jc_sweep_resident", "jc_sweep_tiles", "jc_sweep_fused",
-                                "defocus_box"}:
+                                "defocus_box", "residual_probe"}:
         raise AssertionError(f"4K early-exit frame launched {ee4['launches']}")
     print(f"4K early-exit frame: tol {log4[0]['tol']:.6f}; " + json.dumps(
         [{"shape": list(e["shape"]), "iterations": e["iters"],
@@ -1493,7 +1575,6 @@ def main() -> None:
 
     # -- 9. the incremental re-solve, the V-cycle, the facade, the oracle, the codec ---
     import tempfile
-    from unittest import mock
 
     from realtimedepthdiffusion_tpu_torch import io as port_io
     from realtimedepthdiffusion_tpu_torch import models
@@ -1600,7 +1681,7 @@ def main() -> None:
         Under the early exit (red-black) every chunk of each solve's cap."""
         want = collections.Counter(defocus_box=1)
         if c.early_exit:
-            return rb_exit_launches([{"shape": sh, "cap": it} for sh, it in
+            return rb_exit_launches([{"shape": sh, "cap": it, "probe": "kernel"} for sh, it in
                                      incremental_solves(c, gp)], c.residual_check_every, want)
         for (sh, sw), iters in incremental_solves(c, gp):
             blocks = -(-iters // sweep.TILE_SWEEPS)
@@ -1945,10 +2026,10 @@ def main() -> None:
     if not nrt.available:
         raise AssertionError("the native runtime did not build with g++: a session would run "
                              "its Python fallback")
-    probe = native_rt.Arena(4096)
-    if not probe.native:
+    arena = native_rt.Arena(4096)
+    if not arena.native:
         raise AssertionError("the session's host arena is not the native one")
-    probe.close()
+    arena.close()
     build_s = time.perf_counter() - t0
     fallback = native_rt.NativeRuntime()
     fallback.lib = None
@@ -2046,10 +2127,16 @@ def main() -> None:
     # them, with the launches it must make, and the same update on the plain
     # versions on the card from the state before it.
     def logged(fn, n_pos, log):
-        """``fn`` with ``exit_log=log`` where its caller passes none."""
+        """``fn`` with ``exit_log=log`` where its caller passes none, or
+        None (the session passes its own list only while a profiler runs)."""
         def call(*a, **kw):
-            if len(a) > n_pos or "exit_log" in kw:
+            if len(a) > n_pos:
+                if a[n_pos] is not None:
+                    return fn(*a, **kw)
+                a = a[:n_pos]
+            if kw.get("exit_log") is not None:
                 return fn(*a, **kw)
+            kw.pop("exit_log", None)
             return fn(*a, exit_log=log, **kw)
         return call
 
@@ -3088,7 +3175,7 @@ def main() -> None:
     loop["launches"] = {k: v for k, v in loop_launches.items() if v}
     print(f"device loop main path: launches {json.dumps(loop['launches'])}")
     for name in ("jc_sweep_tiles", "jc_sweep_resident", "defocus_box", "rb_sweep_tiles",
-                 "rb_sweep_resident", "jc_sweep_fused"):
+                 "rb_sweep_resident", "jc_sweep_fused", "residual_probe"):
         if not loop_launches[name]:
             raise AssertionError(f"phase 14's main path never launched {name}")
 
@@ -3333,6 +3420,11 @@ def main() -> None:
         """K3's device ms by route, of the cases whose name starts so."""
         return {k.split(" route ")[1]: v for k, v in device_ms.items() if k.startswith(prefix)}
 
+    def probe_device(name):
+        """The probe's device ms per launch, live, after the exit and plain."""
+        return {f"{key}device_ms": device_ms[f"probe {name}{suffix}"] / PROBE_GRAPH_LAUNCHES
+                for key, suffix in (("", ""), ("dead_", " after the exit"), ("plain_", " plain"))}
+
     def bounded(entry, n_bytes, n_ops, n_int=0):
         entry["bound_ms"], entry["bound_by"] = bound(n_bytes, n_ops, n_int)
         entry["library_ms"] = None  # no PyTorch call computes a per-pixel-weight stencil
@@ -3436,6 +3528,11 @@ def main() -> None:
                                      if k.startswith("K5 L4 chunk")},
                  "k4_ms": k5["k4_ms"], "k4_device_ms": device_ms["K4 on K5's L4"]},
                 px4 * 21, px4 * k5["iterations"] * RB_OPS),
+        dict(probe_l0, name="residual_probe", route="cuda",
+             source="realtimedepthdiffusion_tpu_torch/csrc/probe.cu",
+             replaces=None,  # the JAX package leaves the probe to XLA
+             launches=fast_launches["residual_probe"], library_ms=None,
+             **probe_device("L0"), window=dict(probe_win, **probe_device("window 384"))),
         bounded({"name": "jc_sweep_fused", "route": "cuda",
                  "source": "realtimedepthdiffusion_tpu_torch/csrc/fused_sweep.cu",
                  "replaces": f"{TPU_SWEEP}:394", "launches": launches4["jc_sweep_fused"],

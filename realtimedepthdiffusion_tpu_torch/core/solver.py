@@ -33,6 +33,7 @@ import torch
 
 from ..config import DiffusionConfig
 from ..ops import dispatch
+from ..ops.probe import residual_plain
 from ..ops.rb_sweep import red_black_parity  # noqa: F401 (the solver's API, as in JAX)
 from ..ops.sweep import average_plain, relax_plain
 from .weights import EdgeWeights, edge_weights
@@ -133,16 +134,13 @@ def jacobi_sweep_raw(u: torch.Tensor, wts: EdgeWeights) -> torch.Tensor:
 
 def residual_norm(u: torch.Tensor, mask: torch.Tensor, wts: EdgeWeights) -> torch.Tensor:
     """Max-norm residual |relax(u) - u| over the pixels that are not scribbled."""
-    r = jacobi_sweep(u, wts) - u
-    return torch.where(mask, 0.0, r).abs().max()
+    return residual_plain(u, mask, wts, "max")
 
 
 def residual_rms(u: torch.Tensor, mask: torch.Tensor, wts: EdgeWeights) -> torch.Tensor:
     """RMS residual sqrt(mean |relax(u) - u|^2) over the pixels that are not
     scribbled (the count is at least 1)."""
-    r = torch.where(mask, 0.0, jacobi_sweep(u, wts) - u)
-    cnt = torch.clamp(torch.where(mask, 0.0, 1.0).sum(), min=1.0)
-    return torch.sqrt((r * r).sum() / cnt)
+    return residual_plain(u, mask, wts, "rms")
 
 
 def residual_metric_fn(cfg: DiffusionConfig):
@@ -176,22 +174,24 @@ def _chunked_early_exit(state, run, u_of, mask, wts, iters: int, cfg: DiffusionC
     The loop is unrolled into its ceil(iters / residual_check_every) chunks
     and decided on the device: a 0-d int32 flag ``stop``, which every
     chunk's launches take, is set once a probe falls below the threshold;
-    from then on the chunks leave the state as it is, and the probes, which
-    still run, neither count nor set anything. A device count of the
-    iterations and probes run advances only while ``stop`` is clear, and
-    each probe's residual goes to a slot of its own. On a card nothing is
-    read back, so a CUDA graph holds every chunk; on the CPU the loop reads
-    the flag (no wait there) and stops issuing chunks once it is set, so
-    its chunks never see it set.
+    from then on the chunks leave the state as it is. The probe
+    (``ops/dispatch.py:level_probe``: the kernel ``residual_probe`` on a
+    card, torch ops on the CPU) keeps a device count of the iterations and
+    probes run and each probe's residual in a slot of its own, while
+    ``stop`` is clear; on a card a probe after the exit returns at once. On
+    a card nothing is read back, so a CUDA graph holds every chunk; on the
+    CPU the loop reads the flag (no wait there) and stops issuing chunks
+    once it is set, so its chunks never see it set.
 
     A list given as ``exit_log`` receives a dict of the level's shape, its
     cap of iterations (``cap``: its chunks are all issued), the iterations
-    run, each probe's residual and the threshold. The counts
-    are read from the device once per solve, by ``read_exit_log``: on a
-    card they are filled in there, on the CPU at once."""
+    run, each probe's residual, the threshold and the probe's route
+    (``probe``: ``"kernel"`` or ``"plain"``). The counts are read from the
+    device once per solve, by ``read_exit_log``: on a card they are filled
+    in there, on the CPU at once."""
     tol = float(np.float32(cfg.tolerance) * np.float32(255.0))
     chunk = max(int(cfg.residual_check_every), 1)
-    res_fn = residual_metric_fn(cfg)
+    probe, route = dispatch.level_probe(mask, wts, cfg.residual_metric, tol)
     dev = mask.device
     on_host = _host_loop(dev)
     n_chunks = -(-iters // chunk)
@@ -204,14 +204,9 @@ def _chunked_early_exit(state, run, u_of, mask, wts, iters: int, cfg: DiffusionC
         base = c * chunk
         n = min(chunk, iters - base)
         state = run(state, base, n, None if on_host else stop)
-        res = res_fn(u_of(state), mask, wts)
-        live = 1 - stop
-        done[0].add_(live, alpha=n)
-        done[1].add_(live)
-        probes[c] = res
-        stop.bitwise_or_(res.ge(tol).logical_not())  # NaN stops, as in the reference
+        probe(u_of(state), c, n, stop, done, probes)
     if exit_log is not None:
-        exit_log.append({"shape": tuple(mask.shape), "cap": iters, "tol": tol,
+        exit_log.append({"shape": tuple(mask.shape), "cap": iters, "tol": tol, "probe": route,
                          "_device": (done, probes)})
         if on_host:
             read_exit_log(exit_log)

@@ -36,7 +36,9 @@ profiler runs, the solve's early exit is read after the readback, with
 copies alone, into the counters ``exit.chunks_issued`` (every chunk of
 each level's cap, as a card issues them), ``exit.chunks_live`` (those
 whose probe ran before the exit), ``exit.px`` (the pixels of each level or
-window solved) and ``exit.px_iters_run`` (pixels times iterations run).
+window solved), ``exit.px_iters_run`` (pixels times iterations run) and,
+where the probes are the kernel ``residual_probe`` (on a card),
+``exit.probes_kernel`` (the issued chunks whose probe is the kernel).
 """
 
 from __future__ import annotations
@@ -332,7 +334,10 @@ class DepthSession:
         chunk = max(int(self.cfg.residual_check_every), 1)
         for e in exit_log:
             px = e["shape"][0] * e["shape"][1]
-            self.timer.count("exit.chunks_issued", -(-e["cap"] // chunk))
+            issued = -(-e["cap"] // chunk)
+            self.timer.count("exit.chunks_issued", issued)
+            if e["probe"] == "kernel":
+                self.timer.count("exit.probes_kernel", issued)
             self.timer.count("exit.chunks_live", len(e["probes"]))
             self.timer.count("exit.px", px)
             self.timer.count("exit.px_iters_run", px * e["iters"])

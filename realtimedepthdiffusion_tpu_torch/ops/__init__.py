@@ -2,11 +2,12 @@
 
 from .defocus import defocus_block, defocus_box
 from .fused_sweep import jc_sweep_fused
+from .probe import residual_probe
 from .rb_sweep import rb_sweep_resident, rb_sweep_tiles
 from .sweep import jc_sweep_resident, jc_sweep_tiles
 
 _KERNELS = (jc_sweep_tiles, jc_sweep_resident, defocus_box, rb_sweep_tiles,
-            rb_sweep_resident, jc_sweep_fused, defocus_block)
+            rb_sweep_resident, jc_sweep_fused, defocus_block, residual_probe)
 
 
 def launch_counts() -> dict:

@@ -67,6 +67,9 @@ SIGNATURES = {
     # chw_e, half, sat, tot (scratch of the table route, else null), out,
     # hb, wb, ring, oy, ox, full_h, full_w, max_half, tile, stream
     "defocus_block": (P, P, P, P, P, I, I, I, I, I, I, I, I, I, P),
+    # u, wl, wr, wu, wd, inv, mask, h, w, n, c, tol, is_max, stop, done,
+    # probes, partials, ticket, blocks, stream
+    "residual_probe": (P, P, P, P, P, P, P, I, I, I, I, ctypes.c_float, I, P, P, P, P, P, I, P),
 }
 
 _lock = threading.Lock()

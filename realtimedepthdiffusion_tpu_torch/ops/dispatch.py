@@ -8,7 +8,8 @@ K2 (``ops/sweep.py``), and K6 (``ops/fused_sweep.py``) on levels whose weight
 planes outgrow the card's L2 cache (``fused_level``); red-black runs K4 and
 K5 (``ops/rb_sweep.py``). Both multigrid schemes solve their levels
 through these routes; the V-cycle's polish is plain torch ops on every
-device (``core/multigrid.py``).
+device (``core/multigrid.py``). The early exit's probe, after each chunk
+of every solver, is the kernel ``residual_probe`` (``ops/probe.py``).
 """
 
 from __future__ import annotations
@@ -17,7 +18,7 @@ import numpy as np
 import torch
 
 from ..config import DiffusionConfig
-from . import fused_sweep, rb_sweep, sweep
+from . import fused_sweep, probe, rb_sweep, sweep
 
 VALID_BACKENDS = ("auto", "xla", "pallas", "pallas_interpret")
 VALID_SOLVERS = ("jacobi", "jacobi_chebyshev", "red_black")
@@ -38,6 +39,8 @@ _CHUNKS["jacobi"] = _CHUNKS["jacobi_chebyshev"]
 # The Jacobi sweeps with the weights derived in the kernel (K6).
 _FUSED = (fused_sweep.solve_level_fused_plain, fused_sweep.solve_level_fused_cuda)
 _FUSED_CHUNKS = (fused_sweep.fused_chunks_plain, fused_sweep.fused_chunks_cuda)
+# The early exit's probe of a level, for every solver.
+_PROBE = (probe.level_probe_plain, probe.level_probe_cuda)
 # The L2 cache the CPU routes by: the H100's, so that the plain versions
 # take the routes the card takes.
 H100_L2_BYTES = 50 * 1024 * 1024
@@ -116,3 +119,12 @@ def fused_chunks(depth: torch.Tensor, mask: torch.Tensor, gray: torch.Tensor,
     early exit, routed as ``run_fused``; its ``run`` takes ``stop`` as
     ``level_chunks``' does."""
     return _pick(_FUSED_CHUNKS, depth)(depth, mask, gray, table, level, max_level, cfg)
+
+
+def level_probe(mask: torch.Tensor, wts, metric: str, tol: float):
+    """``(probe, route)``: the early exit's probe of one level,
+    ``probe(u, c, n, stop, done, probes)`` after chunk ``c`` of ``n``
+    iterations (``ops/probe.py:probe_plain``), on the kernel for a CUDA
+    tensor (route ``"kernel"``) or in torch ops for a CPU tensor
+    (``"plain"``)."""
+    return _pick(_PROBE, mask)(mask, wts, metric, tol)

@@ -250,9 +250,10 @@ class _ShardedLevel:
         flag (no wait there) and stops issuing chunks, handing them none.
 
         Under the early exit, appends to a list given as ``exit_log`` the
-        single-device entry: the level's shape, its cap, the threshold and
-        the device counts, which ``read_exit_log`` turns into ``iters`` and
-        ``probes`` (on the CPU at once)."""
+        single-device entry: the level's shape, its cap, the threshold, the
+        probe's route (``"plain"``: this probe is torch ops on every device)
+        and the device counts, which ``read_exit_log`` turns into ``iters``
+        and ``probes`` (on the CPU at once)."""
         if not cfg.early_exit:
             return run(state, 0, iters, None)
         tol = float(np.float32(cfg.tolerance) * np.float32(255.0))
@@ -283,7 +284,8 @@ class _ShardedLevel:
             state = run(state, n_full * chunk, rem, handed)
             done[0].add_(1 - stop, alpha=rem)
         if exit_log is not None:
-            exit_log.append({"shape": shape, "cap": iters, "tol": tol, "_device": (done, probes)})
+            exit_log.append({"shape": shape, "cap": iters, "tol": tol, "probe": "plain",
+                             "_device": (done, probes)})
             if on_host:
                 read_exit_log(exit_log)
         return state

@@ -7,15 +7,21 @@ past iteration 0, K3 on both of its routes at apertures up to past the
 tile route's limit, K5 on levels of every shape its CTA covers, K6 at every level rule
 and the 4K routes and SAT sums, pipelines and live sessions on a second
 card, and K1, K2 and K4 on the ring-masked windows of the incremental
-re-solve. Every comparison is exact, but the V-cycle's and a live session
+re-solve, and the early exit's probe kernel at the main paths' shapes,
+after the exit, replayed from a graph and inside a captured windowed
+update. Every comparison is exact, but the V-cycle's and a live session
 against the CPU's, where the card and the CPU round differently
-(RMSE <= 1e-3).
+(RMSE <= 1e-3), and the probe's rms residual, whose squares the kernel sums
+in float64 (``PROBE_RTOL``).
 
 Needs a CUDA device and nvcc; skips without them. This file imports no JAX,
 so it runs on a machine without it:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 """
+
+import math
+import pathlib
 
 import numpy as np
 import pytest
@@ -26,7 +32,8 @@ from realtimedepthdiffusion_tpu_torch.config import DiffusionConfig
 from realtimedepthdiffusion_tpu_torch.core.annotation import seed_depth
 from realtimedepthdiffusion_tpu_torch.core.solver import abc_schedule, rb_omegas
 from realtimedepthdiffusion_tpu_torch.core.weights import edge_weights
-from realtimedepthdiffusion_tpu_torch.ops import defocus, dispatch, fused_sweep, rb_sweep, sweep
+from realtimedepthdiffusion_tpu_torch.ops import (defocus, dispatch, fused_sweep, probe, rb_sweep,
+                                                  sweep)
 
 pytestmark = pytest.mark.cuda
 
@@ -390,7 +397,7 @@ def test_wrappers_reject_bad_arguments(dev):
     assert ops.launch_counts() == {"jc_sweep_tiles": 0, "jc_sweep_resident": 0,
                                    "defocus_box": 0, "rb_sweep_tiles": 0,
                                    "rb_sweep_resident": 0, "jc_sweep_fused": 0,
-                                   "defocus_block": 0}
+                                   "defocus_block": 0, "residual_probe": 0}
 
 
 def _fused_case(dev, h, w, seed):
@@ -1351,3 +1358,223 @@ def test_multichip_serve_replays_from_its_second_batch(dev, tmp_path, monkeypatc
         for kind, arr in want.items():
             got = io.png_decode(open(tmp_path / "out" / f"{stem}_{kind}.png", "rb").read())
             assert np.array_equal(got, arr), (stem, kind)
+
+
+# -- the early exit's probe (csrc/probe.cu) -------------------------------------------
+
+# The kernel sums the squares in float64, torch in float32, in a tree whose
+# every partial sum rounds to 2^-24: over the 2 MP of 1080p L0 torch's sum
+# lies within about log2(n) * 2^-24 ~ 1.3e-6 of the exact one, and the
+# square root halves that. So the rms residual agrees to 1e-5 relative; the
+# max takes no sum and agrees exactly.
+PROBE_RTOL = 1e-5
+FAST_1080P = pathlib.Path(__file__).resolve().parents[1] / "benchmark/configs/fast_1080p.json"
+
+
+def _probe_flags(dev, stop):
+    return (torch.full((), stop, dtype=torch.int32, device=dev),
+            torch.tensor([7, 2], dtype=torch.int32, device=dev),
+            torch.full((3,), -1.0, device=dev))
+
+
+def _probe_by(route, u, mask, wts, metric, tol, flags, c=1, n=25):
+    """One probe of the level by ``route`` ("plain" or "kernel") on the
+    card, into ``flags`` (stop, done, probes)."""
+    make = probe.level_probe_plain if route == "plain" else probe.level_probe_cuda
+    fn, name = make(mask, wts, metric, tol)
+    assert name == route
+    fn(u, c, n, *flags)
+    torch.cuda.synchronize()
+    return flags
+
+
+def _same_probe(got, want, metric):
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert torch.equal(got[2][[0, 2]], want[2][[0, 2]])
+    if metric == "max":
+        torch.testing.assert_close(got[2], want[2], rtol=0, atol=0, equal_nan=True)
+    else:
+        torch.testing.assert_close(got[2], want[2], rtol=PROBE_RTOL, atol=0, equal_nan=True)
+
+
+@pytest.mark.parametrize("h,w", [(1080, 1920), (540, 960), (270, 480), (135, 240), (67, 120),
+                                 (384, 384), (192, 192), (1, 1), (5, 3), (33, 65)])
+@pytest.mark.parametrize("metric", ["rms", "max"])
+@pytest.mark.parametrize("side", ["above", "below"])
+def test_probe_kernel_equals_plain(dev, h, w, metric, side):
+    """The probe kernel against its plain version at the main paths'
+    shapes (1080p L0 to L4, the windowed re-solve's 384 and 192 windows)
+    and at odd ones, with the threshold above the residual (the flag is
+    set) and below it (clear): the same flag and counts, the residual
+    within ``PROBE_RTOL`` (rms) or exact (max), the other slots left."""
+    depth, mask, wts, _ = _level(dev, h, w, 1, seed=h * 7 + w)
+    res = float(probe.residual_plain(depth, mask, wts, metric))
+    tol = res * (1.5 if side == "above" else 0.5) + 1e-6
+    want = _probe_by("plain", depth, mask, wts, metric, tol, _probe_flags(dev, 0))
+    before = probe.residual_probe.launches
+    got = _probe_by("kernel", depth, mask, wts, metric, tol, _probe_flags(dev, 0))
+    assert probe.residual_probe.launches == before + 1
+    _same_probe(got, want, metric)
+    assert int(got[0]) == (side == "above") and got[1].tolist() == [32, 3]
+
+
+@pytest.mark.parametrize("case", ["nan", "masked"])
+@pytest.mark.parametrize("metric", ["rms", "max"])
+def test_probe_kernel_nan_and_fully_masked(dev, case, metric):
+    """A NaN in the free pixels stops on both versions, with a NaN
+    residual; a fully scribbled level reads 0 (the count clamped to 1)."""
+    depth, mask, wts, _ = _level(dev, 135, 240, 1, seed=5)
+    if case == "nan":
+        mask[60, 70], depth[60, 70] = False, float("nan")
+    else:
+        mask[:] = True
+    want = _probe_by("plain", depth, mask, wts, metric, 1.0, _probe_flags(dev, 0))
+    got = _probe_by("kernel", depth, mask, wts, metric, 1.0, _probe_flags(dev, 0))
+    _same_probe(got, want, metric)
+    assert int(got[0]) == 1 and got[1].tolist() == [32, 3]
+    assert math.isnan(float(got[2][1])) if case == "nan" else float(got[2][1]) == 0.0
+
+
+@pytest.mark.parametrize("metric", ["rms", "max"])
+def test_probe_kernel_after_the_exit_writes_nothing(dev, metric):
+    """With ``stop`` set a launch writes nothing, not even its residual's
+    slot, and leaves the ticket at 0; it still counts as a launch."""
+    depth, mask, wts, _ = _level(dev, 384, 384, 1, seed=9)
+    planes = (wts.wl, wts.wr, wts.wu, wts.wd, wts.inv_count)
+    partials, ticket = probe.probe_scratch(384, 384, dev)
+    partials.fill_(-3.0)
+    stop, done, probes = _probe_flags(dev, 1)
+    before = probe.residual_probe.launches
+    probe.residual_probe(depth, *planes, mask.to(torch.uint8), 25, 1, 0.0, metric, stop, done,
+                         probes, partials, ticket)
+    torch.cuda.synchronize()
+    assert probe.residual_probe.launches == before + 1
+    assert int(stop) == 1 and done.tolist() == [7, 2] and probes.tolist() == [-1.0] * 3
+    assert ticket.tolist() == [0] and bool((partials == -3.0).all())
+
+
+@pytest.mark.parametrize("metric", ["rms", "max"])
+def test_probe_kernel_replayed_from_a_graph(dev, metric):
+    """The probe captured once in a CUDA graph and replayed three times on
+    different states: each replay equals the plain version on its state,
+    the last block puts the ticket back to 0 every time."""
+    depth, mask, wts, _ = _level(dev, 540, 960, 1, seed=11)
+    planes = (wts.wl, wts.wr, wts.wu, wts.wd, wts.inv_count)
+    m8 = mask.to(torch.uint8)
+    scratch = probe.probe_scratch(540, 960, dev)
+    u = depth.clone()
+    stop, done, probes = _probe_flags(dev, 0)
+
+    def launch():
+        probe.residual_probe(u, *planes, m8, 25, 1, 1e-3, metric, stop, done, probes, *scratch)
+
+    launch()  # the library is loaded and the launch checked outside the capture
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        launch()
+    r = np.random.default_rng(3)
+    for i in range(3):
+        u.copy_(torch.from_numpy((r.random((540, 960)) * 255).astype(np.float32)))
+        for t, v in zip((stop, done, probes), _probe_flags(dev, 0)):
+            t.copy_(v)
+        graph.replay()
+        torch.cuda.synchronize()
+        want = _probe_by("plain", u, mask, wts, metric, 1e-3, _probe_flags(dev, 0))
+        _same_probe((stop, done, probes), want, metric)
+        assert scratch[1].tolist() == [0], i
+
+
+def _fast_window_pipe(dev, rgb, mask, value, plain_probe, monkeypatch):
+    """A ``fast_1080p`` pipeline (the benchmark's configuration) whose
+    windowed re-solve is captured by ``incremental_ready``'s kick, with the
+    probe's plain version where ``plain_probe``; its gray pyramid and the
+    state of a full solve."""
+    import json
+
+    from realtimedepthdiffusion_tpu_torch import DepthPipeline
+    from realtimedepthdiffusion_tpu_torch.core import effects as fx
+
+    cfg = DiffusionConfig(**json.loads(FAST_1080P.read_text())["diffusion"])
+    with monkeypatch.context() as mp:
+        if plain_probe:
+            mp.setattr(dispatch, "_PROBE", (probe.level_probe_plain,) * 2)
+        pipe = DepthPipeline(1080, 1920, cfg, device=dev)
+        pipe.background_compile = True
+        rgb_d, gpyr = pipe.prepare_image(rgb)
+        m, v = torch.from_numpy(mask).to(dev), torch.from_numpy(value).to(dev)
+        _, state = pipe.solve(gpyr, m, v, pipe.initial_state())
+        assert not pipe.incremental_ready(fx.EFFECT_DEFOCUS)  # the kick captures
+    assert pipe.incremental_ready(fx.EFFECT_DEFOCUS)
+    return pipe, rgb_d, gpyr, state
+
+
+def test_windowed_update_probes_equal_the_plain_glue(dev, monkeypatch):
+    """A ``fast_1080p`` windowed update replayed from its graph, whose
+    probes are the kernel, against the same update run eagerly with the
+    plain probe on the card: the same iterations per level (the same exit
+    decisions), probes within ``PROBE_RTOL``, the same bits."""
+    from realtimedepthdiffusion_tpu_torch.core import effects as fx
+    from realtimedepthdiffusion_tpu_torch.core.solver import read_exit_log
+
+    rgb, mask, value = _photo(1080, 1920, 23)
+    pipe, rgb_d, gpyr, state = _fast_window_pipe(dev, rgb, mask, value, False, monkeypatch)
+    exited = False
+    for center in [(540, 960), (300, 500), (900, 1700)]:
+        mask[center[0] - 10:center[0] + 10, center[1] - 10:center[1] + 10] = True
+        value[center[0] - 10:center[0] + 10, center[1] - 10:center[1] + 10] = 90
+        m, v = torch.from_numpy(mask).to(dev), torch.from_numpy(value).to(dev)
+        log, want_log = [], []
+        got = pipe.solve_incremental_and_effect(fx.EFFECT_DEFOCUS, gpyr, rgb_d, m, v, state,
+                                                center, log)
+        with monkeypatch.context() as mp:
+            mp.setattr(dispatch, "_PROBE", (probe.level_probe_plain,) * 2)
+            want = pipe._inc_fx_eager(fx.EFFECT_DEFOCUS, tuple(gpyr), rgb_d, m, v, tuple(state),
+                                      center, want_log)
+        read_exit_log(want_log)
+        torch.cuda.synchronize()
+        assert [e["probe"] for e in log] == ["kernel"] * len(log) and log
+        assert [e["probe"] for e in want_log] == ["plain"] * len(log)
+        assert [e["iters"] for e in log] == [e["iters"] for e in want_log], center
+        for e, f in zip(log, want_log):
+            np.testing.assert_allclose(e["probes"], f["probes"], rtol=PROBE_RTOL)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[2], want[2]), center
+        assert all(torch.equal(a, b) for a, b in zip(got[1], want[1])), center
+        exited |= any(e["iters"] < e["cap"] for e in log)
+        state = got[1]
+    assert exited
+
+
+def _kernels_on_device(fn):
+    """Kernels (no copies or fills) the profiler sees on the card in ``fn``."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(1 for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+               and not e.name.lower().startswith(("memcpy", "memset")))
+
+
+def test_windowed_update_graph_sheds_the_probes_glue(dev, monkeypatch):
+    """The captured ``fast_1080p`` windowed update runs about 34 kernels a
+    chunk fewer with the probe kernel than with the plain probe captured
+    in its place: one launch a chunk against the torch sequence's ~35."""
+    from realtimedepthdiffusion_tpu_torch.core import effects as fx
+
+    rgb, mask, value = _photo(1080, 1920, 24)
+    mask[530:550, 950:970], value[530:550, 950:970] = True, 90
+    counts, logs = {}, {}
+    for plain in (True, False):
+        pipe, rgb_d, gpyr, state = _fast_window_pipe(dev, rgb, mask, value, plain, monkeypatch)
+        m, v = torch.from_numpy(mask).to(dev), torch.from_numpy(value).to(dev)
+        logs[plain] = []
+        pipe.solve_incremental_and_effect(fx.EFFECT_DEFOCUS, gpyr, rgb_d, m, v, state,
+                                          (540, 960), logs[plain])
+        counts[plain] = _kernels_on_device(lambda: pipe.solve_incremental_and_effect(
+            fx.EFFECT_DEFOCUS, gpyr, rgb_d, m, v, state, (540, 960)))
+    chunks = sum(-(-e["cap"] // 25) for e in logs[False])
+    assert [e["iters"] for e in logs[True]] == [e["iters"] for e in logs[False]]
+    drop = (counts[True] - counts[False]) / chunks
+    print(f"windowed update: {counts[True]} kernels with the plain probe, {counts[False]} with "
+          f"the kernel, {chunks} chunks: {drop:.2f} fewer a chunk")
+    assert 25 <= drop <= 40, (counts, chunks)

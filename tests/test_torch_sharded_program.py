@@ -135,7 +135,7 @@ def test_card_loop_matches_jax_and_host_loop(solver_name, metric, monkeypatch):
     out, done, res, log = card
     assert done == want == log[0]["iters"] and len(log[0]["probes"]) == want // CHUNK
     assert res == log[0]["probes"][-1] < log[0]["tol"]
-    assert set(log[0]) == {"shape", "cap", "tol", "iters", "probes"} and log[0]["cap"] == ITERS
+    assert set(log[0]) == {"shape", "cap", "tol", "probe", "iters", "probes"} and log[0]["cap"] == ITERS
     _clear_of(log)
     jax_done, jax_out = _jax(solver_name, metric, tol, False)
     assert jax_done == want
@@ -265,12 +265,12 @@ def test_read_exit_log_fills_sharded_entries(monkeypatch):
     with monkeypatch.context() as mp:
         mp.setattr(solver, "_host_loop", lambda device: False)
         fn.eager(*args, log)
-    assert all(set(e) == {"shape", "cap", "tol", "_device"} for e in log)
+    assert all(set(e) == {"shape", "cap", "tol", "probe", "_device"} for e in log)
     m = mesh.make_mesh(8, device="cpu")
     routes = [sharded.level_is_sharded(m, *e["shape"], "red_black", 16) for e in log]
     assert any(routes) and not all(routes)  # both kinds of level
     assert solver.read_exit_log(log) == want
-    assert all(set(e) == {"shape", "cap", "tol", "iters", "probes"} for e in log)
+    assert all(set(e) == {"shape", "cap", "tol", "probe", "iters", "probes"} for e in log)
     assert any(e["iters"] < e["cap"] for e in log)
 
 
