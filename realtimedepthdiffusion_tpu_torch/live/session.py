@@ -39,6 +39,12 @@ whose probe ran before the exit), ``exit.px`` (the pixels of each level or
 window solved), ``exit.px_iters_run`` (pixels times iterations run) and,
 where the probes are the kernel ``residual_probe`` (on a card),
 ``exit.probes_kernel`` (the issued chunks whose probe is the kernel).
+Also while a profiler runs, after the readback, the counters of the K6
+route (``ops/dispatch.py:fused_route``, decided on the host per level
+call, ``DepthPipeline.level_calls``): ``sweep.fused_levels`` (the level
+calls routed to K6), ``sweep.fused_px`` (their pixels) and
+``sweep.fused_px_sweeps`` (pixels times sweeps: the iterations each ran
+under the early exit, else its count).
 """
 
 from __future__ import annotations
@@ -322,6 +328,9 @@ class DepthSession:
                 u8 = self.pipe.depth_u8(self.depth0).cpu().numpy()
             if exit_log:
                 self._count_exits(read_exit_log(exit_log))
+            if profiling():
+                self._count_fused(self.pipe if use_local else pipe, use_local,
+                                  max(len(centers), 1), exit_log)
         if inc_kick_wanted:
             self.pipe.incremental_ready(fx_key)
         self.solve_count += 1
@@ -341,6 +350,18 @@ class DepthSession:
             self.timer.count("exit.chunks_live", len(e["probes"]))
             self.timer.count("exit.px", px)
             self.timer.count("exit.px_iters_run", px * e["iters"])
+
+    def _count_fused(self, pipe: DepthPipeline, windowed: bool, solves: int,
+                     exit_log) -> None:
+        """The counters ``sweep.fused_*`` (the module's docstring) over the
+        level calls of ``solves`` solves of ``pipe``; ``exit_log``, read,
+        holds one entry per call under the early exit."""
+        calls = pipe.level_calls(windowed) * solves
+        iters = [e["iters"] for e in exit_log] if exit_log is not None else [c[2] for c in calls]
+        fused = [(h * w, n) for (h, w, _, k6), n in zip(calls, iters) if k6]
+        self.timer.count("sweep.fused_levels", len(fused))
+        self.timer.count("sweep.fused_px", sum(px for px, _ in fused))
+        self.timer.count("sweep.fused_px_sweeps", sum(px * n for px, n in fused))
 
     # --------------------------------------------------------------- effects
     def set_effect_key(self, key: str) -> None:

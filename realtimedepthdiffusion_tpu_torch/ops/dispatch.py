@@ -77,15 +77,19 @@ def l2_bytes(device: torch.device) -> int:
     return H100_L2_BYTES
 
 
-def fused_level(depth: torch.Tensor, solver: str) -> bool:
-    """Whether a level runs K6 (its plain version on the CPU): a Jacobi
-    solver on a level that ``sweep.strip_route`` sends to K6. Red-black
-    keeps K4/K5."""
+def fused_route(h: int, w: int, device: torch.device, solver: str) -> bool:
+    """Whether an (h, w) level on ``device`` runs K6 (its plain version on
+    the CPU): a Jacobi solver on a level that ``sweep.strip_route`` sends to
+    K6. Red-black keeps K4/K5. Decided from the shape alone, on the host."""
     if solver == "red_black":
         return False
+    return sweep.strip_route(h, w, l2_bytes(device), sweep.resident_max_cluster(device)) == "K6"
+
+
+def fused_level(depth: torch.Tensor, solver: str) -> bool:
+    """``fused_route`` for the level ``depth``."""
     h, w = depth.shape
-    return sweep.strip_route(h, w, l2_bytes(depth.device),
-                             sweep.resident_max_cluster(depth.device)) == "K6"
+    return fused_route(h, w, depth.device, solver)
 
 
 def run_sweeps(depth: torch.Tensor, mask: torch.Tensor, wts, table: np.ndarray,

@@ -84,7 +84,8 @@ from .core import effects as fx
 from .core.color import rgb_to_gray
 from .core.incremental import clamp_origin, device_yx, host_yx, solve_incremental
 from .core.multigrid import (build_annotation_pyramids, build_gray_pyramid,
-                             initial_depth_state, solve_cascade, solve_vcycle)
+                             initial_depth_state, solve_cascade, solve_vcycle,
+                             vcycle_warm_config)
 from .core.solver import level_schedule, read_exit_log, residual_norm, residual_rms
 from .core.weights import edge_weights
 from .ops import build, dispatch, sweep
@@ -405,6 +406,32 @@ class DepthPipeline:
 
     def initial_state(self) -> Tuple[torch.Tensor, ...]:
         return initial_depth_state(self.rows, self.cols, self.cfg, self.device)
+
+    def level_calls(self, windowed: bool = False):
+        """[(h, w, iterations, fused)] of the level solves of one ``solve``
+        (the V-cycle's warm cascade; its polish solves no level) or, with
+        ``windowed``, of one windowed re-solve, in the order
+        ``core/multigrid.py`` and ``core/incremental.py`` run them, each
+        with at least one iteration: ``fused`` where
+        ``ops/dispatch.py:fused_route`` sends it to K6. Routed on the host
+        from the shapes, as the eager solve and so its capture route them;
+        nothing here touches the device."""
+        cfg = self.cfg
+        if not windowed and cfg.multigrid == "vcycle":
+            cfg = vcycle_warm_config(cfg)
+        inc = cfg.incremental_iterations if cfg.incremental_iterations > 0 else cfg.max_iterations
+        calls = []
+        for level in range(self.levels - 1, -1, -1):
+            h, w = cfg.level_size(self.rows, self.cols, level)
+            win = cfg.incremental_window >> level
+            if not (windowed and level < cfg.incremental_window_levels and win < min(h, w)):
+                calls.append((h, w, cfg.level_iterations(self.levels, level)))
+                continue
+            iters = max(inc >> level, 1)
+            calls.append((h, w, min(int(cfg.incremental_global_smooth), iters)))
+            calls.append((win, win, iters))
+        return [(h, w, n, dispatch.fused_route(h, w, self.device, cfg.solver))
+                for h, w, n in calls if n > 0]
 
     def solve(self, gray_pyr: Sequence[torch.Tensor], mask0: torch.Tensor,
               value0: torch.Tensor, depth_state: Sequence[torch.Tensor], exit_log=None):
