@@ -668,9 +668,22 @@ def main() -> None:
             state = (depth_t.clone(), torch.zeros_like(depth_t))
             run_c = lambda: sweep.jc_sweep_resident(*state, *planes, abc_d, 0, len(abc), c)  # noqa: E731
             line["by_cluster_ms"][c] = time_ms(torch, run_c, 5)
+        # K2 at the rule's sweeps per exchange against one exchange a sweep
+        # (one thread row, as before ghost rows), on the route's cluster.
+        want_k2 = sweep.solve_level_cuda(depth_t, mask_t, wts, abc)
+        line["by_s_ms"] = {}
+        for plan in (sweep.resident_plan(*depth_t.shape, cluster, len(abc)),
+                     (1, sweep.RESIDENT_ROWS)):
+            state = (depth_t.clone(), torch.zeros_like(depth_t))
+            run_s = lambda: sweep.jc_sweep_resident(  # noqa: E731
+                *state, *planes, abc_d, 0, len(abc), cluster, plan=plan)
+            run_s()
+            require_equal(torch, f"K2 {name} at s={plan[0]}", state[0], want_k2)
+            line["by_s_ms"][f"s={plan[0]}, {plan[1]} rows a thread"] = time_ms(torch, run_s, 10)
         k2[name] = line
         print(f"K2 {name} {tuple(gp[level].shape)}: {line['ms']:.3f} ms on a cluster of {cluster}, "
-              f"K1 {line['k1_ms']:.3f} ms; K2 by cluster size {json.dumps(line['by_cluster_ms'])}")
+              f"K1 {line['k1_ms']:.3f} ms; K2 by cluster size {json.dumps(line['by_cluster_ms'])}; "
+              f"by sweeps per exchange {json.dumps(line['by_s_ms'])}")
 
     # K4 and K5 at the same levels, with the fast profile's omegas (the fixed
     # count of each level, as when no probe fires).

@@ -44,7 +44,12 @@ route (``ops/dispatch.py:fused_route``, decided on the host per level
 call, ``DepthPipeline.level_calls``): ``sweep.fused_levels`` (the level
 calls routed to K6), ``sweep.fused_px`` (their pixels) and
 ``sweep.fused_px_sweeps`` (pixels times sweeps: the iterations each ran
-under the early exit, else its count).
+under the early exit, else its count); and of K2's route
+(``ops/dispatch.py:resident_work``): ``sweep.resident_sweeps`` (the sweeps
+of the level calls routed to K2) and ``sweep.resident_exchanges`` (how
+often their launches read the band edges: once per block of
+``ops/sweep.py:resident_plan``'s sweeps, so the ratio is the mean number
+of sweeps per exchange).
 """
 
 from __future__ import annotations
@@ -62,6 +67,7 @@ from ..core import effects as fx
 from ..core.solver import read_exit_log
 from ..io import depth_to_u8, depth_to_u16, imwrite, load_annotation, save_annotation
 from ..native.runtime import Arena, NativeRuntime
+from ..ops import dispatch
 from ..pipeline import DepthPipeline
 from ..utils.timing import StageTimer, profiling
 
@@ -329,8 +335,8 @@ class DepthSession:
             if exit_log:
                 self._count_exits(read_exit_log(exit_log))
             if profiling():
-                self._count_fused(self.pipe if use_local else pipe, use_local,
-                                  max(len(centers), 1), exit_log)
+                self._count_routes(self.pipe if use_local else pipe, use_local,
+                                   max(len(centers), 1), exit_log)
         if inc_kick_wanted:
             self.pipe.incremental_ready(fx_key)
         self.solve_count += 1
@@ -351,17 +357,23 @@ class DepthSession:
             self.timer.count("exit.px", px)
             self.timer.count("exit.px_iters_run", px * e["iters"])
 
-    def _count_fused(self, pipe: DepthPipeline, windowed: bool, solves: int,
-                     exit_log) -> None:
-        """The counters ``sweep.fused_*`` (the module's docstring) over the
-        level calls of ``solves`` solves of ``pipe``; ``exit_log``, read,
-        holds one entry per call under the early exit."""
+    def _count_routes(self, pipe: DepthPipeline, windowed: bool, solves: int,
+                      exit_log) -> None:
+        """The counters ``sweep.fused_*`` and ``sweep.resident_*`` (the
+        module's docstring) over the level calls of ``solves`` solves of
+        ``pipe``; ``exit_log``, read, holds one entry per call under the
+        early exit, whose launches run ``residual_check_every`` sweeps."""
         calls = pipe.level_calls(windowed) * solves
         iters = [e["iters"] for e in exit_log] if exit_log is not None else [c[2] for c in calls]
         fused = [(h * w, n) for (h, w, _, k6), n in zip(calls, iters) if k6]
         self.timer.count("sweep.fused_levels", len(fused))
         self.timer.count("sweep.fused_px", sum(px for px, _ in fused))
         self.timer.count("sweep.fused_px_sweeps", sum(px * n for px, n in fused))
+        chunk = max(int(self.cfg.residual_check_every), 1) if exit_log is not None else 0
+        resident = [dispatch.resident_work(h, w, pipe.device, pipe.cfg.solver, n, chunk)
+                    for (h, w, _, k6), n in zip(calls, iters) if not k6]
+        self.timer.count("sweep.resident_sweeps", sum(n for n, _ in resident))
+        self.timer.count("sweep.resident_exchanges", sum(x for _, x in resident))
 
     # --------------------------------------------------------------- effects
     def set_effect_key(self, key: str) -> None:

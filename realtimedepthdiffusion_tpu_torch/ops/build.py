@@ -46,9 +46,11 @@ SIGNATURES = {
     # u_in, p_in, u_out, p_out, bh, bv, inv, mask, abc, nb, h, w, base,
     # n_active, k, bx, by, rows_per_thread, stop, stream
     "jc_sweep_tiles": (P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, P, P),
-    # u, p (in/out), bh, bv, inv, mask, abc, h, w, base, n, cluster, stop,
-    # stream
-    "jc_sweep_resident": (P, P, P, P, P, P, P, I, I, I, I, I, P, P),
+    # u, p (in/out), bh, bv, inv, mask, abc, h, w, base, n, cluster,
+    # sweeps per exchange, rows_per_thread, stop, stream
+    "jc_sweep_resident": (P, P, P, P, P, P, P, I, I, I, I, I, I, I, P, P),
+    # h, w, cluster, sweeps per exchange, rows_per_thread
+    "jc_resident_check": (I, I, I, I, I),
     # int* out
     "jc_resident_max_cluster": (ctypes.POINTER(I),),
     # u_in, u_out, bh, bv, inv, mask, om, nb, h, w, base, n_active, k, bx,

@@ -86,6 +86,22 @@ def fused_route(h: int, w: int, device: torch.device, solver: str) -> bool:
     return sweep.strip_route(h, w, l2_bytes(device), sweep.resident_max_cluster(device)) == "K6"
 
 
+def resident_work(h: int, w: int, device: torch.device, solver: str, sweeps: int,
+                  chunk: int = 0):
+    """``(sweeps, exchanges)`` of K2 on an (h, w) level on ``device`` that
+    ran ``sweeps`` sweeps: in one launch, or in launches of ``chunk`` sweeps
+    (the early exit's, the last one short); (0, 0) off K2's route (a
+    red-black solver, or a level that ``sweep.strip_route`` sends
+    elsewhere). Each launch reads its band edges once per
+    ``sweep.resident_plan`` block. From the shapes alone, on the host."""
+    cluster = sweep.resident_cluster(h, w, sweep.resident_max_cluster(device))
+    if solver == "red_black" or cluster is None or sweeps <= 0:
+        return 0, 0
+    step = chunk if chunk > 0 else sweeps
+    launches = [min(step, sweeps - b) for b in range(0, sweeps, step)]
+    return sweeps, sum(-(-n // sweep.resident_plan(h, w, cluster, n)[0]) for n in launches)
+
+
 def fused_level(depth: torch.Tensor, solver: str) -> bool:
     """``fused_route`` for the level ``depth``."""
     h, w = depth.shape

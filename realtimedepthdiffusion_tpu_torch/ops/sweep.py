@@ -9,7 +9,9 @@ Counterpart of ``realtimedepthdiffusion_tpu/ops/pallas_sweep.py``:
   thread-block cluster holds on chip, a band of rows per CTA, in one
   launch, carrying (u, prev) in and out; it replaces ``_resident_kernel``.
   ``resident_cluster`` is its fit rule, ``resident_max_cluster`` asks the
-  card how large a cluster it runs.
+  card how large a cluster it runs. The CTAs exchange their band edges
+  once every s sweeps and recompute ghost rows in between;
+  ``resident_plan`` picks s and the thread layout per launch.
 - ``sweep_plain`` / ``solve_level_plain`` compute the same thing with torch
   ops, one rounding per op in the kernels' order. The CPU runs them, and
   on the card they are what the kernels are held to, bit for bit.
@@ -64,6 +66,14 @@ SMEM_PER_CTA = 232448
 # per CTA, one column per thread, whose pixels live in registers.
 RESIDENT_ROWS = 17
 RESIDENT_MAX_W = 512
+# K2's thread layouts (rows per thread, most threads a CTA): with ghost
+# rows, thread rows of 2, 4 or 6 rows, as many as the extended band (the
+# band and its ghost rows) needs; or one thread row of RESIDENT_ROWS rows at
+# one exchange a sweep. Fewer rows a thread were faster at the same sweeps
+# per exchange (more warps hide a sweep's latency; PERF.md).
+RESIDENT_BLOCKED_LAYOUTS = ((2, 1024), (4, 1024), (6, 1024))
+# The most sweeps K2 runs between two exchanges of its band edges.
+RESIDENT_MAX_S = 8
 # K2's cluster sizes; a cluster of 16 CTAs is the largest Hopper allows
 # (above 8 as a non-portable size). The CPU routes as the H100 does, which
 # runs 16.
@@ -273,6 +283,50 @@ def resident_cluster(h: int, w: int, max_cluster: int):
     return None
 
 
+def resident_smem(eh: int, w: int, s: int) -> int:
+    """K2's shared memory (bytes) for an extended band of ``eh`` rows of
+    ``w``, ``s`` sweeps per exchange: three planes of u, u and bh with a
+    one-pixel ring, and two mailboxes of the band's first and last s rows'
+    u and prev (``csrc/sweep.cu:resident_smem``)."""
+    return 4 * (3 * (eh + 2) * (w + 2) + 8 * s * w)
+
+
+def resident_layouts(rows: int, w: int, s: int):
+    """The rows per thread of each K2 layout that holds bands of ``rows`` x
+    ``w`` at ``s`` sweeps per exchange: each of ``RESIDENT_BLOCKED_LAYOUTS``
+    whose threads and shared memory (that of the largest launch the card
+    was asked about, ``resident_max_cluster``) hold the extended band's
+    ``rows + 2(s-1)`` rows, and at s = 1 the one-row layout too; none at an
+    ``s`` past the band's rows (the ghost rows come from the neighbouring
+    bands) or ``RESIDENT_MAX_S``."""
+    if not 1 <= s <= min(rows, RESIDENT_MAX_S):
+        return []
+    ext = rows + 2 * (s - 1)
+    bx = -(-w // 32) * 32
+    limit = resident_smem(RESIDENT_ROWS, RESIDENT_MAX_W, 1)
+    fits = [r for r, threads in RESIDENT_BLOCKED_LAYOUTS
+            if bx * -(-ext // r) <= threads and resident_smem(-(-ext // r) * r, w, s) <= limit]
+    return fits + [RESIDENT_ROWS] if s == 1 else fits
+
+
+def resident_plan(h: int, w: int, cluster: int, n: int):
+    """``(s, rows_per_thread)`` of a K2 launch of ``n`` sweeps on an (h, w)
+    level held by ``cluster`` CTAs: in the first blocked layout with room
+    for ghost rows, the most sweeps per exchange it holds (at most ``n``);
+    else one exchange a sweep in one thread row. Measured on the H100
+    (PERF.md): fewer rows a thread beat more sweeps per exchange, and more
+    sweeps per exchange beat fewer or tied (the 192 and 256 windows: s = 4
+    and 5 within 2 %); with no ghost rows the one-row layout was the
+    fastest."""
+    rows = -(-h // cluster)
+    for r, _ in RESIDENT_BLOCKED_LAYOUTS:
+        s = max((s for s in range(2, min(n, RESIDENT_MAX_S) + 1)
+                 if r in resident_layouts(rows, w, s)), default=0)
+        if s:
+            return s, r
+    return 1, RESIDENT_ROWS
+
+
 _max_cluster = {}
 
 
@@ -311,11 +365,11 @@ def strip_route(h: int, w: int, l2_bytes: int, max_cluster: int) -> str:
 
 
 def jc_sweep_resident(u, p, bh, bv, inv, mask_u8, abc_dev, base: int, n: int,
-                      cluster: int, stop=None) -> None:
+                      cluster: int, stop=None, plan=None) -> None:
     """K2: sweeps base .. base+n-1 of the (iters, 3) device table
     ``abc_dev`` on the level (u, prev) = (``u``, ``p``), in place, on a
     cluster of ``cluster`` CTAs; none where the device flag ``stop`` is
-    set."""
+    set. ``plan`` overrides ``resident_plan``'s (s, rows_per_thread)."""
     h, w = u.shape
     for name, t in (("u", u), ("p", p), ("bh", bh), ("bv", bv), ("inv", inv)):
         _check(name, t, torch.float32, (h, w))
@@ -328,13 +382,17 @@ def jc_sweep_resident(u, p, bh, bv, inv, mask_u8, abc_dev, base: int, n: int,
         raise ValueError(f"a cluster of {cluster} does not run on {u.device}")
     if w > RESIDENT_MAX_W or -(-h // cluster) > RESIDENT_ROWS:
         raise ValueError(f"a {h}x{w} level does not fit a cluster of {cluster} CTAs")
+    s, rows_per_thread = plan or resident_plan(h, w, cluster, n)
+    if rows_per_thread not in resident_layouts(-(-h // cluster), w, s):
+        raise ValueError(f"K2 holds no band of {-(-h // cluster)}x{w} at {s} sweeps per "
+                         f"exchange on thread rows of {rows_per_thread}")
     stop_ptr = check_stop("jc_sweep_resident", stop, u.device)
     lib = build.load_library()
     with torch.cuda.device(u.device):
         err = lib.jc_sweep_resident(
             u.data_ptr(), p.data_ptr(), bh.data_ptr(), bv.data_ptr(), inv.data_ptr(),
-            mask_u8.data_ptr(), abc_dev.data_ptr(), h, w, base, n, cluster, stop_ptr,
-            _stream(u),
+            mask_u8.data_ptr(), abc_dev.data_ptr(), h, w, base, n, cluster, s,
+            rows_per_thread, stop_ptr, _stream(u),
         )
     build.check("jc_sweep_resident", err)
     jc_sweep_resident.launches += 1

@@ -1,7 +1,8 @@
 """The port's CUDA kernels against their plain versions on the card, at
 shapes the 1080p run does not reach: single rows, levels smaller than one
 tile, ragged tiles, every ring width k, stacks of planes in one K1 or K4
-launch, K2 on every cluster-held level shape from a base > 0, K4 under
+launch, K2 on every cluster-held level shape from a base > 0 at every
+number of sweeps per exchange and thread layout it runs there, K4 under
 each of its CTA shapes and both checkerboard parities, chunks that start
 past iteration 0, K3 on both of its routes at apertures up to past the
 tile route's limit, K5 on levels of every shape its CTA covers, K6 at every level rule
@@ -32,8 +33,8 @@ from realtimedepthdiffusion_tpu_torch.config import DiffusionConfig
 from realtimedepthdiffusion_tpu_torch.core.annotation import seed_depth
 from realtimedepthdiffusion_tpu_torch.core.solver import abc_schedule, rb_omegas
 from realtimedepthdiffusion_tpu_torch.core.weights import edge_weights
-from realtimedepthdiffusion_tpu_torch.ops import (defocus, dispatch, fused_sweep, probe, rb_sweep,
-                                                  sweep)
+from realtimedepthdiffusion_tpu_torch.ops import (build, defocus, dispatch, fused_sweep, probe,
+                                                  rb_sweep, sweep)
 
 pytestmark = pytest.mark.cuda
 
@@ -71,10 +72,26 @@ def test_tiles_kernel_equals_plain(dev, h, w, k, iters):
     assert sweep.jc_sweep_tiles.launches - before == -(-iters // k)
 
 
-@pytest.mark.parametrize("h,w", [(1, 1), (5, 7), (67, 120), (30, 300)])
+# The level shapes K2 runs: 1080p L4/L3/L2 (also 4K L5/L4/L3) and the
+# windowed re-solve's 192 and 256 windows.
+K2_SHAPES = [(67, 120), (135, 240), (270, 480), (192, 192), (256, 256)]
+
+
+def _k2_plans(h, w, cluster):
+    """Every (sweeps per exchange, rows per thread) K2 runs an (h, w) level
+    with on ``cluster`` CTAs."""
+    rows = -(-h // cluster)
+    return [(s, r) for s in range(1, sweep.RESIDENT_MAX_S + 1)
+            for r in sweep.resident_layouts(rows, w, s)]
+
+
+@pytest.mark.parametrize("h,w", [(1, 1), (5, 7), (67, 120), (30, 300)] + K2_SHAPES[1:])
 @pytest.mark.parametrize("iters", [1, 10, 37])
 @pytest.mark.parametrize("level", [0, 2])
 def test_resident_kernel_equals_plain(dev, h, w, iters, level):
+    """K2 at the rule's sweeps per exchange (``resident_plan``: up to 8
+    here, fewer where ``iters`` is below it, the last block short where it
+    does not divide ``iters``)."""
     depth, mask, wts, abc = _level(dev, h, w, iters, seed=h + w + iters, level=level)
     assert sweep.resident_cluster(h, w, sweep.resident_max_cluster(dev))
     before = sweep.jc_sweep_resident.launches
@@ -86,29 +103,51 @@ def test_resident_kernel_equals_plain(dev, h, w, iters, level):
 
 
 @pytest.mark.parametrize("h,w", [(1, 1), (67, 120), (135, 240), (270, 480), (133, 251),
-                                 (270, 512)])
-@pytest.mark.parametrize("split", [(1, 0), (3, 4), (10, 27)])
+                                 (270, 512), (192, 192), (256, 256)])
+@pytest.mark.parametrize("split", [(1,), (3, 4), (10, 27), (25, 25), (4,) * 12, (5,) * 12])
 @pytest.mark.parametrize("cluster", [None, 16])
-def test_cluster_resident_kernel_from_base_equals_plain(dev, h, w, split, cluster):
-    """K2 on its cluster (the route's, or 16 CTAs) in two launches, the
-    second from base > 0 carrying (u, prev), as an early exit runs it."""
-    first, rest = split
-    depth, mask, wts, abc = _level(dev, h, w, first + rest, seed=h + w + first)
+@pytest.mark.parametrize("plans", ["rule", "every"])
+def test_cluster_resident_kernel_from_base_equals_plain(dev, h, w, split, cluster, plans):
+    """K2 on its cluster (the route's, or 16 CTAs) in one launch per entry
+    of ``split``, each from the last one's base carrying (u, prev), as an
+    early exit runs it: at the rule's sweeps per exchange, or at every one
+    K2 runs on the level (each layout, launches of fewer sweeps than s,
+    blocks that do not divide a launch). The launches of exactly 4 or 5
+    sweeps are the rule's s at 1080p L3 and L4 (one block, no exchange):
+    their bands go back in place, into the rows the neighbouring CTAs load
+    as ghost rows."""
+    depth, mask, wts, abc = _level(dev, h, w, sum(split), seed=h + w + split[0])
     planes = (wts.wr.contiguous(), wts.wd.contiguous(), wts.inv_count.contiguous(),
               mask.to(torch.uint8))
     route = sweep.resident_cluster(h, w, sweep.resident_max_cluster(dev))
     assert route is not None
-    u, p = depth.clone(), torch.zeros_like(depth)
+    c = cluster or route
     abc_dev = torch.from_numpy(abc).to(dev)
-    before = sweep.jc_sweep_resident.launches
-    sweep.jc_sweep_resident(u, p, *planes, abc_dev, 0, first, cluster or route)
-    if rest:
-        sweep.jc_sweep_resident(u, p, *planes, abc_dev, first, rest, cluster or route)
     state, run, _ = sweep.chunks_plain(depth, mask, wts, abc)
-    want = run(state, 0, first + rest)
-    torch.cuda.synchronize()
-    assert torch.equal(u, want[0]) and torch.equal(p, want[1])
-    assert sweep.jc_sweep_resident.launches == before + 1 + (rest > 0)
+    want = run(state, 0, sum(split))
+    for plan in [None] if plans == "rule" else _k2_plans(h, w, c):
+        u, p = depth.clone(), torch.zeros_like(depth)
+        before = sweep.jc_sweep_resident.launches
+        for i, n in enumerate(split):
+            sweep.jc_sweep_resident(u, p, *planes, abc_dev, sum(split[:i]), n, c, plan=plan)
+        torch.cuda.synchronize()
+        assert torch.equal(u, want[0]) and torch.equal(p, want[1]), plan
+        assert sweep.jc_sweep_resident.launches == before + len(split)
+
+
+@pytest.mark.parametrize("h,w,cluster", [
+    (h, w, c) for h, w in K2_SHAPES + [(1, 1), (5, 7), (30, 300), (133, 251), (270, 512)]
+    for c in (1, 2, 4, 8, 16) if -(-h // c) <= sweep.RESIDENT_ROWS])
+def test_resident_layouts_match_the_launchers_check(dev, h, w, cluster):
+    """The host's rule of which K2 plans hold a band (``resident_layouts``)
+    and the C launcher's own check (``jc_resident_check``) accept the same
+    (s, rows per thread), so neither can drift from the other."""
+    rows = -(-h // cluster)
+    lib = build.load_library()
+    for s in range(0, sweep.RESIDENT_MAX_S + 2):
+        host = sweep.resident_layouts(rows, w, s)
+        for r in (1, 2, 3, 4, 6, 8, sweep.RESIDENT_ROWS):
+            assert (lib.jc_resident_check(h, w, cluster, s, r) == 0) == (r in host), (s, r)
 
 
 @pytest.mark.parametrize("nb", [1, 3, 16])
@@ -141,6 +180,12 @@ def test_cluster_query_and_refusals(dev):
         sweep.jc_sweep_resident(f, f, f, f, f, m, abc, 0, 4, c)
     with pytest.raises(ValueError, match="does not run"):
         sweep.jc_sweep_resident(f, f, f, f, f, m, abc, 0, 4, 32)
+    g = torch.zeros((67, 120), device=dev)
+    g8 = torch.zeros((67, 120), dtype=torch.uint8, device=dev)
+    with pytest.raises(ValueError, match="holds no band"):  # s past the band's 5 rows
+        sweep.jc_sweep_resident(g, g, g, g, g, g8, abc, 0, 4, 16, plan=(6, 4))
+    with pytest.raises(ValueError, match="holds no band"):  # no such layout
+        sweep.jc_sweep_resident(g, g, g, g, g, g8, abc, 0, 4, 16, plan=(1, 8))
     with pytest.raises(ValueError, match="ring"):
         sweep.jc_sweep_tiles(f, f, f, f, f, f, f, m, abc, 0, 4, k=4, tile=(8, 1, 8))
     with pytest.raises(ValueError, match="nb, h, w"):
@@ -1120,7 +1165,9 @@ def test_stop_flag(dev, kernel, flag):
             want = _jc_plain(depth, prev, wts, mask, abc)
         elif kernel == "K2":
             u_out, p_out = u_in, p_in
-            fn(u_in, p_in, *planes, abc_dev, 0, 8, sweep.resident_max_cluster(dev), stop)
+            c = sweep.resident_max_cluster(dev)
+            assert sweep.resident_plan(h, w, c, 8)[0] > 1  # ghost rows, a short last block
+            fn(u_in, p_in, *planes, abc_dev, 0, 8, c, stop)
             want = _jc_plain(depth, prev, wts, mask, abc)
         else:
             gray = torch.from_numpy(np.random.default_rng(w).integers(

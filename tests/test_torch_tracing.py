@@ -164,9 +164,11 @@ def test_exit_counters_under_a_profiler_only():
     c = {k: s.timer.counts[k] for k in s.timer.counters}
     assert set(c) == {"exit.chunks_issued", "exit.chunks_live", "exit.px",
                       "exit.px_iters_run", "sweep.fused_levels", "sweep.fused_px",
-                      "sweep.fused_px_sweeps"}
-    # red-black sends no level to K6
+                      "sweep.fused_px_sweeps", "sweep.resident_sweeps",
+                      "sweep.resident_exchanges"}
+    # red-black sends no level to K6 or K2
     assert c["sweep.fused_levels"] == c["sweep.fused_px"] == c["sweep.fused_px_sweeps"] == 0
+    assert c["sweep.resident_sweeps"] == c["sweep.resident_exchanges"] == 0
     assert 0 < c["exit.chunks_live"] <= c["exit.chunks_issued"]
     assert 0 < c["exit.px_iters_run"] <= c["exit.px"] * 60
     assert all(s.timer.totals[k] == 0.0 for k in c)
