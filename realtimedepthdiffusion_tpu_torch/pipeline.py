@@ -10,7 +10,7 @@ loop (``core/incremental.py``).
 
 Where the JAX package compiles one XLA program per solve (``solve``, and
 ``solve_and_effect`` per effect), the port captures the whole solve into a
-CUDA graph and replays it (``_Program``): one graph launch in place of the
+CUDA graph and replays it (``Program``): one graph launch in place of the
 ~480 kernel and glue launches of a 1080p frame, which the host paces one
 by one. Where the
 JAX package's ``fast_start`` runs its staged per-level programs, the port
@@ -51,7 +51,7 @@ _chunked_early_exit``), and a list given as ``exit_log`` is filled from the
 replay's own counts, read once after it (with ``exit_wait`` off, only
 copied: the caller's ``read_exit_log`` completes it). The sharded step
 keeps programs of its own, one per argument signature
-(``parallel/sharded.py:batched_step``), on the same ``_Program``
+(``parallel/sharded.py:batched_step``), on the same ``Program``
 (``utils/program.py``). On the CPU nothing is captured: a program is the
 eager function itself, so the routing runs in the CPU tests. A capture
 that fails raises in the caller's frame.
@@ -89,11 +89,7 @@ from .core.multigrid import (build_annotation_pyramids, build_gray_pyramid,
 from .core.solver import level_schedule, read_exit_log, residual_norm, residual_rms
 from .core.weights import edge_weights
 from .ops import build, dispatch, sweep
-# The programs (``utils/program.py``, shared with the sharded step); the
-# tests and chip_smoke.py reach them by these names here.
-from .utils.program import Program as _Program
-from .utils.program import fresh as _fresh  # noqa: F401
-from .utils.program import signature as _signature
+from .utils.program import Program, signature
 from .utils.timing import span
 
 # prewarm_async's threads are daemons, so nothing during a session waits on
@@ -246,11 +242,11 @@ class DepthPipeline:
         """Capture the program ``key`` for ``args`` unless it exists;
         returns its capture and instantiation seconds (0 on the CPU), or
         None where an argument is not a tensor."""
-        if _signature(args) is None:
+        if signature(args) is None:
             return None
         if key not in self._aot:
-            self._aot[key] = _Program(self._program_of(key), args, self.device,
-                                      *self._graph_pool(), timer=self.timer)
+            self._aot[key] = Program(self._program_of(key), args, self.device,
+                                     *self._graph_pool(), timer=self.timer)
         return self._aot[key].capture_s
 
     def capture(self, effect: Optional[int], *args) -> Optional[float]:

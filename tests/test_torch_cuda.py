@@ -10,9 +10,15 @@ and the 4K routes and SAT sums, pipelines and live sessions on a second
 card, and K1, K2 and K4 on the ring-masked windows of the incremental
 re-solve, and the early exit's probe kernel at the main paths' shapes,
 after the exit, replayed from a graph and inside a captured windowed
-update. Every comparison is exact, but the V-cycle's and a live session
-against the CPU's, where the card and the CPU round differently
-(RMSE <= 1e-3), and the probe's rms residual, whose squares the kernel sums
+update. Whole paths on the card too: frames at 1080p and 4K, sharded steps,
+incremental and V-cycle frames, the facade, live sessions and the server,
+each against the same path on the plain versions (``_plain_routes``) or
+against the single-device solve, with the launches the routes give
+(``FRAME_1080P``, ``FRAME_4K``). Every comparison is exact, but the
+V-cycle's, a cascade's and a live session against the CPU's, where the card
+and the CPU round differently (RMSE <= 1e-3), a sharded fast or V-cycle step
+against one device's (RMSE <= 1e-3), a windowed re-solve against a full one
+(RMSE <= 3e-2), and the probe's rms residual, whose squares the kernel sums
 in float64 (``PROBE_RTOL``).
 
 Needs a CUDA device and nvcc; skips without them. This file imports no JAX,
@@ -21,8 +27,10 @@ so it runs on a machine without it:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 """
 
+import collections
 import math
 import pathlib
+import re
 
 import numpy as np
 import pytest
@@ -38,12 +46,32 @@ from realtimedepthdiffusion_tpu_torch.ops import (build, defocus, dispatch, fuse
 
 pytestmark = pytest.mark.cuda
 
+# What flags.py resolves --profile fast to, and the Jacobi-Chebyshev early exit.
+FAST = {"solver": "red_black", "early_exit": True, "tolerance": 1e-3, "residual_metric": "rms"}
+JC_EXIT = {"early_exit": True, "tolerance": 1e-3}
+# A default frame's launches by the routes: K2 on each level a cluster holds
+# (1080p L4-L2, 4K L5-L3), ceil(iters / 8) K1 on each level below, K6 in
+# place of K1 on 4K L0, and K3 once.
+FRAME_1080P = {"jc_sweep_resident": 3, "jc_sweep_tiles": 24, "defocus_box": 1}
+FRAME_4K = dict(FRAME_1080P, jc_sweep_fused=4)
+
 
 @pytest.fixture()
 def dev():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the port's kernels have no CPU form")
     return torch.device("cuda", 0)
+
+
+def _counts():
+    """The launches since the counts were last set to zero, by kernel."""
+    return {k: n for k, n in ops.launch_counts().items() if n}
+
+
+def _rmse01(a, b):
+    """Depth RMSE on [0, 1]."""
+    a, b = (np.asarray(t.cpu() if isinstance(t, torch.Tensor) else t, np.float64) for t in (a, b))
+    return float(np.sqrt(np.mean(((a - b) / 255.0) ** 2)))
 
 
 def _level(dev, h, w, iters, seed, level=1):
@@ -646,8 +674,8 @@ def test_defocus_whole_image_unchanged(dev, h, w):
 
 def test_sharded_step_on_card_equals_plain_and_single_device(dev):
     """A 64x96 step on 8 slots (of one card, or spread over several): the
-    kernels' run equals the plain blocks' run and the single-device
-    pipeline per image."""
+    kernels' run equals the plain blocks' run, which launches no kernel,
+    and the single-device pipeline per image."""
     from realtimedepthdiffusion_tpu_torch import DepthPipeline
     from realtimedepthdiffusion_tpu_torch.core import effects as fx
     from realtimedepthdiffusion_tpu_torch.parallel import mesh, sharded
@@ -663,8 +691,10 @@ def test_sharded_step_on_card_equals_plain_and_single_device(dev):
     cards = len(set(m.devices.values()))
     assert counts["jc_sweep_tiles"] == 5 * cards and counts["defocus_block"] == 8
     plain_fn, _ = sharded.batched_step(m, 64, 96, cfg, fx.EFFECT_DEFOCUS, plain=True)
+    ops.reset_launch_counts()
     p_depth, _, p_out = plain_fn(*args)
     torch.cuda.synchronize()
+    assert not any(ops.launch_counts().values())
     assert torch.equal(depth, p_depth) and torch.equal(out, p_out)
     rgb, mask, value, state = args
     pipe = DepthPipeline(64, 96, cfg, device="cuda")
@@ -814,7 +844,9 @@ def _plain_solve_level(depth, mask, gray, level, max_level, iters, cfg, exit_log
 def test_incremental_frame_equals_plain(dev, monkeypatch, solver, kernels, center):
     """An incremental frame of a 700x900 image (4 levels; a 384-pixel window
     at level 0, 192 at level 1) on the kernels equals the same frame on the
-    plain versions, level for level, at clamped and unclamped windows."""
+    plain versions, level for level, at clamped and unclamped windows: the
+    kernels' call runs eagerly and captures the program, the plain one runs
+    the pipeline's eager function with ``solve_level`` patched."""
     from realtimedepthdiffusion_tpu_torch import DepthPipeline
     from realtimedepthdiffusion_tpu_torch.core import incremental
 
@@ -838,7 +870,9 @@ def test_incremental_frame_equals_plain(dev, monkeypatch, solver, kernels, cente
     assert counts == kernels
     monkeypatch.setattr(incremental, "solve_level", _plain_solve_level)
     ops.reset_launch_counts()
-    p_depth, p_state = pipe.solve_incremental(gpyr, mask, value, state, center)
+    # The pipeline's eager function: its call above captured the windowed
+    # re-solve's graph, which a second call would replay.
+    p_depth, p_state = pipe._inc_eager(gpyr, mask, value, state, center)
     torch.cuda.synchronize()
     assert not any(ops.launch_counts().values())
     assert all(torch.equal(a, b) for a, b in zip(new_state, p_state))
@@ -890,8 +924,7 @@ def test_vcycle_on_the_card_matches_cpu(dev, h, w):
         launched = sum(ops.launch_counts().values())
         assert (launched > 0) == (device != "cpu")
         depths.append(d.cpu().numpy())
-    rmse = float(np.sqrt(np.mean(((depths[0] - depths[1]) / 255.0) ** 2)))
-    assert rmse <= 1e-3
+    assert _rmse01(*depths) <= 1e-3
     assert np.array_equal(depths[0][mask], value[mask].astype(np.float32))
     assert depths[0].min() >= 0.0 and depths[0].max() <= 255.0
 
@@ -911,6 +944,11 @@ def _live_updates(device, rows, cols, cfg):
     s.value_np[rows // 3:rows // 3 + 12, cols // 3:cols // 3 + 20] = 192
     s.mark_all_dirty()
     s.set_effect_key("b")
+    # The windowed re-solve's program, captured by the gate's kick before
+    # the updates: the update that found the gate closed would re-solve in
+    # full and then run the kick, one eager windowed re-solve and its
+    # effect on stand-in tensors, so its count would not be its own.
+    s.pipe.incremental_ready(s.effect)
     strokes = [[], [(cols // 2 + i, rows // 2) for i in range(0, 12, 2)],
                [(cols // 5, rows // 4), (4 * cols // 5, 3 * rows // 4)], None]
     out = []
@@ -946,13 +984,14 @@ def test_session_on_the_card_matches_cpu(dev):
     kernels (two rects: twice a single rect's). Jacobi-Chebyshev only: level
     0's weights switch on truncated depth, so exp's last bits on another
     device can flip a weight, and red-black SOR at omega near 2 amplifies
-    the flip inside a window past the bar (4.4e-3 here). chip_smoke.py
-    phase 10 holds red-black sessions to the plain versions on the card."""
+    the flip inside a window past the bar (4.4e-3 here).
+    ``test_session_updates_on_the_card_equal_plain`` holds red-black
+    sessions to the plain versions on the card."""
     cfg = DiffusionConfig(incremental_iterations=120, incremental_window=128)
     card, cpu = (_live_updates(d, 270, 480, cfg) for d in (dev, "cpu"))
     for i, ((u, d, a, counts), (_, d_cpu, _, cpu_counts)) in enumerate(zip(card, cpu)):
         assert u.dtype == np.uint8 and u.shape == (270, 480) and a.dtype == torch.uint8
-        assert float(torch.sqrt(torch.mean(((d - d_cpu) / 255.0) ** 2))) <= 1e-3
+        assert _rmse01(d, d_cpu) <= 1e-3
         assert not cpu_counts and counts.get("defocus_box") == 1
     one, two = card[1][3], card[2][3]
     assert {k: 2 * v for k, v in one.items() if k != "defocus_box"} == {
@@ -1075,8 +1114,9 @@ def test_replay_mismatch_runs_eagerly_and_fast_profile_captures_nothing(dev, mon
     residual early exit), which once stored no program, now captures at
     its second frame like any config: the replays fill the exit log from
     their own counts, and launch what the eager frames launch."""
-    from realtimedepthdiffusion_tpu_torch import DepthPipeline, pipeline
+    from realtimedepthdiffusion_tpu_torch import DepthPipeline
     from realtimedepthdiffusion_tpu_torch.core import effects as fx
+    from realtimedepthdiffusion_tpu_torch.utils import program
 
     rows, cols = 540, 960
     rgb, mask, value = _photo(rows, cols, 3)
@@ -1086,8 +1126,8 @@ def test_replay_mismatch_runs_eagerly_and_fast_profile_captures_nothing(dev, mon
     d_b, _ = pipe.solve(gpyr, m, v, pipe.initial_state())
     assert ("solve",) in pipe._aot  # fast_start off: captured at the first call's end
     replays = []
-    real = pipeline._Program.__call__
-    monkeypatch.setattr(pipeline._Program, "__call__",
+    real = program.Program.__call__
+    monkeypatch.setattr(program.Program, "__call__",
                         lambda self, *a: (replays.append(1), real(self, *a))[1])
     ops.reset_launch_counts()
     d_u8, _ = pipe.solve(gpyr, m.to(torch.uint8), v, pipe.initial_state())
@@ -1199,23 +1239,23 @@ def test_stop_flag(dev, kernel, flag):
         assert not torch.equal(want[0], held[0])  # a clear flag would have moved it
 
 
-@pytest.mark.parametrize("name,cfg_kw", [
-    ("fast profile", {"solver": "red_black", "early_exit": True, "tolerance": 1e-3,
-                      "residual_metric": "rms"}),
-    ("jacobi_chebyshev early exit", {"early_exit": True, "tolerance": 1e-3}),
+@pytest.mark.filterwarnings("ignore:defocus quality 'auto'")  # 4K: 'auto' resolves to approx
+@pytest.mark.parametrize("name,rows,cols,cfg_kw", [
+    ("fast profile", 1080, 1920, FAST),
+    ("jacobi_chebyshev early exit", 1080, 1920, JC_EXIT),
+    ("jacobi_chebyshev early exit 4K", 2160, 3840, JC_EXIT),
 ])
-def test_replayed_early_exit_frame_equals_eager(dev, name, cfg_kw):
+def test_replayed_early_exit_frame_equals_eager(dev, name, rows, cols, cfg_kw):
     """fast_start frames of ``solve_and_effect(EFFECT_DEFOCUS)`` under the
-    residual early exit at 1080p: the graph captured at the second frame
-    replays the later ones, whose levels exit on the card. Each frame
-    equals the eager function on the same inputs bit for bit, with the
-    same iterations and probes per level, and launches what it launches
-    (every chunk; those after a level's exit run as no-ops)."""
+    residual early exit at 1080p and at 4K (K6 on L0): the graph captured
+    at the second frame replays the later ones, whose levels exit on the
+    card. Each frame equals the eager function on the same inputs bit for
+    bit, with the same iterations and probes per level, and launches what
+    it launches (every chunk; those after a level's exit run as no-ops)."""
     from realtimedepthdiffusion_tpu_torch import DepthPipeline
     from realtimedepthdiffusion_tpu_torch.core import effects as fx
     from realtimedepthdiffusion_tpu_torch.core.solver import read_exit_log
 
-    rows, cols = 1080, 1920
     pipe = DepthPipeline(rows, cols, DiffusionConfig(fast_start=True, **cfg_kw), device=dev)
     rgb, mask, value = _photo(rows, cols, 21)
     rgb_d, gpyr = pipe.prepare_image(rgb)
@@ -1312,7 +1352,7 @@ def test_halo_block_stack_stop_flag(dev, route, flag):
 def _step_counts():
     from realtimedepthdiffusion_tpu_torch.parallel import sharded
 
-    return {k: n for k, n in ops.launch_counts().items() if n}, dict(+sharded.block_calls)
+    return _counts(), dict(+sharded.block_calls)
 
 
 def _reset_counts():
@@ -1593,13 +1633,19 @@ def test_windowed_update_probes_equal_the_plain_glue(dev, monkeypatch):
 
 
 def _kernels_on_device(fn):
-    """Kernels (no copies or fills) the profiler sees on the card in ``fn``."""
+    """Kernels (no copies or fills) the profiler sees on the card in ``fn``,
+    counted by their bare names (no namespace, template or arguments)."""
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         fn()
         torch.cuda.synchronize()
-    return sum(1 for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
-               and not e.name.lower().startswith(("memcpy", "memset")))
+    seen = collections.Counter()
+    for e in prof.events():
+        if (e.device_type == torch.autograd.DeviceType.CUDA
+                and not e.name.lower().startswith(("memcpy", "memset"))):
+            bare = re.split(r"[<(]", e.name.replace("(anonymous namespace)::", ""))[0]
+            seen[bare.split("::")[-1].removeprefix("void ").strip()] += 1
+    return seen
 
 
 def test_windowed_update_graph_sheds_the_probes_glue(dev, monkeypatch):
@@ -1617,11 +1663,580 @@ def test_windowed_update_graph_sheds_the_probes_glue(dev, monkeypatch):
         logs[plain] = []
         pipe.solve_incremental_and_effect(fx.EFFECT_DEFOCUS, gpyr, rgb_d, m, v, state,
                                           (540, 960), logs[plain])
-        counts[plain] = _kernels_on_device(lambda: pipe.solve_incremental_and_effect(
-            fx.EFFECT_DEFOCUS, gpyr, rgb_d, m, v, state, (540, 960)))
+        counts[plain] = sum(_kernels_on_device(lambda: pipe.solve_incremental_and_effect(
+            fx.EFFECT_DEFOCUS, gpyr, rgb_d, m, v, state, (540, 960))).values())
     chunks = sum(-(-e["cap"] // 25) for e in logs[False])
     assert [e["iters"] for e in logs[True]] == [e["iters"] for e in logs[False]]
     drop = (counts[True] - counts[False]) / chunks
     print(f"windowed update: {counts[True]} kernels with the plain probe, {counts[False]} with "
           f"the kernel, {chunks} chunks: {drop:.2f} fewer a chunk")
     assert 25 <= drop <= 40, (counts, chunks)
+
+
+# -- whole paths on the card: frames, steps, sessions and the server ---------------------
+
+
+def _plain_routes(mp):
+    """Route every level solve, early-exit probe and defocus of the port on
+    the card to its plain version, as the CPU routes them: the same glue on
+    the card, and no kernel launched."""
+    from realtimedepthdiffusion_tpu_torch.core import effects
+
+    for name in ("_FIXED", "_CHUNKS"):
+        mp.setattr(dispatch, name, {k: (p, p) for k, (p, _) in getattr(dispatch, name).items()})
+    for name in ("_FUSED", "_FUSED_CHUNKS", "_PROBE"):
+        plain = getattr(dispatch, name)[0]
+        mp.setattr(dispatch, name, (plain, plain))
+    mp.setattr(effects, "defocus_box", defocus.defocus_sat)
+
+
+def _rb_exit_launches(log, every):
+    """The launches of the red-black early exit's levels in ``log``: every
+    chunk of each level's cap is issued (the exit is decided on the card),
+    one K5 a chunk where the level fits one CTA, else one K4 per 8
+    iterations, and one probe a chunk where the probe is the kernel."""
+    want = collections.Counter()
+    for e in log:
+        chunks = [min(every, e["cap"] - b) for b in range(0, e["cap"], every)]
+        want["residual_probe"] += len(chunks) * (e["probe"] == "kernel")
+        if rb_sweep.rb_resident_fits(*e["shape"]):
+            want["rb_sweep_resident"] += len(chunks)
+        else:
+            want["rb_sweep_tiles"] += sum(-(-n // rb_sweep.RB_TILE_ITERS) for n in chunks)
+    return +want
+
+
+def _settled_scene(pipe, dev, seed):
+    """A photograph-like image under a dense annotation (the benchmark's
+    generators), solved until a full solve moves the depth by less than
+    RMSE 1e-3: only there is a windowed re-solve comparable to a full one
+    (on blocky noise the full solve keeps moving for dozens of solves).
+    Returns the image on the card, its pyramid, the planes and the state."""
+    from benchmark import gen
+
+    r = np.random.default_rng(seed)
+    rgb_d, gpyr = pipe.prepare_image(gen.photo_like(r, pipe.rows, pipe.cols))
+    mask, value = gen.dense_scribbles(r, pipe.rows, pipe.cols)
+    m, v = torch.from_numpy(mask).to(dev), torch.from_numpy(value).to(dev)
+    state = pipe.initial_state()
+    for _ in range(13):
+        depth, new = pipe.solve(gpyr, m, v, state)
+        moved, state = _rmse01(depth, state[0]), new
+        if moved < 1e-3:
+            return rgb_d, gpyr, mask, value, state
+    raise AssertionError(f"the full solve still moves the depth by RMSE {moved}")
+
+
+@pytest.mark.parametrize("name,rows,cols,cfg_kw,launches", [
+    ("1080p default", 1080, 1920, {}, FRAME_1080P),
+    ("1080p jacobi", 1080, 1920, {"solver": "jacobi"}, FRAME_1080P),
+    ("1080p fast", 1080, 1920, FAST, None),
+    ("1080p jacobi_chebyshev early exit", 1080, 1920, JC_EXIT, None),
+    ("4K default", 2160, 3840, {}, FRAME_4K),
+    ("4K jacobi_chebyshev early exit", 2160, 3840, JC_EXIT, None),
+])
+def test_frame_on_the_card_equals_plain(dev, monkeypatch, name, rows, cols, cfg_kw, launches):
+    """An eager frame of ``solve_and_effect(EFFECT_DEFOCUS)`` on the kernels
+    equals the same frame with every level solve, probe and defocus on its
+    plain version on the card, bit for bit (depth, state, effect and the
+    early exit's iterations per level), and launches what the routes give:
+    ``FRAME_1080P`` and ``FRAME_4K``; under red-black's early exit every
+    chunk of each level's cap (``_rb_exit_launches``) and K3; under
+    Jacobi-Chebyshev's the Jacobi kernels of the shape, the probe and K3.
+    Depth finite, scribbles pinned, red-black's in [0, 255]; at 4K the
+    ``auto`` defocus resolves to approx, with its warning."""
+    import warnings
+
+    from realtimedepthdiffusion_tpu_torch import DepthPipeline
+    from realtimedepthdiffusion_tpu_torch.core import effects as fx
+    from realtimedepthdiffusion_tpu_torch.core.solver import read_exit_log
+
+    cfg = DiffusionConfig(fast_start=True, **cfg_kw)
+    pipe = DepthPipeline(rows, cols, cfg, device=dev)
+    rgb, mask, value = _photo(rows, cols, 40)
+    rgb_d, gpyr = pipe.prepare_image(rgb)
+    m, v = torch.from_numpy(mask).to(dev), torch.from_numpy(value).to(dev)
+    state = pipe.initial_state()
+    log, want_log = [], []
+    ops.reset_launch_counts()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        depth, new_state, out = pipe.solve_and_effect(fx.EFFECT_DEFOCUS, gpyr, rgb_d, m, v,
+                                                      state, log)
+    counts = _counts()
+    with monkeypatch.context() as mp, warnings.catch_warnings():
+        warnings.simplefilter("ignore", RuntimeWarning)
+        _plain_routes(mp)
+        ops.reset_launch_counts()
+        want = pipe._solve_fx_eager(fx.EFFECT_DEFOCUS, tuple(gpyr), rgb_d, m, v, state, want_log)
+        read_exit_log(want_log)
+        torch.cuda.synchronize()
+        assert not any(ops.launch_counts().values())
+    assert torch.equal(depth, want[0]) and torch.equal(out, want[2]), name
+    assert all(torch.equal(a, b) for a, b in zip(new_state, want[1])), name
+    assert [e["iters"] for e in log] == [e["iters"] for e in want_log], name
+    assert bool(torch.isfinite(depth).all()) and torch.equal(depth[m], v[m].to(torch.float32))
+    assert out.shape == (rows, cols, 3) and out.dtype == torch.uint8
+    if launches is not None:
+        assert counts == launches
+    elif cfg.solver == "red_black":
+        assert [tuple(e["shape"]) for e in log] == [tuple(g.shape) for g in gpyr[::-1]]
+        assert counts == dict(_rb_exit_launches(log, cfg.residual_check_every), defocus_box=1)
+        assert 0.0 <= float(depth.min()) and float(depth.max()) <= 255.0
+    else:
+        assert set(counts) == set(FRAME_4K if rows == 2160 else FRAME_1080P) | {"residual_probe"}
+    approx = [w for w in caught if issubclass(w.category, RuntimeWarning)
+              and "approx" in str(w.message)]
+    assert bool(approx) == (rows == 2160), [str(w.message) for w in caught]
+
+
+@pytest.mark.parametrize("h,w,cfg_kw", [(181, 243, {}), (181, 243, FAST), (96, 128, {})],
+                         ids=["default", "fast", "default-96x128"])
+def test_cascade_on_the_card_matches_cpu_and_the_oracle(dev, h, w, cfg_kw):
+    """A cascade solve on the card within RMSE 1e-3 of the same solve on the
+    CPU, which the CPU tests hold against the JAX package (``exp`` rounds
+    the last bits differently on the two devices), scribbles exact; a
+    fixed-count solve within RMSE 1e-3 of the NumPy oracle too."""
+    from realtimedepthdiffusion_tpu_torch import DepthPipeline
+    from realtimedepthdiffusion_tpu_torch.oracle import numpy_ref
+
+    rgb, mask, value = _photo(h, w, h + w)
+    cfg = DiffusionConfig(**cfg_kw)
+    depths = []
+    for device in (dev, "cpu"):
+        pipe = DepthPipeline(h, w, cfg, device=device)
+        _, gpyr = pipe.prepare_image(rgb)
+        d, _ = pipe.solve(gpyr, torch.from_numpy(mask).to(device),
+                          torch.from_numpy(value).to(device), pipe.initial_state())
+        depths.append(d.cpu().numpy())
+    assert _rmse01(*depths) <= 1e-3
+    assert np.array_equal(depths[0][mask], value[mask].astype(np.float32))
+    if not cfg.early_exit:
+        want, _ = numpy_ref.solve_pyramid(numpy_ref.rgb_to_gray(rgb), mask, value, None, cfg)
+        assert _rmse01(depths[0], want) <= 1e-3
+
+
+@pytest.mark.parametrize("name,slots,rows,cols,batch,cfg_kw", [
+    ("1080p step of 4", 8, 1080, 1920, 4, {}),
+    ("1080p fast step of 1", 4, 1080, 1920, 1, FAST),
+    ("270x480 V-cycle step of 2", 8, 270, 480, 2, {"multigrid": "vcycle"}),
+])
+def test_sharded_step_launches_the_routes_and_equals_one_device(dev, name, slots, rows, cols,
+                                                                batch, cfg_kw):
+    """One eager ``batched_step`` on a slot mesh of the card against each
+    image's single-device solve. The 1080p step of 4 on (2, 2, 2) shards
+    every level, launches one K1 per exchange and card (244 on one card)
+    and one K3 block per slot and image, and equals the single-device depth
+    and defocus bit for bit. The fast step of one image on (1, 2, 2)
+    launches one K4 per exchange of every chunk of each level's cap, and
+    the V-cycle step (a sharded warm cascade, the polish per image) K1 and
+    K3 blocks; both lie within RMSE 1e-3 of the single-device solve (the
+    sharded probes sum in another order; the polish runs per image)."""
+    from realtimedepthdiffusion_tpu_torch import DepthPipeline
+    from realtimedepthdiffusion_tpu_torch.core import effects as fx
+    from realtimedepthdiffusion_tpu_torch.core.solver import read_exit_log
+    from realtimedepthdiffusion_tpu_torch.parallel import mesh, sharded
+
+    cfg = DiffusionConfig(**cfg_kw)
+    m = mesh.make_mesh(slots, device=dev)
+    cards, halo = len(set(m.devices.values())), sharded.DEFAULT_HALO
+    fn, make_args = sharded.batched_step(m, rows, cols, cfg, fx.EFFECT_DEFOCUS)
+    scenes = [_photo(rows, cols, 70 + i) for i in range(batch)]
+    rgb, mask, value = (torch.from_numpy(np.stack(a)).to(dev) for a in zip(*scenes))
+    state = make_args(batch)[3]
+    log = []
+    _reset_counts()
+    depth, _, out = fn.eager(rgb, mask, value, state, log)
+    read_exit_log(log)
+    torch.cuda.synchronize()
+    counts = _counts()
+    blocks = batch * m.shape["dy"] * m.shape["dx"]
+    n_levels = cfg.num_levels(rows, cols)
+    if cfg.early_exit:
+        every = cfg.residual_check_every
+        assert counts == {"rb_sweep_tiles": cards * sum(
+            -(-min(every, e["cap"] - b) // halo) for e in log for b in range(0, e["cap"], every)),
+            "defocus_block": blocks}
+    elif cfg.multigrid == "vcycle":
+        assert counts.get("jc_sweep_tiles") and counts.get("defocus_block") == blocks
+    else:
+        assert all(sharded.level_is_sharded(m, *cfg.level_size(rows, cols, lv), cfg.solver)
+                   for lv in range(n_levels))
+        want_k1 = cards * sum(-(-cfg.level_iterations(n_levels, lv) // halo)
+                              for lv in range(n_levels))
+        assert cards > 1 or want_k1 == 244
+        assert counts == {"jc_sweep_tiles": want_k1, "defocus_block": blocks}
+    pipe = DepthPipeline(rows, cols, cfg, device=dev)
+    for n in range(batch):
+        _, gpyr = pipe.prepare_image(rgb[n])
+        d1, _ = pipe.solve(gpyr, mask[n], value[n], tuple(s[n] for s in state))
+        assert torch.equal(depth[n][mask[n]], value[n][mask[n]].to(torch.float32)), n
+        if cfg_kw:
+            assert _rmse01(depth[n], d1) <= 1e-3, n
+        else:
+            o1 = defocus.defocus_box(rgb[n], torch.clamp(d1, 0.0, 255.0), cfg)
+            torch.cuda.synchronize()
+            assert torch.equal(depth[n], d1) and torch.equal(out[n], o1), n
+
+
+@pytest.mark.parametrize("iters,launches", [
+    (120, {"jc_sweep_resident": 4, "jc_sweep_tiles": 15, "defocus_box": 1}),
+    (0, {"jc_sweep_resident": 4, "jc_sweep_tiles": 125, "defocus_box": 1}),
+], ids=["incremental_iterations=120", "default"])
+def test_incremental_1080p_frame_equals_plain_and_a_full_resolve(dev, monkeypatch, iters,
+                                                                   launches):
+    """The windowed re-solve of a 1080p frame after an edit, on a settled
+    scene (``_settled_scene``): it launches K2 on L4-L2 and on the 192
+    window of L1 and ceil(n / 8) K1 on the 384 window of L0 (120 sweeps, or
+    the default budget's 1000), and K3; pins its scribbles; moves level 0
+    outside its window and on its frozen ring by the pyrUp'd correction of
+    level 1 alone; equals the same frame on the plain versions bit for bit;
+    and lies within RMSE 3e-2 of a full re-solve from the same state."""
+    from realtimedepthdiffusion_tpu_torch import DepthPipeline
+    from realtimedepthdiffusion_tpu_torch.core import effects as fx
+    from realtimedepthdiffusion_tpu_torch.core import incremental
+    from realtimedepthdiffusion_tpu_torch.core.pyramid import pyr_up
+
+    h, w = 1080, 1920
+    cfg = DiffusionConfig(incremental_iterations=iters, fast_start=True)
+    pipe = DepthPipeline(h, w, cfg, device=dev)
+    rgb_d, gpyr, mask, value, state = _settled_scene(pipe, dev, 8)
+    cy, cx = 600, 1100
+    mask[590:610, 1090:1110], value[590:610, 1090:1110] = True, 64
+    m, v = torch.from_numpy(mask).to(dev), torch.from_numpy(value).to(dev)
+    ops.reset_launch_counts()
+    depth, new_state, out = pipe.solve_incremental_and_effect(fx.EFFECT_DEFOCUS, gpyr, rgb_d, m,
+                                                              v, state, (cy, cx))
+    assert _counts() == launches
+    assert new_state[0] is depth and len(new_state) == len(gpyr)
+    assert bool(torch.isfinite(depth).all()) and torch.equal(depth[m], v[m].to(torch.float32))
+    assert out.shape == (h, w, 3) and out.dtype == torch.uint8
+    win = cfg.incremental_window
+    oy, ox = incremental.clamp_origin(cy - win // 2, cx - win // 2, win, win, h, w)
+    injected = seed_depth(state[0] + pyr_up(new_state[1] - state[1], (h, w)), m, v)
+    outside = torch.ones((h, w), dtype=torch.bool, device=dev)
+    outside[oy + 1:oy + win - 1, ox + 1:ox + win - 1] = False
+    assert torch.equal(depth[outside], injected[outside])
+    assert not torch.equal(depth[~outside], injected[~outside])
+    with monkeypatch.context() as mp:
+        _plain_routes(mp)
+        ops.reset_launch_counts()
+        want = pipe._inc_fx_eager(fx.EFFECT_DEFOCUS, tuple(gpyr), rgb_d, m, v, tuple(state),
+                                  (cy, cx))
+        torch.cuda.synchronize()
+        assert not any(ops.launch_counts().values())
+    assert torch.equal(depth, want[0]) and torch.equal(out, want[2])
+    assert all(torch.equal(a, b) for a, b in zip(new_state, want[1]))
+    full, _ = pipe.solve(gpyr, m, v, state)
+    assert _rmse01(depth, full) <= 3e-2
+
+
+def test_vcycle_1080p_frame_polishes_its_warm_cascade(dev):
+    """A 1080p V-cycle frame: its warm cascade launches what a default
+    frame launches (``FRAME_1080P``) and its polish, plain torch ops on
+    every device, no kernel of the port; the frame's depth is the polish of
+    the warm cascade's depth bit for bit, in [0, 255] with its scribbles
+    pinned, and its fine residual is no larger than 1.05 x the cascade's
+    under the cascade's weights, which are the polish's own."""
+    from realtimedepthdiffusion_tpu_torch import DepthPipeline
+    from realtimedepthdiffusion_tpu_torch.core import effects as fx
+    from realtimedepthdiffusion_tpu_torch.core.multigrid import (solve_cascade, vcycle_polish,
+                                                                 vcycle_warm_config)
+    from realtimedepthdiffusion_tpu_torch.core.solver import residual_norm
+
+    cfg = DiffusionConfig(multigrid="vcycle")
+    pipe = DepthPipeline(1080, 1920, cfg, device=dev)
+    rgb, mask, value = _photo(1080, 1920, 45)
+    rgb_d, gpyr = pipe.prepare_image(rgb)
+    m, v = torch.from_numpy(mask).to(dev), torch.from_numpy(value).to(dev)
+    state = pipe.initial_state()
+    ops.reset_launch_counts()
+    depth, new_state, out = pipe.solve_and_effect(fx.EFFECT_DEFOCUS, gpyr, rgb_d, m, v, state)
+    assert _counts() == FRAME_1080P
+    assert new_state[0] is depth and out.shape == (1080, 1920, 3) and out.dtype == torch.uint8
+    assert 0.0 <= float(depth.min()) and float(depth.max()) <= 255.0
+    assert torch.equal(depth[m], v[m].to(torch.float32))
+    cascade, _ = solve_cascade(gpyr, m, v, state, vcycle_warm_config(cfg))
+    ops.reset_launch_counts()
+    polished = vcycle_polish(gpyr, m, v, cascade, cfg)
+    torch.cuda.synchronize()
+    assert not any(ops.launch_counts().values())
+    assert torch.equal(polished, depth)
+    wts = edge_weights(gpyr[0], cascade, 0, len(gpyr) - 1, cfg)
+    assert float(residual_norm(depth, m, wts)) <= 1.05 * float(residual_norm(cascade, m, wts))
+
+
+def test_facade_keeps_its_state_on_the_card(dev):
+    """``models.ChebyshevCascade(device="cuda")``: numpy in and out, the
+    state on the card; ``solve_and_render`` launches K2, K1 and K3, and
+    ``solve_incremental`` K2 on its windows and pins its scribbles."""
+    from realtimedepthdiffusion_tpu_torch import models
+
+    h, w = 540, 960
+    rgb, mask, value = _photo(h, w, 11)
+    model = models.ChebyshevCascade(device="cuda", incremental_window=192)
+    ops.reset_launch_counts()
+    depth, art, state = model.solve_and_render(rgb, mask, value, "b")
+    assert set(_counts()) == {"jc_sweep_resident", "jc_sweep_tiles", "defocus_box"}
+    assert depth.dtype == np.float32 and depth.shape == (h, w) and np.isfinite(depth).all()
+    assert art.dtype == np.uint8 and art.shape == (h, w, 3)
+    mask[300:310, 500:510], value[300:310, 500:510] = True, 96
+    ops.reset_launch_counts()
+    depth2, state2 = model.solve_incremental(rgb, mask, value, state, (305, 505))
+    assert _counts().get("jc_sweep_resident") and all(t.is_cuda for t in state2)
+    assert np.array_equal(depth2[mask], value[mask].astype(np.float32))
+
+
+def test_native_runtime_builds_on_the_card_machine(dev):
+    """The session's host runtime is the native library, built by g++ where
+    the card is (its Python fallback gives the same bits, more slowly), and
+    the card's brush (``core.annotation.paint``) paints what the native
+    brush paints, at the edges and past them too."""
+    from realtimedepthdiffusion_tpu_torch.core.annotation import paint
+    from realtimedepthdiffusion_tpu_torch.native import runtime
+
+    nrt = runtime.NativeRuntime()
+    assert nrt.available
+    arena = runtime.Arena(4096)
+    assert arena.native
+    arena.close()
+    h, w = 270, 480
+    radius = DiffusionConfig().brush_radius(h, w)
+    strokes = [(200, 140, 64, radius), (0, 0, 192, radius), (w - 1, h - 1, 254, radius),
+               (-5, 100, 0, radius), (300, h + 4, 128, radius), (5000, 5000, 64, radius),
+               (70, 70, 128, 0), (70, 70, 128, -3), (240, 135, 1, 400)]
+    mask, value = np.zeros((h, w), np.uint8), np.zeros((h, w), np.uint8)
+    mask[40:70, 60:100], value[40:70, 60:100] = 1, 200
+    tm, tv = torch.from_numpy(mask != 0).to(dev), torch.from_numpy(value).to(dev)
+    for x, y, col, rad in strokes:
+        nrt.paint(mask, value, x, y, col, rad)
+        tm, tv = paint(tm, tv, x, y, col, rad)
+    assert np.array_equal(tm.cpu().numpy(), mask != 0) and np.array_equal(tv.cpu().numpy(), value)
+
+
+@pytest.mark.parametrize("profile", ["default", "fast"])
+def test_session_updates_on_the_card_equal_plain(dev, monkeypatch, tmp_path, profile):
+    """A live session (270x480, ``incremental_iterations=120``, a 128
+    window), update by update: the first solve; the update that finds the
+    windowed path's gate closed, which re-solves in full and then runs the
+    gate's kick (one windowed re-solve with its effect on stand-in tensors,
+    then the capture), so it launches K3 twice; one rect, two rects and an
+    annotation load. Each update's state, effect and u8 map equal the same
+    update on the plain versions on the card bit for bit, it uploads what
+    its path needs, every other update launches K3 once, and under
+    ``--profile fast`` no Jacobi kernel runs. A checkpoint with two rects
+    pending, resumed into a new session, gives the original's next solve
+    bit for bit with the same launches."""
+    from realtimedepthdiffusion_tpu_torch.core import effects as fx
+    from realtimedepthdiffusion_tpu_torch.live.session import DepthSession
+
+    h, w = 270, 480
+    cfg = DiffusionConfig(incremental_iterations=120, incremental_window=128, fast_start=True,
+                          **(FAST if profile == "fast" else {}))
+    rgb, mask, value = _photo(h, w, 50)
+
+    def session():
+        s = DepthSession(rgb, cfg, device=dev)
+        s.pipe.background_compile = True
+        return s
+
+    s = session()
+    s.mask_np[:], s.value_np[:] = mask, value
+    s.mark_all_dirty()
+    s.set_effect_key("b")
+    updates = [("first", []), ("kick", [(w // 2 + i, h // 2) for i in range(0, 12, 2)]),
+               ("one rect", [(w // 3 + i, 2 * h // 3) for i in range(0, 12, 2)]),
+               ("two rects", [(w // 5, h // 4), (4 * w // 5, 3 * h // 4)]),
+               ("annotation load", None)]
+    for i, (name, paints) in enumerate(updates):
+        before, n_before = s.depth_state, s.solve_count
+        if paints is None:
+            s.mark_all_dirty()
+        else:
+            s.set_color_key(1 + i % 4)
+            for x, y in paints:
+                s.paint(x, y)
+        rects = list(s.dirty_rects)
+        local = name in ("one rect", "two rects")
+        ops.reset_launch_counts()
+        u8 = s.solve()
+        counts = _counts()
+        m_d = torch.tensor(s.mask_np != 0, device=dev)
+        v_d = torch.tensor(s.value_np, device=dev)
+        with monkeypatch.context() as mp:
+            _plain_routes(mp)
+            ops.reset_launch_counts()
+            st = before
+            if local:
+                for r in rects:
+                    p_depth, st = s.pipe._inc_eager(s.gray_pyr, m_d, v_d, st,
+                                                    ((r[0] + r[2]) // 2, (r[1] + r[3]) // 2))
+            else:
+                pipe = s._inc_pipe if n_before > 0 else s.pipe
+                p_depth, st = pipe._solve_eager(s.gray_pyr, m_d, v_d, before)
+            p_out = s.pipe.effect(fx.EFFECT_DEFOCUS, s.rgb, s.gray_pyr[0],
+                                  torch.clamp(p_depth, 0.0, 255.0))
+            torch.cuda.synchronize()
+            assert not any(ops.launch_counts().values()), name
+        assert all(torch.equal(a, b) for a, b in zip(s.depth_state, st)), name
+        assert torch.equal(s.artistic, p_out), name
+        assert np.array_equal(u8, s.pipe.depth_u8(p_depth).cpu().numpy()), name
+        assert s.last_upload_bytes == (2 * 128 * 128 * len(rects) if local else 2 * h * w), name
+        assert counts.get("defocus_box") == 1 + (name == "kick"), (name, counts)
+        if profile == "fast":
+            assert not {"jc_sweep_tiles", "jc_sweep_resident"} & set(counts), (name, counts)
+            assert {"rb_sweep_tiles", "rb_sweep_resident"} & set(counts), (name, counts)
+        assert s.pipe.incremental_ready(fx.EFFECT_DEFOCUS, kick=False) == (i >= 1), name
+    s.set_color_key(2)
+    s.paint(w // 4, h // 4)
+    s.paint(3 * w // 4, 3 * h // 4)
+    ck = str(tmp_path / "session.npz")
+    s.save_checkpoint(ck)
+    resumed = session()
+    resumed.load_checkpoint(ck)
+    resumed.pipe.incremental_ready(fx.EFFECT_DEFOCUS)  # its windowed program, as s has one
+    assert resumed.dirty_rects == s.dirty_rects and len(s.dirty_rects) == 2
+    runs = []
+    for sess in (s, resumed):
+        ops.reset_launch_counts()
+        runs.append((sess.solve(), _counts()))
+    torch.cuda.synchronize()
+    assert runs[0][1] == runs[1][1] and np.array_equal(runs[0][0], runs[1][0])
+    assert torch.equal(resumed.artistic, s.artistic)
+    assert all(torch.equal(a, b) for a, b in zip(resumed.depth_state, s.depth_state))
+
+
+def test_serve_on_the_card_launches_the_routes(dev, tmp_path, monkeypatch):
+    """``serve.solve_pairs`` on the card over three 96x128 pairs: the default
+    run launches an eager frame's kernels per pair; under ``--profile fast``
+    each pair launches every chunk of its levels' caps, as its exit log
+    names them, and K3, and the solve's graph is the server's one program
+    (captured at the second pair, replayed at the third)."""
+    from realtimedepthdiffusion_tpu_torch import io, pipeline, serve
+    from realtimedepthdiffusion_tpu_torch.core import effects as fx
+
+    for sub in ("images", "annotations"):
+        (tmp_path / sub).mkdir()
+    for i in range(3):
+        rgb, mask, value = _photo(96, 128, 60 + i)
+        io.imwrite(str(tmp_path / "images" / f"p{i}.png"), rgb)
+        io.save_annotation(str(tmp_path / "annotations" / f"p{i}.png"), mask, value)
+    pairs = serve.discover_pairs(str(tmp_path / "images"), str(tmp_path / "annotations"))
+    cfg = DiffusionConfig()
+    pipe = pipeline.DepthPipeline(96, 128, cfg, device=dev)
+    rgb_d, gpyr = pipe.prepare_image(rgb)
+    m, v = torch.from_numpy(mask).to(dev), torch.from_numpy(value).to(dev)
+    ops.reset_launch_counts()
+    pipe._solve_fx_eager(fx.EFFECT_DEFOCUS, tuple(gpyr), rgb_d, m, v, pipe.initial_state())
+    frame = _counts()
+    ops.reset_launch_counts()
+    assert all(serve.solve_pairs(pairs, str(tmp_path / "default"), cfg, fx.EFFECT_DEFOCUS,
+                                 device=dev))
+    assert _counts() == {k: 3 * n for k, n in frame.items()}
+    logs = []
+
+    class Logged(pipeline.DepthPipeline):
+        def solve_and_effect(self, *a, **kw):
+            logs.append([])
+            return super().solve_and_effect(*a, exit_log=logs[-1], **kw)
+
+    monkeypatch.setattr(pipeline, "DepthPipeline", Logged)
+    fast, pipes = DiffusionConfig(**FAST), {}
+    ops.reset_launch_counts()
+    assert all(serve.solve_pairs(pairs, str(tmp_path / "fast"), fast, fx.EFFECT_DEFOCUS,
+                                 device=dev, pipelines=pipes))
+    want = collections.Counter(defocus_box=len(logs))
+    for log in logs:
+        want.update(_rb_exit_launches(log, fast.residual_check_every))
+    assert len(logs) == 3 and _counts() == dict(want)
+    assert [list(p._aot) for p in pipes.values()] == [[("solve_fx", fx.EFFECT_DEFOCUS)]]
+
+
+def test_replay_takes_a_new_image_of_the_shape(dev, monkeypatch):
+    """A 1080p frame replayed from the graph captured on one image, given a
+    second image of the shape (its colour and gray pyramid copied into the
+    graph's inputs), equals the eager frame on that image bit for bit and
+    launches what it launches."""
+    from realtimedepthdiffusion_tpu_torch import DepthPipeline
+    from realtimedepthdiffusion_tpu_torch.core import effects as fx
+    from realtimedepthdiffusion_tpu_torch.utils import program
+
+    pipe = DepthPipeline(1080, 1920, DiffusionConfig(fast_start=True), device=dev)
+    pipe.background_compile = True
+    rgb, mask, value = _photo(1080, 1920, 25)
+    m, v = torch.from_numpy(mask).to(dev), torch.from_numpy(value).to(dev)
+    rgb_d, gpyr = pipe.prepare_image(rgb)
+    state = pipe.initial_state()
+    for _ in range(2):  # eager, then eager and the capture
+        state = pipe.solve_and_effect(fx.EFFECT_DEFOCUS, gpyr, rgb_d, m, v, state)[1]
+    replays = []
+    real = program.Program.__call__
+    monkeypatch.setattr(program.Program, "__call__",
+                        lambda self, *a: (replays.append(1), real(self, *a))[1])
+    rgb_d, gpyr = pipe.prepare_image(_photo(1080, 1920, 26)[0])
+    ops.reset_launch_counts()
+    got = pipe.solve_and_effect(fx.EFFECT_DEFOCUS, gpyr, rgb_d, m, v, state)
+    counts = _counts()
+    ops.reset_launch_counts()
+    want = pipe._solve_fx_eager(fx.EFFECT_DEFOCUS, tuple(gpyr), rgb_d, m, v, tuple(state))
+    torch.cuda.synchronize()
+    assert replays == [1] and counts == _counts() == FRAME_1080P
+    assert torch.equal(got[0], want[0]) and torch.equal(got[2], want[2])
+    assert all(torch.equal(a, b) for a, b in zip(got[1], want[1]))
+
+
+@pytest.mark.parametrize("cfg_kw", [{}, {"solver": "red_black"}],
+                         ids=["default", "red-black fixed count"])
+def test_replayed_graph_runs_its_tally(dev, cfg_kw):
+    """One replay of a captured 1080p frame, under the profiler, runs kernel
+    by kernel what its program's tally counts: each wrapper's call is one
+    node of the graph."""
+    from realtimedepthdiffusion_tpu_torch import DepthPipeline
+    from realtimedepthdiffusion_tpu_torch.core import effects as fx
+
+    node = {"jc_sweep_tiles": "jc_sweep_tiles_kernel",
+            "jc_sweep_resident": "jc_sweep_resident_kernel",
+            "rb_sweep_tiles": "rb_sweep_tiles_kernel",
+            "rb_sweep_resident": "rb_sweep_resident_kernel",
+            "defocus_box": "defocus_tile_kernel"}
+    pipe = DepthPipeline(1080, 1920, DiffusionConfig(fast_start=True, **cfg_kw), device=dev)
+    pipe.background_compile = True
+    rgb, mask, value = _photo(1080, 1920, 27)
+    m, v = torch.from_numpy(mask).to(dev), torch.from_numpy(value).to(dev)
+    rgb_d, gpyr = pipe.prepare_image(rgb)
+    state = pipe.initial_state()
+    for _ in range(2):
+        state = pipe.solve_and_effect(fx.EFFECT_DEFOCUS, gpyr, rgb_d, m, v, state)[1]
+    tally = pipe._aot[("solve_fx", fx.EFFECT_DEFOCUS)].tally
+    seen = _kernels_on_device(
+        lambda: pipe.solve_and_effect(fx.EFFECT_DEFOCUS, gpyr, rgb_d, m, v, state))
+    assert tally and {k: seen[node[k]] for k in tally} == tally
+
+
+def test_card_loop_equals_host_loop_on_the_card(dev, monkeypatch):
+    """A replayed ``--profile fast`` 1080p frame, which issues every chunk
+    (those after a level's exit return on the card's flag), equals the same
+    frame with the loop read on the host, which never issues them, bit for
+    bit; the host loop launches fewer kernels."""
+    from realtimedepthdiffusion_tpu_torch import DepthPipeline
+    from realtimedepthdiffusion_tpu_torch.core import effects as fx
+    from realtimedepthdiffusion_tpu_torch.core import solver as tsolver
+
+    pipe = DepthPipeline(1080, 1920, DiffusionConfig(fast_start=True, **FAST), device=dev)
+    pipe.background_compile = True
+    rgb, mask, value = _photo(1080, 1920, 28)
+    m, v = torch.from_numpy(mask).to(dev), torch.from_numpy(value).to(dev)
+    rgb_d, gpyr = pipe.prepare_image(rgb)
+    state = pipe.initial_state()
+    for _ in range(2):
+        state = pipe.solve_and_effect(fx.EFFECT_DEFOCUS, gpyr, rgb_d, m, v, state)[1]
+    key = ("solve_fx", fx.EFFECT_DEFOCUS)
+    assert key in pipe._aot
+    got = pipe.solve_and_effect(fx.EFFECT_DEFOCUS, gpyr, rgb_d, m, v, state)
+    monkeypatch.setattr(tsolver, "_host_loop", lambda device: True)
+    ops.reset_launch_counts()
+    want = pipe._solve_fx_eager(fx.EFFECT_DEFOCUS, tuple(gpyr), rgb_d, m, v, tuple(state))
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0]) and torch.equal(got[2], want[2])
+    assert all(torch.equal(a, b) for a, b in zip(got[1], want[1]))
+    assert sum(ops.launch_counts().values()) < sum(pipe._aot[key].tally.values())

@@ -33,7 +33,8 @@ from realtimedepthdiffusion_tpu.pipeline import DepthPipeline as JPipeline
 from realtimedepthdiffusion_tpu_torch import ops
 from realtimedepthdiffusion_tpu_torch.config import DiffusionConfig
 from realtimedepthdiffusion_tpu_torch.core import effects as fx
-from realtimedepthdiffusion_tpu_torch.pipeline import DepthPipeline, _Program
+from realtimedepthdiffusion_tpu_torch.pipeline import DepthPipeline
+from realtimedepthdiffusion_tpu_torch.utils.program import Program, fresh, signature
 from tests.conftest import synthetic_pair
 
 H, W = 64, 96
@@ -117,13 +118,13 @@ def test_background_compiles_never_trace_off_caller_thread(monkeypatch):
     rgb, mask, value = synthetic_pair(H, W, 3)
     main_id = threading.get_ident()
     captures = []
-    real_init = _Program.__init__
+    real_init = Program.__init__
 
     def spy_init(self, *a, **kw):
         captures.append(threading.get_ident())
         real_init(self, *a, **kw)
 
-    monkeypatch.setattr(_Program, "__init__", spy_init)
+    monkeypatch.setattr(Program, "__init__", spy_init)
     pipe = DepthPipeline(H, W, cfg, device="cpu")
     _, gpyr, m, v = _args(pipe, rgb, mask, value)
     for _ in range(2):
@@ -188,8 +189,8 @@ def test_fast_start_switches_to_fused_and_results_stable(monkeypatch):
     assert pipe.wait_fused(timeout=120)
 
     replays = []
-    real_call = _Program.__call__
-    monkeypatch.setattr(_Program, "__call__",
+    real_call = Program.__call__
+    monkeypatch.setattr(Program, "__call__",
                         lambda self, *a: (replays.append(1), real_call(self, *a))[1])
     staged = _Spy(monkeypatch, "_ensure_staged")
     d2, st2 = pipe.solve(gpyr, m, v, pipe.initial_state())
@@ -225,8 +226,8 @@ def test_fast_start_aval_mismatch_falls_back(monkeypatch):
     assert prog.matches((tuple(gpyr), m, v, pipe.initial_state()))
 
     replays = []
-    real_call = _Program.__call__
-    monkeypatch.setattr(_Program, "__call__",
+    real_call = Program.__call__
+    monkeypatch.setattr(Program, "__call__",
                         lambda self, *a: (replays.append(1), real_call(self, *a))[1])
     d_u8, _ = pipe.solve(gpyr, m8, v, pipe.initial_state())
     assert not replays  # the eager path
@@ -424,21 +425,19 @@ def test_program_signature_and_fresh_outputs():
     devices only; its outputs are copies, one per distinct tensor, so that
     depth0 and level 0 of the state stay one tensor, as the eager solve
     returns them."""
-    from realtimedepthdiffusion_tpu_torch.pipeline import _fresh, _signature
-
     a, b = torch.zeros((2, 3)), torch.ones((1, 2), dtype=torch.uint8)
-    sig = _signature(((a, a), b))
-    assert sig == _signature(((a.clone(), torch.zeros((2, 3))), b.clone()))
-    assert sig != _signature(((a,), b)) and sig != _signature(((a, a), b.bool()))
-    assert sig != _signature(((a, a), b.view(2, 1))) and _signature(((a, a), b.numpy())) is None
-    out = _fresh((a, (a, b), b))
+    sig = signature(((a, a), b))
+    assert sig == signature(((a.clone(), torch.zeros((2, 3))), b.clone()))
+    assert sig != signature(((a,), b)) and sig != signature(((a, a), b.bool()))
+    assert sig != signature(((a, a), b.view(2, 1))) and signature(((a, a), b.numpy())) is None
+    out = fresh((a, (a, b), b))
     assert out[0] is out[1][0] and out[1][1] is out[2]
     assert out[0] is not a and out[2] is not b and torch.equal(out[0], a)
 
 
 def test_replay_adds_the_capture_tally():
     """A replay adds to the launch counts what its capture counted: the
-    capture's own counts are taken back out (``_Program`` on a card), and
+    capture's own counts are taken back out (``Program`` on a card), and
     each replay puts them in again."""
     ops.reset_launch_counts()
     tally = {"jc_sweep_resident": 3, "jc_sweep_tiles": 24, "defocus_box": 1}
@@ -451,4 +450,4 @@ def test_replay_adds_the_capture_tally():
         k: 2 * n for k, n in tally.items()}
     ops.reset_launch_counts()
     # On the CPU nothing is captured: no tally.
-    assert _Program(lambda *a: a, (torch.zeros(2),), torch.device("cpu")).tally == {}
+    assert Program(lambda *a: a, (torch.zeros(2),), torch.device("cpu")).tally == {}

@@ -1,6 +1,7 @@
 """The port's copy of the NumPy oracle (``oracle/numpy_ref.py``) against
 the JAX package's original, array for array, and the port's CPU solve held
-to it (depth RMSE <= 1e-3 on [0, 1], scribbles exact): what ``chip_smoke.py``
+to it (depth RMSE <= 1e-3 on [0, 1], scribbles exact): what
+``tests/test_torch_cuda.py::test_cascade_on_the_card_matches_cpu_and_the_oracle``
 repeats on the card, where the original cannot be imported."""
 
 import inspect
