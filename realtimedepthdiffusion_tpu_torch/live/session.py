@@ -1,9 +1,13 @@
 """Interactive editing session (port of ``realtimedepthdiffusion_tpu/live/session.py``).
 
 Brush strokes hit host annotation planes through the native C++ rasterizer
-(dirty-rect tracked, no device round trip at stroke latency), the
-annotation uploads once per solve, and the gray pyramid and the depth-state
-pyramid stay on the session's device for its whole life.
+(dirty-rect tracked, no device round trip at stroke latency), and the
+annotation planes, the gray pyramid and the depth-state pyramid stay on the
+session's device for its whole life. A solve sends the device only what the
+pending dirty rects changed: both whole planes where none are on the device
+yet (the first solve, a resumed checkpoint) or a rect covers the whole
+image (``mark_all_dirty``, an annotation load); each rect's window on the
+windowed path; else each rect's own crop, written into the resident planes.
 
 Key/mode semantics (the reference's ``src/main.cpp:20-27, 180-334``):
 - digits '0'..'4' -> scribble depth min(d * 64, 254)
@@ -29,7 +33,8 @@ The session's ``timer`` (``utils/timing.py:StageTimer``) holds its stages
 ``upload`` and ``solve`` (host clock ending at a device sync; on a
 profiler's timeline ``session.upload`` and ``session.solve``, each with
 the solve's number as its argument), its spans ``session.mask`` (the
-host's scribble compare), ``session.window_solve`` (an update's windowed
+host's scribble compare, or its copy of the rects' crops into the staging
+buffer), ``session.window_solve`` (an update's windowed
 re-solves) and ``session.u8_readback`` (the wait for the solve and the u8
 map's copy), and its pipelines' program spans (``pipeline.py``). While a
 profiler runs, the solve's early exit is read after the readback, with
@@ -49,7 +54,11 @@ under the early exit, else its count); and of K2's route
 of the level calls routed to K2) and ``sweep.resident_exchanges`` (how
 often their launches read the band edges: once per block of
 ``ops/sweep.py:resident_plan``'s sweeps, so the ratio is the mean number
-of sweeps per exchange).
+of sweeps per exchange). Also while a profiler runs, the upload's counters:
+``upload.full`` (solves that sent both whole planes), ``upload.rects``
+(rects whose crops were written into the resident planes) and ``upload.px``
+(pixels whose mask and value bytes crossed, on any path: half of
+``last_upload_bytes``).
 """
 
 from __future__ import annotations
@@ -121,6 +130,11 @@ class DepthSession:
         self.dirty_rects: list = []
         self._mask_d: Optional[torch.Tensor] = None  # device annotation cache
         self._value_d: Optional[torch.Tensor] = None
+        # Where a full re-solve's dirty-rect crops of both planes wait for
+        # their copy to the device: host memory that the card's copy engine
+        # reads directly (pinned) on a card, as a numpy view.
+        self._staging = torch.empty(2 * self.rows * self.cols, dtype=torch.uint8,
+                                    pin_memory=self.device.type == "cuda").numpy()
         self.depth_state = self.pipe.initial_state()
         self.depth0 = self.depth_state[0]
         self.artistic: Optional[torch.Tensor] = None
@@ -255,6 +269,16 @@ class DepthSession:
         full warm re-solve. Where nothing is on the device yet (a session
         resumed from a checkpoint with pending rects), both planes upload
         first and the pending rects still take the local path.
+
+        The upload follows the rects alone: both whole planes where nothing
+        is on the device yet or a pending rect covers the whole image; on
+        the windowed path each rect's window; on a full re-solve (every
+        solve where ``incremental_iterations`` is 0) each rect's crop,
+        ``y0:y1 + 1, x0:x1 + 1``, of both planes, copied to the device in
+        one piece through a pinned buffer and written into the resident
+        planes, so ``last_upload_bytes`` is twice the rects' area. Either
+        way the device planes equal ``mask_np != 0`` and ``value_np`` after
+        the upload.
         """
         t0 = time.perf_counter()
         pipe = self.pipe
@@ -283,9 +307,12 @@ class DepthSession:
         with self.timer.stage("upload", number):
             # The dirty rects gate (and crop) the host->device annotation
             # transfer: under --live the solve runs every frame, but
-            # unchanged annotations reuse the device copies, and small
-            # edits upload only the window bytes.
-            if self._mask_d is None or (rects and not use_local):
+            # unchanged annotations reuse the device copies, and an edit
+            # uploads only its rects' (or windows') bytes.
+            whole = (0, 0, self.rows - 1, self.cols - 1)
+            full = self._mask_d is None or (not use_local and whole in rects)
+            rect_writes = 0
+            if full:
                 # torch.tensor copies: a later stroke on the arena-backed
                 # planes does not reach the device copy, even on the CPU.
                 with self.timer.span("session.mask"):
@@ -293,6 +320,25 @@ class DepthSession:
                 self._mask_d = torch.tensor(mask_np, device=self.device)
                 self._value_d = torch.tensor(self.value_np, device=self.device)
                 self.last_upload_bytes = 2 * self.rows * self.cols
+            elif rects and not use_local:
+                # Outside the pending rects the resident planes already hold
+                # the host's bytes, so each rect writes its crops in place
+                # (after the last replay's copy of the planes, in stream
+                # order). Both crops cross in one blocking copy from the
+                # pinned staging buffer, so the next rect may reuse it; the
+                # cast to bool on the device is the mask's != 0.
+                for y0, x0, y1, x1 in rects:
+                    rows, cols = slice(y0, y1 + 1), slice(x0, x1 + 1)
+                    h, w = y1 - y0 + 1, x1 - x0 + 1
+                    crops = self._staging[:2 * h * w].reshape(2, h, w)
+                    with self.timer.span("session.mask"):
+                        crops[0] = self.mask_np[rows, cols]
+                        crops[1] = self.value_np[rows, cols]
+                    crops = torch.from_numpy(crops).to(self.device)
+                    self._mask_d[rows, cols] = crops[0]
+                    self._value_d[rows, cols] = crops[1]
+                    self.last_upload_bytes += 2 * h * w
+                rect_writes = len(rects)
             elif use_local:
                 for rect, (cy, cx) in zip(rects, centers):
                     oy = window_origin(cy, rect[0], rect[2], self.rows, s_win)
@@ -307,6 +353,10 @@ class DepthSession:
                     self.last_upload_bytes += 2 * s_win * s_win
             mask_d, value_d = self._mask_d, self._value_d
             self.dirty_rects = []
+            if profiling():
+                self.timer.count("upload.full", int(full))
+                self.timer.count("upload.rects", rect_writes)
+                self.timer.count("upload.px", self.last_upload_bytes // 2)
         with self.timer.stage("solve", number):
             if use_local:
                 # One windowed re-solve per rect; the active effect renders

@@ -2023,7 +2023,8 @@ def test_session_updates_on_the_card_equal_plain(dev, monkeypatch, tmp_path, pro
     then the capture), so it launches K3 twice; one rect, two rects and an
     annotation load. Each update's state, effect and u8 map equal the same
     update on the plain versions on the card bit for bit, it uploads what
-    its path needs, every other update launches K3 once, and under
+    its path needs (the kick its painted rect alone), the card's planes
+    equal the host's after it, every other update launches K3 once, and under
     ``--profile fast`` no Jacobi kernel runs. A checkpoint with two rects
     pending, resumed into a new session, gives the original's next solve
     bit for bit with the same launches."""
@@ -2081,7 +2082,12 @@ def test_session_updates_on_the_card_equal_plain(dev, monkeypatch, tmp_path, pro
         assert all(torch.equal(a, b) for a, b in zip(s.depth_state, st)), name
         assert torch.equal(s.artistic, p_out), name
         assert np.array_equal(u8, s.pipe.depth_u8(p_depth).cpu().numpy()), name
-        assert s.last_upload_bytes == (2 * 128 * 128 * len(rects) if local else 2 * h * w), name
+        # The first update and the annotation load send both whole planes;
+        # the kick's full re-solve writes its painted rects alone.
+        areas = sum((y1 - y0 + 1) * (x1 - x0 + 1) for y0, x0, y1, x1 in rects)
+        want = 2 * 128 * 128 * len(rects) if local else 2 * (areas if name == "kick" else h * w)
+        assert s.last_upload_bytes == want, name
+        assert torch.equal(s._mask_d, m_d) and torch.equal(s._value_d, v_d), name
         assert counts.get("defocus_box") == 1 + (name == "kick"), (name, counts)
         if profile == "fast":
             assert not {"jc_sweep_tiles", "jc_sweep_resident"} & set(counts), (name, counts)

@@ -1,8 +1,9 @@
 """The port's live session (``live/session.py``, ``device="cpu"``) against
 the JAX package's (``backend="xla", fast_start=False``) on the same strokes:
 a first solve, a drag inside one dirty rect, two distant rects, more rects
-than ``incremental_max_rects`` (the nearest merge), an annotation load and
-an idle solve. Each update: depth within RMSE 1e-3 on [0, 1]
+than ``incremental_max_rects`` (the nearest merge), an annotation load, an
+idle solve and a drag wider than the window (a full re-solve that uploads
+its rect alone). Each update: depth within RMSE 1e-3 on [0, 1]
 (tests/test_golden.py), scribbled pixels exact, the same dirty rects, the
 same path (full or windowed, and through which pipeline), the same upload
 window origins and solve centres. The rects lie where every level's window
@@ -30,7 +31,8 @@ H, W = 96, 128  # 2 levels; windows of 32 at L0 and 16 at L1
 KW = dict(max_iterations=200, incremental_iterations=40, incremental_window=32,
           incremental_max_rects=2)
 # Each update: (name, actions). An action is ("color", digit), ("effect",
-# key), ("paint", (x, y)) or ("load", None), the annotation PNG of the scene.
+# key), ("paint", (x, y)), ("all", None), ``mark_all_dirty``, or ("load",
+# None), the annotation PNG of the scene.
 SCRIPT = [
     ("first", [("color", 1), ("effect", "b"), ("paint", (40, 40)), ("paint", (42, 41))]),
     ("one_rect", [("color", 3), ("paint", (60, 50)), ("paint", (62, 50)), ("paint", (64, 51))]),
@@ -39,6 +41,9 @@ SCRIPT = [
                   ("paint", (104, 74))]),
     ("annotation_load", [("effect", "h"), ("load", None)]),
     ("idle", []),
+    # 8 px steps coalesce into one 37x49 rect, wider than the 32 px window:
+    # the full warm re-solve with a painted rect.
+    ("wide_drag", [("color", 2)] + [("paint", (16 + 8 * i, 20 + 6 * i)) for i in range(7)]),
 ]
 STEPS = [name for name, _ in SCRIPT]
 
@@ -86,6 +91,8 @@ def _act(s, actions, ann_path):
             s.set_effect_key(arg)
         elif op == "paint":
             s.paint(*arg)
+        elif op == "all":
+            s.mark_all_dirty()
         else:
             s.load_annotation_file(ann_path)
 
@@ -136,6 +143,7 @@ WANT_PATH = {
                  ("solve_incremental", (20, 20)), ("solve_incremental_and_effect", (67, 102))],
     "annotation_load": [("inc_pipe.solve_and_effect", None)],
     "idle": [("inc_pipe.solve_and_effect", None)],
+    "wide_drag": [("inc_pipe.solve_and_effect", None)],
 }
 
 
@@ -164,11 +172,66 @@ def test_update_matches_jax(runs, step):
 
 @pytest.mark.parametrize("step,want", [("first", 2 * H * W), ("one_rect", 2 * 32 * 32),
                                        ("two_rects", 4 * 32 * 32), ("annotation_load", 2 * H * W),
-                                       ("idle", 0)])
+                                       ("idle", 0), ("wide_drag", 2 * 37 * 49)])
 def test_upload_bytes(runs, step, want):
-    """Only the windows' bytes cross for a windowed update; nothing when
-    nothing changed."""
+    """Only the windows' bytes cross for a windowed update, only the rect's
+    for a full re-solve of a painted rect; nothing when nothing changed."""
     assert runs[2][step]["port"]["upload_bytes"] == want
+
+
+# The faithful path (``incremental_iterations`` 0): every update a full
+# re-solve. Each step: (name, actions, bytes sent); a 9 px brush.
+FULL_SCRIPT = [
+    ("first", [("load", None)], 2 * H * W),
+    ("one_rect", [("color", 3), ("paint", (40, 30)), ("paint", (44, 32))], 2 * 11 * 13),
+    ("corner", [("color", 1), ("paint", (W - 1, H - 1))], 2 * 5 * 5),
+    ("two_rects", [("color", 4), ("paint", (20, 70)), ("paint", (110, 20))], 2 * 2 * 9 * 9),
+    ("over", [("color", 0), ("paint", (42, 31))], 2 * 9 * 9),
+    ("idle", [], 0),
+    ("all", [("all", None)], 2 * H * W),
+]
+
+
+@pytest.fixture(scope="module")
+def full_runs(scene):
+    """FULL_SCRIPT through a port session; per step what it did, and the
+    eager solve with its effect on freshly uploaded planes, from the same
+    state before it."""
+    rgb, ann = scene
+    s = DepthSession(rgb, DiffusionConfig(max_iterations=60), device="cpu")
+    s.set_effect_key("b")
+    s.adjust_radius(8)
+    out = {}
+    for name, actions, _ in FULL_SCRIPT:
+        before = tuple(s.depth_state)
+        _act(s, actions, ann)
+        rects = list(s.dirty_rects)
+        u8 = s.solve()
+        m, v = torch.tensor(s.mask_np != 0), torch.tensor(s.value_np)
+        depth0, state, art = s.pipe._solve_fx_eager(fx.EFFECT_DEFOCUS, tuple(s.gray_pyr), s.rgb,
+                                                     m, v, before)
+        out[name] = {"rects": rects, "bytes": s.last_upload_bytes, "u8": u8,
+                     "state": tuple(s.depth_state), "art": s.artistic,
+                     "planes": (s._mask_d.clone(), s._value_d.clone()), "host": (m, v),
+                     "want": (s.pipe.depth_u8(depth0).numpy(), state, art)}
+    return out
+
+
+@pytest.mark.parametrize("step,want_bytes", [(n, b) for n, _, b in FULL_SCRIPT])
+def test_full_resolve_writes_the_rects(full_runs, step, want_bytes):
+    """A full re-solve sends each pending rect's crop into the resident
+    planes (both whole planes for the first solve and the whole image):
+    the device planes equal the host planes bit for bit, the bytes are
+    twice the rects' area, and the update equals the eager solve on
+    planes uploaded whole."""
+    r = full_runs[step]
+    area = sum((y1 - y0 + 1) * (x1 - x0 + 1) for y0, x0, y1, x1 in r["rects"])
+    assert r["bytes"] == want_bytes == (2 * H * W if step in ("first", "all") else 2 * area)
+    for got, host in zip(r["planes"], r["host"]):
+        assert got.dtype == host.dtype and torch.equal(got, host)
+    u8, state, art = r["want"]
+    assert np.array_equal(r["u8"], u8) and torch.equal(r["art"], art)
+    assert all(torch.equal(a, b) for a, b in zip(r["state"], state))
 
 
 @pytest.mark.parametrize("c,lo,hi,n,s,want", [

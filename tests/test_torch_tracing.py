@@ -3,8 +3,8 @@ records them: the recorder's semantics; no ``record_function`` entered
 while no profiler runs; under ``torch.profiler`` (CPU activity) the
 session's, the program layer's and the server's spans on the profiler's
 clock, nested in the caller's range, as ``benchmark/trace.py`` labels
-them; the early exit's counters under a profiler only; and the same
-outputs, bit for bit, with tracing on and off."""
+them; the early exit's and the upload's counters under a profiler only;
+and the same outputs, bit for bit, with tracing on and off."""
 
 import os
 
@@ -165,7 +165,10 @@ def test_exit_counters_under_a_profiler_only():
     assert set(c) == {"exit.chunks_issued", "exit.chunks_live", "exit.px",
                       "exit.px_iters_run", "sweep.fused_levels", "sweep.fused_px",
                       "sweep.fused_px_sweeps", "sweep.resident_sweeps",
-                      "sweep.resident_exchanges"}
+                      "sweep.resident_exchanges", "upload.full", "upload.rects",
+                      "upload.px"}
+    # the windowed path: one 32 px window's bytes, no whole plane, no rect write
+    assert (c["upload.full"], c["upload.rects"], c["upload.px"]) == (0, 0, 32 * 32)
     # red-black sends no level to K6 or K2
     assert c["sweep.fused_levels"] == c["sweep.fused_px"] == c["sweep.fused_px_sweeps"] == 0
     assert c["sweep.resident_sweeps"] == c["sweep.resident_exchanges"] == 0
@@ -173,6 +176,30 @@ def test_exit_counters_under_a_profiler_only():
     assert 0 < c["exit.px_iters_run"] <= c["exit.px"] * 60
     assert all(s.timer.totals[k] == 0.0 for k in c)
     assert s.timer.counts["session.window_solve"] == 1
+
+
+def test_upload_counters_under_a_profiler_only():
+    """The faithful config's first solve sends both whole planes; a stroke
+    then writes its one rect, whose area is the pixels that crossed. With
+    no profiler running nothing is counted."""
+    s = _session("faithful")
+    with _cpu_profile():
+        _updates(s, STROKES[:1])
+    c = {k: s.timer.counts[k] for k in s.timer.counters}
+    assert (c["upload.full"], c["upload.rects"], c["upload.px"]) == (1, 0, H * W)
+    s.timer.reset()
+    s.set_color_key(3)
+    s.paint(*STROKES[1][0])
+    (y0, x0, y1, x1), = s.dirty_rects
+    with _cpu_profile():
+        s.solve()
+    c = {k: s.timer.counts[k] for k in s.timer.counters}
+    assert (c["upload.full"], c["upload.rects"]) == (0, 1)
+    assert c["upload.px"] == (y1 - y0 + 1) * (x1 - x0 + 1) == s.last_upload_bytes // 2
+    s.timer.reset()
+    _updates(s, STROKES[2:])
+    assert s.last_upload_bytes > 0
+    assert not any(k.startswith("upload.") for k in s.timer.totals)
 
 
 @pytest.mark.parametrize("name", list(CONFIGS))
