@@ -1,6 +1,7 @@
 """The comparison that decides ``correct``: what the timed path returned
-against the plain reference (``reference/plain.py``), number by number,
-each number held to its limit (``limits/<cell>.json``).
+against the configuration's reference (``reference/<config>.py`` where it
+has one, else ``reference/plain.py``: ``spec.reference``), number by
+number, each number held to its limit (``limits/<cell>.json``).
 
 The numbers, each the worst over the updates or pairs compared:
 

@@ -6,8 +6,8 @@
 For each seed, in one process: the cell's set-up and a short window as a
 run makes them, then the comparison's numbers: the program's (the lower
 readings) and, on the first ``--control-seeds`` seeds, the control's, the
-plain reference computed in bfloat16 put in the program's place (the upper
-readings). One JSON line per
+configuration's reference (``spec.reference``) computed in bfloat16 put in
+the program's place (the upper readings). One JSON line per
 seed and side on stdout. Needs the cell's CUDA device; the benchmark's own
 runs never run this.
 """
@@ -41,11 +41,12 @@ def readings(cell_name, seeds, seconds, device="cuda", cfg=None, traffic=None, n
     cell = spec.cell(bench, cell_name)
     cfg = cfg or spec.config(bench, cell["config"])
     traffic = traffic or spec.traffic(cell["traffic"])
+    reference = spec.reference(cell["config"])
     out = []
     for k, seed in enumerate(seeds):
         tmp = tempfile.mkdtemp(prefix="rtdd-control-")
         try:
-            run = harness.DRIVERS[traffic["driver"]](cfg, traffic, seed, device, tmp)
+            run = harness.DRIVERS[traffic["driver"]](cfg, traffic, seed, device, tmp, reference)
             run.setup()
             run.window(seconds)
             run.release()

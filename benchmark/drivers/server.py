@@ -27,12 +27,13 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 
 from .. import check, gen
-from ..reference import plain
 
 
 class ServerRun:
-    def __init__(self, cfg: dict, traffic: dict, seed: int, device: str, tmp: str):
+    def __init__(self, cfg: dict, traffic: dict, seed: int, device: str, tmp: str,
+                 reference):
         self.cfg, self.traffic, self.seed = cfg, traffic, seed
+        self.ref = reference  # the module ``check`` holds the run to (``spec.reference``)
         self.dcfg = dict(cfg["diffusion"])
         self.h, self.w = int(cfg["rows"]), int(cfg["cols"])
         self.device, self.tmp = device, tmp
@@ -133,7 +134,7 @@ class ServerRun:
         dev = torch.device(self.device)
         rows, missing = [], 0
         for k, (rgb, mask, value) in enumerate(self.inputs):
-            ref = self._reference(rgb, mask, value, torch.float32, dev)
+            want = self._reference(rgb, mask, value, torch.float32, dev)
             if stand_in is not None:
                 got = self._reference(rgb, mask, value, stand_in, dev)
             else:
@@ -143,22 +144,22 @@ class ServerRun:
                     missing += 1
                     continue
                 got = (np.asarray(Image.open(dp)), np.asarray(Image.open(ep).convert("RGB")))
-            rows.append(check.compare(got[0], got[1], None, ref[0], ref[1], None, mask, value))
+            rows.append(check.compare(got[0], got[1], None, want[0], want[1], None, mask, value))
         out = check.worst(rows)
         out["missing"] = float(missing)
         return out
 
     def _reference(self, rgb_np, mask_np, value_np, dt, dev):
-        torch = self.torch
+        torch, ref = self.torch, self.ref
         rgb = torch.from_numpy(rgb_np).to(dev)
-        grays = plain.gray_pyramid(self.dcfg, plain.rgb_to_gray(rgb))
-        masks, values = plain.annotation_pyramids(
+        grays = ref.gray_pyramid(self.dcfg, ref.rgb_to_gray(rgb))
+        masks, values = ref.annotation_pyramids(
             self.dcfg, torch.from_numpy(mask_np).to(dev), torch.from_numpy(value_np).to(dev))
         fresh = [torch.full(tuple(g.shape), float(self.dcfg["depth_init"]), device=dev)
                  for g in grays]
-        depth0, _ = plain.cascade(self.dcfg, grays, masks, values, fresh, dt)
-        effect = plain.defocus(self.dcfg, rgb, depth0.to(torch.float32))
-        return plain.to_u8(depth0).cpu().numpy(), effect.cpu().numpy()
+        depth0, _ = ref.cascade(self.dcfg, grays, masks, values, fresh, dt)
+        effect = ref.defocus(self.dcfg, rgb, depth0.to(torch.float32))
+        return ref.to_u8(depth0).cpu().numpy(), effect.cpu().numpy()
 
     def counts(self):
         """(pairs handed to ``solve_pairs``, pairs it returned no path for)."""

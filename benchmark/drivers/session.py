@@ -34,12 +34,13 @@ import time
 import numpy as np
 
 from .. import check, gen
-from ..reference import plain
 
 
 class SessionRun:
-    def __init__(self, cfg: dict, traffic: dict, seed: int, device: str, tmp: str):
+    def __init__(self, cfg: dict, traffic: dict, seed: int, device: str, tmp: str,
+                 reference):
         self.cfg, self.traffic, self.seed = cfg, traffic, seed
+        self.ref = reference  # the module ``check`` holds the run to (``spec.reference``)
         self.host_split = {}  # the window's mean update, phase by phase (ms)
         self.dcfg = dict(cfg["diffusion"])
         self.h, self.w = int(cfg["rows"]), int(cfg["cols"])
@@ -185,12 +186,12 @@ class SessionRun:
         """The worst numbers over the first solve and the drawn updates.
         With ``stand_in`` (a torch dtype) the reference at that precision
         takes the program's place (the control)."""
-        torch = self.torch
+        torch, ref = self.torch, self.ref
         dev = torch.device(self.device)
         rgb = torch.from_numpy(self.rgb).to(dev)
-        grays = plain.gray_pyramid(self.dcfg, plain.rgb_to_gray(rgb))
+        grays = ref.gray_pyramid(self.dcfg, ref.rgb_to_gray(rgb))
         sizes = [tuple(g.shape) for g in grays]
-        radius = gen.brush_side(plain.brush_radius(self.dcfg, self.h, self.w), self.traffic)
+        radius = gen.brush_side(ref.brush_radius(self.dcfg, self.h, self.w), self.traffic)
         kmax = max(int(self.dcfg["incremental_max_rects"]), 1)
         s_win = min(int(self.dcfg["incremental_window"]), self.h, self.w)
         inc = int(self.dcfg["incremental_iterations"])
@@ -198,26 +199,26 @@ class SessionRun:
 
         def solve(state, rects, first, dt):
             m, v = torch.from_numpy(mask).to(dev), torch.from_numpy(value).to(dev)
-            masks, values = plain.annotation_pyramids(self.dcfg, m, v)
+            masks, values = ref.annotation_pyramids(self.dcfg, m, v)
             args = (self.dcfg, grays, masks, values)
             fits = all(r[2] - r[0] + 1 <= s_win and r[3] - r[1] + 1 <= s_win for r in rects)
             if not first and inc > 0 and rects and len(rects) <= kmax and fits:
                 for r in rects:
-                    depth0, state = plain.windowed(*args, state,
-                                                   ((r[0] + r[2]) // 2, (r[1] + r[3]) // 2), dt)
+                    depth0, state = ref.windowed(*args, state,
+                                                 ((r[0] + r[2]) // 2, (r[1] + r[3]) // 2), dt)
             else:
-                depth0, state = plain.cascade(*args, state, dt,
-                                              max_iterations=None if first or inc == 0 else inc)
-            effect = plain.defocus(self.dcfg, rgb, depth0.to(torch.float32))
-            return plain.to_u8(depth0).cpu().numpy(), effect.cpu().numpy(), state
+                depth0, state = ref.cascade(*args, state, dt,
+                                            max_iterations=None if first or inc == 0 else inc)
+            effect = ref.defocus(self.dcfg, rgb, depth0.to(torch.float32))
+            return ref.to_u8(depth0).cpu().numpy(), effect.cpu().numpy(), state
 
         def judge(state_before, rects, first, got):
-            ref = solve(state_before, rects, first, torch.float32)
+            want = solve(state_before, rects, first, torch.float32)
             if stand_in is not None:
                 got = solve(state_before, rects, first, stand_in)
             u8, art, st = got
             st = [t.to(dev, torch.float32) for t in st]
-            return check.compare(u8, art, st, ref[0], ref[1], ref[2], mask, value)
+            return check.compare(u8, art, st, want[0], want[1], want[2], mask, value)
 
         fresh = [torch.full(s, float(self.dcfg["depth_init"]), dtype=torch.float32, device=dev)
                  for s in sizes]
@@ -226,12 +227,12 @@ class SessionRun:
         i = 0
         for idx, before, u8, art, after in todo:
             while i <= idx:
-                color = plain.scribble_value(self.keys[i])
+                color = ref.scribble_value(self.keys[i])
                 rects = []
                 for x, y in self.events[i].tolist():
-                    r = plain.paint(mask, value, x, y, color, radius)
+                    r = ref.paint(mask, value, x, y, color, radius)
                     if r is not None:
-                        plain.merge_rect(rects, r, kmax)
+                        ref.merge_rect(rects, r, kmax)
                 i += 1
             rows.append(judge([t.to(dev) for t in before], rects, False, (u8, art, after)))
         return check.worst(rows)

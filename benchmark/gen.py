@@ -3,10 +3,11 @@ batches of pairs. Everything here is numpy from ``numpy.random``
 generators seeded by the run's seed, so the same seed gives the same
 inputs.
 
-``photo_like`` is a copy of ``chip_smoke.py``'s generator. ``dense_scribbles``
-follows ``chip_smoke.py``'s layout (a 4 x 6 grid of 30 x 40 blocks at 1080p)
-with each block's place jittered and its depth drawn from the seed. The
-stroke generator reads a traffic file's parameters (``traffic/*.json``).
+``photo_like`` is the photograph-like generator (``chip_smoke.py`` and the
+card tests draw their inputs from here too). ``dense_scribbles`` lays a
+4 x 6 grid of 30 x 40 blocks at 1080p, with each block's place jittered
+and its depth drawn from the seed. The stroke generator reads a traffic
+file's parameters (``traffic/*.json``).
 """
 
 from __future__ import annotations

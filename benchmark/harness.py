@@ -4,12 +4,13 @@ comparison with the reference, and the result line.
     python3 benchmark/run.py --workload <cell> --seed <n> --seconds <s> --trace <0|1>
 
 The cell's traffic names its driver (``drivers/session.py``,
-``drivers/server.py``); everything else is found by name from
-``BENCHMARK.json`` (``spec.py``). The last line of stdout is one JSON
-object: ``correct``, ``attempted``, ``failed``, ``metrics`` (the cell's
-end-to-end metrics, or with ``--trace 1`` its per-layer ones), ``device``,
-``breakdown`` in a traced run, and last ``checks``: each number compared
-with its limit, which are also the last lines of stderr.
+``drivers/server.py``); everything else, the reference the comparison
+calls too, is found by name from ``BENCHMARK.json`` (``spec.py``). The
+last line of stdout is one JSON object: ``correct``, ``attempted``,
+``failed``, ``metrics`` (the cell's end-to-end metrics, or with ``--trace
+1`` its per-layer ones), ``device``, ``breakdown`` in a traced run, and
+last ``checks``: each number compared with its limit, which are also the
+last lines of stderr.
 """
 
 from __future__ import annotations
@@ -28,8 +29,7 @@ from .drivers.server import ServerRun
 from .drivers.session import SessionRun
 
 DRIVERS = {"session": SessionRun, "server": ServerRun}
-# Top-level module names that no run may load: JAX and the JAX package.
-FORBIDDEN = ("jax", "jaxlib", "flax", "realtimedepthdiffusion_tpu")
+FORBIDDEN = spec.FORBIDDEN
 FORBIDDEN_MODULES = ("realtimedepthdiffusion_tpu_torch.interop",)
 
 
@@ -62,18 +62,20 @@ def power_limit() -> str:
 
 
 def run_cell(bench: dict, cell: dict, seed: int, seconds: float, traced: bool, device: str,
-             t_start: float, cfg=None, traffic=None, limits=None):
-    """One run of ``cell``; returns the result dict. ``cfg``, ``traffic`` and
-    ``limits`` default to the cell's files (the tests pass smaller ones)."""
+             t_start: float, cfg=None, traffic=None, limits=None, reference=None):
+    """One run of ``cell``; returns the result dict. ``cfg``, ``traffic``,
+    ``limits`` and ``reference`` (the module the comparison calls) default
+    to the cell's files (the tests pass their own)."""
     import torch
 
     cfg = cfg or spec.config(bench, cell["config"])
     traffic = traffic or spec.traffic(cell["traffic"])
     limits = limits if limits is not None else spec.limits(cell["name"])
+    reference = reference or spec.reference(cell["config"])
     on_card = torch.device(device).type == "cuda"
     tmp = tempfile.mkdtemp(prefix="rtdd-bench-")
     try:
-        run = DRIVERS[traffic["driver"]](cfg, traffic, seed, device, tmp)
+        run = DRIVERS[traffic["driver"]](cfg, traffic, seed, device, tmp, reference)
         if on_card:
             torch.cuda.reset_peak_memory_stats(device)
         t_setup = time.perf_counter()
@@ -110,12 +112,13 @@ def run_cell(bench: dict, cell: dict, seed: int, seconds: float, traced: bool, d
         if on_card:
             torch.cuda.synchronize(device)
         peak = torch.cuda.max_memory_allocated(device) if on_card else 0
-        bad = forbidden_loaded()
-        if bad:
-            raise ForbiddenModules(bad)
         attempted, failed = run.counts()
         run.release()
         numbers = run.check()
+        # After the comparison, so that what the reference loads counts too.
+        bad = forbidden_loaded()
+        if bad:
+            raise ForbiddenModules(bad)
         correct, checks = check.verdict(numbers, limits)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)

@@ -14,7 +14,33 @@ the Jacobi-Chebyshev update is the reference program's
 ``a*r + b*u + c*prev``), and nothing here pins an operation order.
 
 The configuration is a plain dict of ``DiffusionConfig`` keys; every key
-read here must be in it.
+read here must be in it. What this file does not compute it refuses
+(``ValueError``): the approximate defocus, a ``multigrid`` other than
+"cascadic", a solver other than red-black and Jacobi-Chebyshev.
+
+The interface the drivers call (``INTERFACE``). A configuration held to
+other maths has a file of its own, ``reference/<config>.py``
+(``spec.reference``), that provides every one of these, imported from
+here (``from benchmark.reference.plain import *``) or defined anew:
+
+- ``rgb_to_gray(rgb)``: (H, W, 3) uint8 -> (H, W) uint8;
+- ``gray_pyramid(cfg, gray0)``: the list of gray levels, finest first;
+- ``annotation_pyramids(cfg, mask0, value0)``: (masks, values), lists of
+  bool and uint8 levels;
+- ``cascade(cfg, grays, masks, values, state, dt, max_iterations=None)``:
+  the full solve from the warm ``state`` (a list of levels); (depth0,
+  state);
+- ``windowed(cfg, grays, masks, values, state, center, dt)``: the
+  windowed re-solve of one edit at level-0 ``center`` (y, x); (depth0,
+  state);
+- ``defocus(cfg, rgb, depth)``: the effect image, (H, W, 3) uint8;
+- ``to_u8(depth)``: the u8 depth map;
+- ``brush_radius(cfg, h, w)``: the session's default brush side, int;
+- ``scribble_value(key)``: the depth a key 0..4 paints, int;
+- ``paint(mask, value, x, y, color, radius)``: one dab on numpy planes, in
+  place; its rect (y0, x0, y1, x1) or None;
+- ``merge_rect(rects, rect, kmax, gap=8)``: the session's dirty-rect rule,
+  in place on the list ``rects``.
 """
 
 from __future__ import annotations
@@ -25,6 +51,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+INTERFACE = ("rgb_to_gray", "gray_pyramid", "annotation_pyramids", "cascade", "windowed",
+             "defocus", "to_u8", "brush_radius", "scribble_value", "paint", "merge_rect")
 _TINY = float(np.finfo(np.float32).tiny)
 
 
@@ -335,6 +363,9 @@ def cascade(cfg, grays, masks, values, state, dt, max_iterations=None):
     """Coarse to fine from the warm ``state``: seed the coarsest level,
     solve each level, pyrUp into the next and seed it. Returns (depth0,
     state)."""
+    if cfg["multigrid"] != "cascadic":
+        raise ValueError(f"the reference computes the cascadic scheme only, not "
+                         f"{cfg['multigrid']!r}")
     iters_cap = int(cfg["max_iterations"] if max_iterations is None else max_iterations)
     levels = len(grays)
     L = levels - 1
