@@ -3,7 +3,9 @@
 ``solve_cascade`` runs the level solves on the kernels or their plain
 versions, by the tensors' device. The V-cycle's polish (``vcycle_polish``)
 is plain torch ops on every device, as the reference runs plain XLA ops:
-it has no kernel there and none here.
+it has no kernel there and none here. ``solve_vcycle`` wraps the polish in
+the span ``vcycle.polish`` (``utils/timing.py``), and ``vcycle_work``
+counts its work on the host for the session's counters.
 """
 
 from __future__ import annotations
@@ -14,6 +16,7 @@ from typing import Sequence, Tuple
 import torch
 
 from ..config import DiffusionConfig
+from ..utils.timing import span
 from .annotation import annotation_pyr_down, seed_depth
 from .pyramid import pyr_down_gray, pyr_down_gray_ceil, pyr_up
 from .solver import jacobi_sweep_raw, solve_level
@@ -133,16 +136,35 @@ def solve_vcycle(
     depth_state: Sequence[torch.Tensor],
     cfg: DiffusionConfig = DiffusionConfig(),
     exit_log=None,
+    timer=None,
 ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, ...]]:
     """The V-cycle solve: a cascadic warm start (``vcycle_warm_config``,
     through ``solve_cascade`` and so through its kernels on a card), then
     ``cfg.vcycles`` error-correction cycles at the finest level
     (``vcycle_polish``). Returns (depth0, new_depth_state); only level 0 of
-    the state is polished. ``exit_log`` reports the warm cascade's levels."""
+    the state is polished. ``exit_log`` reports the warm cascade's levels.
+    The polish runs in the span ``vcycle.polish``, which ``timer`` (a
+    ``utils/timing.py:StageTimer``) accumulates where one is given: the
+    host's time to launch it, in an eager solve or a capture (a replayed
+    graph runs no span)."""
     _, state = solve_cascade(gray_pyr, mask0, value0, depth_state, vcycle_warm_config(cfg),
                              exit_log)
-    u = vcycle_polish(gray_pyr, mask0, value0, state[0], cfg)
+    with span("vcycle.polish", timer):
+        u = vcycle_polish(gray_pyr, mask0, value0, state[0], cfg)
     return u, (u,) + tuple(state[1:])
+
+
+def vcycle_work(sizes: Sequence[Tuple[int, int]],
+                cfg: DiffusionConfig = DiffusionConfig()) -> Tuple[int, int, int]:
+    """(cycles, pixel-sweeps, pixels) of one ``vcycle_polish`` on the levels
+    of ``sizes``, finest first: each cycle visits every level once, smooths
+    ``vcycle_pre_smooth`` + ``vcycle_post_smooth`` sweeps on each level but
+    the coarsest and ``vcycle_coarse_iters`` there (``_smooth_error``).
+    From the shapes and ``cfg`` alone, on the host."""
+    px = [h * w for h, w in sizes]
+    sweeps = (sum(px[:-1]) * (cfg.vcycle_pre_smooth + cfg.vcycle_post_smooth)
+              + px[-1] * cfg.vcycle_coarse_iters)
+    return cfg.vcycles, cfg.vcycles * sweeps, cfg.vcycles * sum(px)
 
 
 def vcycle_polish(

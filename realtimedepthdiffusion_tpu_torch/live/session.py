@@ -36,7 +36,8 @@ the solve's number as its argument), its spans ``session.mask`` (the
 host's scribble compare, or its copy of the rects' crops into the staging
 buffer), ``session.window_solve`` (an update's windowed
 re-solves) and ``session.u8_readback`` (the wait for the solve and the u8
-map's copy), and its pipelines' program spans (``pipeline.py``). While a
+map's copy), and its pipelines' program spans and the V-cycle's
+``vcycle.polish`` (``pipeline.py``). While a
 profiler runs, the solve's early exit is read after the readback, with
 copies alone, into the counters ``exit.chunks_issued`` (every chunk of
 each level's cap, as a card issues them), ``exit.chunks_live`` (those
@@ -54,7 +55,12 @@ under the early exit, else its count); and of K2's route
 of the level calls routed to K2) and ``sweep.resident_exchanges`` (how
 often their launches read the band edges: once per block of
 ``ops/sweep.py:resident_plan``'s sweeps, so the ratio is the mean number
-of sweeps per exchange). Also while a profiler runs, the upload's counters:
+of sweeps per exchange); and, where a full solve runs the V-cycle, of its
+polish (``core/multigrid.py:vcycle_work``, from the levels' shapes and the
+config): ``vcycle.cycles`` (the cycles run), ``vcycle.px_sweeps`` (pixels
+times sweeps of every smoothing, pre, post and coarse, at every level of
+every cycle) and ``vcycle.px`` (the pixels of every level visit). Also
+while a profiler runs, the upload's counters:
 ``upload.full`` (solves that sent both whole planes), ``upload.rects``
 (rects whose crops were written into the resident planes) and ``upload.px``
 (pixels whose mask and value bytes crossed, on any path: half of
@@ -73,6 +79,7 @@ import torch
 
 from ..config import DiffusionConfig
 from ..core import effects as fx
+from ..core.multigrid import vcycle_work
 from ..core.solver import read_exit_log
 from ..io import depth_to_u8, depth_to_u16, imwrite, load_annotation, save_annotation
 from ..native.runtime import Arena, NativeRuntime
@@ -409,10 +416,11 @@ class DepthSession:
 
     def _count_routes(self, pipe: DepthPipeline, windowed: bool, solves: int,
                       exit_log) -> None:
-        """The counters ``sweep.fused_*`` and ``sweep.resident_*`` (the
-        module's docstring) over the level calls of ``solves`` solves of
-        ``pipe``; ``exit_log``, read, holds one entry per call under the
-        early exit, whose launches run ``residual_check_every`` sweeps."""
+        """The counters ``sweep.fused_*``, ``sweep.resident_*`` and, after a
+        full V-cycle solve, ``vcycle.*`` (the module's docstring) over the
+        level calls of ``solves`` solves of ``pipe``; ``exit_log``, read,
+        holds one entry per call under the early exit, whose launches run
+        ``residual_check_every`` sweeps."""
         calls = pipe.level_calls(windowed) * solves
         iters = [e["iters"] for e in exit_log] if exit_log is not None else [c[2] for c in calls]
         fused = [(h * w, n) for (h, w, _, k6), n in zip(calls, iters) if k6]
@@ -424,6 +432,10 @@ class DepthSession:
                     for (h, w, _, k6), n in zip(calls, iters) if not k6]
         self.timer.count("sweep.resident_sweeps", sum(n for n, _ in resident))
         self.timer.count("sweep.resident_exchanges", sum(x for _, x in resident))
+        if not windowed and pipe.cfg.multigrid == "vcycle":
+            sizes = [pipe.cfg.level_size(pipe.rows, pipe.cols, lv) for lv in range(pipe.levels)]
+            for name, n in zip(("cycles", "px_sweeps", "px"), vcycle_work(sizes, pipe.cfg)):
+                self.timer.count("vcycle." + name, n * solves)
 
     # --------------------------------------------------------------- effects
     def set_effect_key(self, key: str) -> None:

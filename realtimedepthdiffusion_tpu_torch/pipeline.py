@@ -61,8 +61,10 @@ pipeline is given (the session's), and onto a running profiler's timeline
 with or without one: ``program.call`` from a route's decision to its
 return, ``program.eager`` around an eager run, and ``Program``'s own
 (``program.capture``, ``program.copy_in``, ``program.replay``,
-``program.copy_out``). The counts of ``program.replay`` and
-``program.eager`` are the replayed and the eager solves.
+``program.copy_out``), and under the V-cycle ``vcycle.polish`` around its
+polish (``core/multigrid.py:solve_vcycle``; an eager solve and a capture).
+The counts of ``program.replay`` and ``program.eager`` are the replayed and
+the eager solves.
 """
 
 from __future__ import annotations
@@ -143,7 +145,8 @@ class DepthPipeline:
         self.rows, self.cols, self.cfg = rows, cols, cfg
         self.device = torch.device(device)
         self.levels = cfg.num_levels(rows, cols)
-        self._scheme = solve_vcycle if cfg.multigrid == "vcycle" else solve_cascade
+        self._scheme = (functools.partial(solve_vcycle, timer=timer)
+                        if cfg.multigrid == "vcycle" else solve_cascade)
         # The program layer. _aot holds each program by key, ("solve",),
         # ("solve_fx", effect), ("inc",) and ("inc_fx", effect), as the JAX
         # pipeline holds its executables.

@@ -1966,6 +1966,71 @@ def test_vcycle_1080p_frame_polishes_its_warm_cascade(dev):
     assert float(residual_norm(depth, m, wts)) <= 1.05 * float(residual_norm(cascade, m, wts))
 
 
+def test_vcycle_1080p_session_replays_its_eager_update(dev, monkeypatch):
+    """A 1080p live session under ``multigrid="vcycle"`` (the defaults
+    otherwise: the benchmark's ``vcycle_1080p``): the first solve runs
+    eagerly and captures the update's graph (the V-cycle has no staged
+    form), and each stroke update after it replays that graph: its depth,
+    state, effect and u8 map equal the eager function's on the same inputs
+    bit for bit. A replayed update runs K2 x3, K1 x24, K3 once and the
+    polish's ~11,000 nodes, and under a profiler its counters ``vcycle.*``
+    are ``vcycle_work``'s of the five levels, which are the pixel-sweeps
+    and level visits that ``_smooth_error`` runs in the eager update."""
+    from realtimedepthdiffusion_tpu_torch.core import effects as fx
+    from realtimedepthdiffusion_tpu_torch.core import multigrid
+    from realtimedepthdiffusion_tpu_torch.live.session import DepthSession
+
+    h, w = 1080, 1920
+    cfg = DiffusionConfig(multigrid="vcycle")
+    rgb, mask, value = _photo(h, w, 24)
+    s = DepthSession(rgb, cfg, device=dev)
+    s.mask_np[:], s.value_np[:] = mask, value
+    s.mark_all_dirty()
+    s.set_effect_key("b")
+    s.solve()
+    key = ("solve_fx", fx.EFFECT_DEFOCUS)
+    assert key in s.pipe._aot and s.timer.counts["vcycle.polish"] == 2  # eager, capture
+    calls = []
+    real = multigrid._smooth_error
+
+    def counted(e, rhs, m, wts, sweeps):
+        calls.append((e.numel(), sweeps))
+        return real(e, rhs, m, wts, sweeps)
+
+    sizes = [cfg.level_size(h, w, lv) for lv in range(5)]
+    for i in range(3):
+        before = s.depth_state
+        s.set_color_key(1 + i)
+        for j in range(4):
+            s.paint(600 + 40 * i + 8 * j, 300 + 30 * i)
+        s.timer.reset()
+        seen = _kernels_on_device(lambda: s.solve())
+        assert s.timer.counts["program.replay"] == 1 and "program.eager" not in s.timer.counts
+        assert "vcycle.polish" not in s.timer.counts  # the replay runs no span
+        assert [s.timer.counts["vcycle." + k] for k in ("cycles", "px_sweeps", "px")] == list(
+            multigrid.vcycle_work(sizes, cfg))
+        assert (seen["jc_sweep_resident_kernel"], seen["jc_sweep_tiles_kernel"],
+                seen["defocus_tile_kernel"]) == (3, 24, 1)
+        assert sum(seen.values()) > 10000, sum(seen.values())
+        m_d = torch.tensor(s.mask_np != 0, device=dev)
+        v_d = torch.tensor(s.value_np, device=dev)
+        calls.clear()
+        with monkeypatch.context() as mp:
+            mp.setattr(multigrid, "_smooth_error", counted)
+            want = s.pipe._solve_fx_eager(fx.EFFECT_DEFOCUS, tuple(s.gray_pyr), s.rgb, m_d, v_d,
+                                          tuple(before))
+        torch.cuda.synchronize()
+        assert sum(px * n for px, n in calls) == s.timer.counts["vcycle.px_sweeps"]
+        coarse = sum(px for px, n in calls if n == cfg.vcycle_coarse_iters)
+        # a finer level's visit smooths twice, before and after its correction
+        finer = sum(px for px, n in calls if n != cfg.vcycle_coarse_iters) // 2
+        assert coarse + finer == s.timer.counts["vcycle.px"]
+        assert torch.equal(s.depth0, want[0]) and torch.equal(s.artistic, want[2]), i
+        assert all(torch.equal(a, b) for a, b in zip(s.depth_state, want[1])), i
+        assert np.array_equal(s.depth_image(), s.pipe.depth_u8(want[0]).cpu().numpy())
+        assert torch.equal(s.depth0[m_d], v_d[m_d].to(torch.float32))
+
+
 def test_facade_keeps_its_state_on_the_card(dev):
     """``models.ChebyshevCascade(device="cuda")``: numpy in and out, the
     state on the card; ``solve_and_render`` launches K2, K1 and K3, and

@@ -30,6 +30,8 @@ CONFIGS = {
     "fast": dict(solver="red_black", early_exit=True, residual_check_every=5, tolerance=1e-3,
                  max_iterations=60, incremental_iterations=20, incremental_window=32,
                  fast_start=True),
+    # the V-cycle: the cascade, then the polish in its span
+    "vcycle": dict(max_iterations=60, multigrid="vcycle"),
 }
 # Per update: the drag's events (x, y); small, so that the fast config's
 # later updates take the windowed path.
@@ -134,6 +136,10 @@ def test_session_spans_on_the_profilers_clock(name):
             "program.call", "program.eager"} <= names
     if name == "fast":
         assert "session.window_solve" in names
+    polish = [(a, b) for n, a, b in host if n == "vcycle.polish"]
+    assert len(polish) == (len(STROKES[2:]) if name == "vcycle" else 0)
+    for a, b in polish:  # inside the solve's eager run
+        assert any(sa <= a and b <= sb for n, sa, sb in ours if n == "program.eager")
     for n, a, b in ours:  # each nested inside a bench.solve range
         assert any(sa <= a and b <= sb for sa, sb in solves), n
     # What the benchmark's breakdown says the host was doing where only a
