@@ -32,7 +32,9 @@ Phases, each printed on its own lines; any failure raises and exits non-zero:
    against the same pixels of the whole-image route; and K1 and K2 (and K4)
    on the incremental re-solve's 384x384 L0 and 192x192 L1 windows, with
    the frozen ring in the mask and the weights of the crop, at an inside
-   origin and at clamped corners. Every comparison is exact (max abs
+   origin and at clamped corners; the V-cycle's smoother, a post-smoothing
+   pass of 8 sweeps on 1080p L0 (its tile route) and the coarse solve's
+   200 sweeps on L4 (its resident route). Every comparison is exact (max abs
    difference 0), but the probe's rms residual (within 1e-5: the kernel sums
    its squares in float64). Times are CUDA-event medians as the host
    launches each kernel, and the device time alone, its launches captured
@@ -42,7 +44,8 @@ Phases, each printed on its own lines; any failure raises and exits non-zero:
    its launches from zero: a default 1080p frame (which must launch K2 x3,
    K1 x24, K3 x1); a live session of each of the benchmark's session
    configurations (``benchmark/configs/faithful_1080p``, ``fast_1080p``,
-   ``faithful_4k``), its first update, first stroke and the stroke after;
+   ``faithful_4k``, ``vcycle_1080p``), its first update, first stroke and
+   the stroke after;
    the server over two 1080p pairs (a frame's launches a pair); and the
    sharded 1080p step of 4 images on the slot mesh (2, 2, 2).
 
@@ -98,6 +101,9 @@ INT32_OPS_S = 16.75e12
 # right and the lower neighbour, each 2 subtracts, 2 abs, a compare, a
 # lookup and a select, then 3 adds, a compare, a divide and a select).
 JC_OPS, RB_OPS, K6_DERIVE_OPS = 16, 16, 20
+# The V-cycle's smoother (csrc/vc_smooth.cu:vc_point): 5 multiplies, 4 adds
+# and the mask's select a pixel and sweep.
+VC_OPS = 10
 # The probe (csrc/probe.cu): 5 multiplies, 3 adds, the clamp's 2 compares,
 # the subtract, the square and its float64 add.
 PROBE_OPS = 13
@@ -213,7 +219,7 @@ def main() -> None:
     from realtimedepthdiffusion_tpu_torch.core.solver import abc_schedule, rb_omegas
     from realtimedepthdiffusion_tpu_torch.core.weights import edge_weights
     from realtimedepthdiffusion_tpu_torch.ops import (build, defocus, dispatch, fused_sweep,
-                                                      probe, rb_sweep, sweep)
+                                                      probe, rb_sweep, sweep, vc_smooth)
     from realtimedepthdiffusion_tpu_torch.parallel import sharded
 
     mark = [time.perf_counter()]
@@ -923,6 +929,42 @@ def main() -> None:
         print(f"incremental window L{level} ({kernel_name}, ring mask, weights of the crop): "
               f"{json.dumps(line)}")
 
+    # The V-cycle's smoother (csrc/vc_smooth.cu) against its plain pass, at
+    # the two passes that make up most of its time in an update: a
+    # post-smoothing pass of 8 sweeps on L0 from a nonzero error (the tile
+    # route, one launch) and the coarse solve's 200 sweeps on L4 from 0 (the
+    # resident route, one launch); bound: rhs, the two pair weights, the
+    # reciprocal and the mask in and e out once a pass, 21 bytes a pixel.
+    def check_smooth(name, level, sweeps, zero_start):
+        r = np.random.default_rng(SEED + 25 + level)
+        _, mask_t, wts, _ = level_case(gray_pyr, level, r)
+        h, w = mask_t.shape
+
+        def plane(scale):
+            noise = torch.from_numpy(r.normal(0.0, scale, (h, w)).astype(np.float32)).to(dev)
+            return torch.where(mask_t, 0.0, noise)
+
+        rhs = plane(4.0)
+        e = torch.zeros_like(rhs) if zero_start else plane(2.0)
+        route, launches = vc_smooth.smooth_plan(h, w, sweeps)
+        run = lambda: vc_smooth.smooth_cuda(e, rhs, mask_t, wts, sweeps)  # noqa: E731
+        plain = lambda: vc_smooth.smooth_plain(e, rhs, mask_t, wts, sweeps)  # noqa: E731
+        before = ops.launch_counts()[f"vc_smooth_{route}"]
+        got = run()
+        if ops.launch_counts()[f"vc_smooth_{route}"] - before != len(launches):
+            raise AssertionError(f"{name}: not {len(launches)} vc_smooth_{route} launches")
+        line = {"shape": [h, w], "sweeps": sweeps, "pass_route": route,
+                "pass_launches": len(launches),
+                "max_abs_err": require_equal(torch, name, got, plain()),
+                "ms": time_ms(torch, run, 20), "plain_ms": time_ms(torch, plain, 5)}
+        device_only[name], device_only[f"{name} plain"] = run, plain
+        line["bound_ms"], line["bound_by"] = bound(21 * h * w, h * w * sweeps * VC_OPS)
+        print(f"{name}: {json.dumps(line)}")
+        return line
+
+    vc_l0 = check_smooth("smoother L0", 0, cfg.vcycle_post_smooth, False)
+    vc_l4 = check_smooth("smoother L4", L, cfg.vcycle_coarse_iters, True)
+
     # The device time alone of every case above.
     device_ms = {label: graph_ms(torch, fn, 5) for label, fn in device_only.items()}
     print(f"device time alone (launches replayed from a CUDA graph, median ms): "
@@ -972,7 +1014,7 @@ def main() -> None:
     # update, the first stroke (the windowed path's gate is closed: a full
     # re-solve and the gate's kick) and the stroke after it.
     for cell, rows, cols in (("faithful_1080p", H, W), ("fast_1080p", H, W),
-                             ("faithful_4k", H4, W4)):
+                             ("faithful_4k", H4, W4), ("vcycle_1080p", H, W)):
         with open(os.path.join(os.path.dirname(os.path.abspath(__file__)), "benchmark",
                                "configs", f"{cell}.json")) as f:
             ccfg = DiffusionConfig(**json.load(f)["diffusion"])
@@ -1136,6 +1178,13 @@ def main() -> None:
                  "k1_ms": k6_l0["k1_ms"], "k1_with_weights_ms": k6_l0["k1_with_weights_ms"]},
                 px4k * 15, px4k * (k6_l0["sweeps"] * JC_OPS + K6_DERIVE_OPS)),
     ]
+    for name, line in (("smoother L0", vc_l0), ("smoother L4", vc_l4)):
+        kernels.append(dict(
+            line, name=f"vc_smooth_{line['pass_route']}", route="cuda",
+            source="realtimedepthdiffusion_tpu_torch/csrc/vc_smooth.cu",
+            replaces=None,  # the JAX package runs the V-cycle's polish in XLA ops
+            library_ms=None, device_ms=device_ms[name],
+            plain_device_ms=device_ms[f"{name} plain"]))
     for entry in kernels:
         entry["launches"] = {path: c[entry["name"]] for path, c in runs.items()
                              if entry["name"] in c}

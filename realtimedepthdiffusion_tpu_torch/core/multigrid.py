@@ -2,10 +2,14 @@
 
 ``solve_cascade`` runs the level solves on the kernels or their plain
 versions, by the tensors' device. The V-cycle's polish (``vcycle_polish``)
-is plain torch ops on every device, as the reference runs plain XLA ops:
-it has no kernel there and none here. ``solve_vcycle`` wraps the polish in
-the span ``vcycle.polish`` (``utils/timing.py``), and ``vcycle_work``
-counts its work on the host for the session's counters.
+smooths its error equations through ``_smooth_error``, the one function it
+calls for a pass: on a card one hand-written launch a pass
+(``ops/vc_smooth.py``, routed by ``ops/dispatch.py:smooth_error``), where
+the reference runs plain XLA ops; on the CPU plain torch ops. The rest of
+the polish (residuals, restrictions, pyrUps, damped corrections, the
+levels' weights) is plain torch ops on every device. ``solve_vcycle``
+wraps the polish in the span ``vcycle.polish`` (``utils/timing.py``), and
+``vcycle_work`` counts its work on the host for the session's counters.
 """
 
 from __future__ import annotations
@@ -16,6 +20,7 @@ from typing import Sequence, Tuple
 import torch
 
 from ..config import DiffusionConfig
+from ..ops import dispatch
 from ..utils.timing import span
 from .annotation import annotation_pyr_down, seed_depth
 from .pyramid import pyr_down_gray, pyr_down_gray_ceil, pyr_up
@@ -115,10 +120,10 @@ def _restrict(r: torch.Tensor, out_shape: Tuple[int, int]) -> torch.Tensor:
 
 
 def _smooth_error(e, rhs, mask, wts, sweeps: int):
-    """Jacobi on the error equation (I - M) e = rhs, e = 0 on scribbles."""
-    for _ in range(sweeps):
-        e = torch.where(mask, 0.0, jacobi_sweep_raw(e, wts) + rhs)
-    return e
+    """Jacobi on the error equation (I - M) e = rhs, e = 0 on scribbles:
+    one pass of ``sweeps`` sweeps, on the kernels or in torch ops by the
+    device (``ops/dispatch.py:smooth_error``)."""
+    return dispatch.smooth_error(e, rhs, mask, wts, sweeps)
 
 
 def vcycle_warm_config(cfg: DiffusionConfig) -> DiffusionConfig:

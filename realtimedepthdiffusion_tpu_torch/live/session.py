@@ -59,7 +59,11 @@ of sweeps per exchange); and, where a full solve runs the V-cycle, of its
 polish (``core/multigrid.py:vcycle_work``, from the levels' shapes and the
 config): ``vcycle.cycles`` (the cycles run), ``vcycle.px_sweeps`` (pixels
 times sweeps of every smoothing, pre, post and coarse, at every level of
-every cycle) and ``vcycle.px`` (the pixels of every level visit). Also
+every cycle) and ``vcycle.px`` (the pixels of every level visit); and
+``vcycle.smooth_kernel``, the smoothing passes of the solve that took the
+kernel route (``ops/dispatch.py:smooth_passes``, recorded as each pass was
+issued, eagerly or into the replayed graph's capture: 18 a 1080p solve on a
+card, 0 on the CPU). Also
 while a profiler runs, the upload's counters:
 ``upload.full`` (solves that sent both whole planes), ``upload.rects``
 (rects whose crops were written into the resident planes) and ``upload.px``
@@ -311,6 +315,7 @@ class DepthSession:
         self.last_upload_bytes = 0
         exit_log = [] if self.cfg.early_exit and profiling() else None
         number = str(self.solve_count)
+        smoothed = dispatch.smooth_passes["kernel"]
         with self.timer.stage("upload", number):
             # The dirty rects gate (and crop) the host->device annotation
             # transfer: under --live the solve runs every frame, but
@@ -393,7 +398,8 @@ class DepthSession:
                 self._count_exits(read_exit_log(exit_log))
             if profiling():
                 self._count_routes(self.pipe if use_local else pipe, use_local,
-                                   max(len(centers), 1), exit_log)
+                                   max(len(centers), 1), exit_log,
+                                   dispatch.smooth_passes["kernel"] - smoothed)
         if inc_kick_wanted:
             self.pipe.incremental_ready(fx_key)
         self.solve_count += 1
@@ -415,12 +421,13 @@ class DepthSession:
             self.timer.count("exit.px_iters_run", px * e["iters"])
 
     def _count_routes(self, pipe: DepthPipeline, windowed: bool, solves: int,
-                      exit_log) -> None:
+                      exit_log, smooth_kernel: int) -> None:
         """The counters ``sweep.fused_*``, ``sweep.resident_*`` and, after a
         full V-cycle solve, ``vcycle.*`` (the module's docstring) over the
         level calls of ``solves`` solves of ``pipe``; ``exit_log``, read,
         holds one entry per call under the early exit, whose launches run
-        ``residual_check_every`` sweeps."""
+        ``residual_check_every`` sweeps. ``smooth_kernel``: the smoothing
+        passes on the kernel route that the solve issued or replayed."""
         calls = pipe.level_calls(windowed) * solves
         iters = [e["iters"] for e in exit_log] if exit_log is not None else [c[2] for c in calls]
         fused = [(h * w, n) for (h, w, _, k6), n in zip(calls, iters) if k6]
@@ -436,6 +443,7 @@ class DepthSession:
             sizes = [pipe.cfg.level_size(pipe.rows, pipe.cols, lv) for lv in range(pipe.levels)]
             for name, n in zip(("cycles", "px_sweeps", "px"), vcycle_work(sizes, pipe.cfg)):
                 self.timer.count("vcycle." + name, n * solves)
+            self.timer.count("vcycle.smooth_kernel", smooth_kernel)
 
     # --------------------------------------------------------------- effects
     def set_effect_key(self, key: str) -> None:

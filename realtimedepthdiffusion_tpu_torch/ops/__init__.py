@@ -5,9 +5,11 @@ from .fused_sweep import jc_sweep_fused
 from .probe import residual_probe
 from .rb_sweep import rb_sweep_resident, rb_sweep_tiles
 from .sweep import jc_sweep_resident, jc_sweep_tiles
+from .vc_smooth import vc_smooth_resident, vc_smooth_tiles
 
 _KERNELS = (jc_sweep_tiles, jc_sweep_resident, defocus_box, rb_sweep_tiles,
-            rb_sweep_resident, jc_sweep_fused, defocus_block, residual_probe)
+            rb_sweep_resident, jc_sweep_fused, defocus_block, residual_probe, vc_smooth_tiles,
+            vc_smooth_resident)
 
 
 def launch_counts() -> dict:

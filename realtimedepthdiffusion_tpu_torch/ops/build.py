@@ -72,6 +72,10 @@ SIGNATURES = {
     # u, wl, wr, wu, wd, inv, mask, h, w, n, c, tol, is_max, stop, done,
     # probes, partials, ticket, blocks, stream
     "residual_probe": (P, P, P, P, P, P, P, I, I, I, I, ctypes.c_float, I, P, P, P, P, P, I, P),
+    # e_in, e_out, rhs, bh, bv, inv, mask, h, w, n, k, stream
+    "vc_smooth_tiles": (P, P, P, P, P, P, P, I, I, I, I, P),
+    # e_in, e_out, rhs, bh, bv, inv, mask, h, w, n, stream
+    "vc_smooth_resident": (P, P, P, P, P, P, P, I, I, I, P),
 }
 
 _lock = threading.Lock()

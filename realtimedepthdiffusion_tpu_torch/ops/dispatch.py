@@ -7,18 +7,23 @@ sweeps (``jacobi_chebyshev`` and ``jacobi``) run K1 and the cluster kernel
 K2 (``ops/sweep.py``), and K6 (``ops/fused_sweep.py``) on levels whose weight
 planes outgrow the card's L2 cache (``fused_level``); red-black runs K4 and
 K5 (``ops/rb_sweep.py``). Both multigrid schemes solve their levels
-through these routes; the V-cycle's polish is plain torch ops on every
-device (``core/multigrid.py``). The early exit's probe, after each chunk
-of every solver, is the kernel ``residual_probe`` (``ops/probe.py``).
+through these routes. The V-cycle's polish (``core/multigrid.py``) smooths
+its error equations through ``smooth_error``: one launch of
+``vc_smooth_resident`` or ``vc_smooth_tiles`` a pass (``ops/vc_smooth.py``)
+on a card, plain torch ops on the CPU; the rest of the polish is plain
+torch ops on every device. The early exit's probe, after each chunk of
+every solver, is the kernel ``residual_probe`` (``ops/probe.py``).
 """
 
 from __future__ import annotations
+
+import collections
 
 import numpy as np
 import torch
 
 from ..config import DiffusionConfig
-from . import fused_sweep, probe, rb_sweep, sweep
+from . import fused_sweep, probe, rb_sweep, sweep, vc_smooth
 
 VALID_BACKENDS = ("auto", "xla", "pallas", "pallas_interpret")
 VALID_SOLVERS = ("jacobi", "jacobi_chebyshev", "red_black")
@@ -41,6 +46,12 @@ _FUSED = (fused_sweep.solve_level_fused_plain, fused_sweep.solve_level_fused_cud
 _FUSED_CHUNKS = (fused_sweep.fused_chunks_plain, fused_sweep.fused_chunks_cuda)
 # The early exit's probe of a level, for every solver.
 _PROBE = (probe.level_probe_plain, probe.level_probe_cuda)
+# A smoothing pass of the V-cycle's polish.
+_SMOOTH = (vc_smooth.smooth_plain, vc_smooth.smooth_cuda)
+# The smoothing passes ``smooth_error`` issued, by route ("kernel" or
+# "plain"). A pass is counted where it is issued, eagerly or into a capture;
+# a replayed graph adds its capture's passes again (``utils/program.py``).
+smooth_passes = collections.Counter()
 # The L2 cache the CPU routes by: the H100's, so that the plain versions
 # take the routes the card takes.
 H100_L2_BYTES = 50 * 1024 * 1024
@@ -148,3 +159,16 @@ def level_probe(mask: torch.Tensor, wts, metric: str, tol: float):
     tensor (route ``"kernel"``) or in torch ops for a CPU tensor
     (``"plain"``)."""
     return _pick(_PROBE, mask)(mask, wts, metric, tol)
+
+
+def smooth_error(e: torch.Tensor, rhs: torch.Tensor, mask: torch.Tensor, wts,
+                 sweeps: int) -> torch.Tensor:
+    """One smoothing pass of the V-cycle: ``sweeps`` Jacobi sweeps of the
+    error equation (I - M) e = rhs from ``e``, e = 0 on the scribbles of the
+    bool ``mask``. On the kernels for a CUDA tensor (``vc_smooth.smooth_plan``
+    picks the route and launches), the plain version for a CPU tensor; the
+    pass is counted in ``smooth_passes`` under its route."""
+    fn = _pick(_SMOOTH, e)
+    if sweeps > 0:
+        smooth_passes["kernel" if fn is vc_smooth.smooth_cuda else "plain"] += 1
+    return fn(e, rhs, mask, wts, sweeps)

@@ -17,6 +17,7 @@ import torch
 
 from .. import ops
 from ..core.solver import read_exit_log
+from ..ops import dispatch
 from .timing import span
 
 
@@ -78,8 +79,9 @@ class Program:
     while the server's IO threads and a prewarm thread go on. The kernel
     wrappers count what the capture would have launched; those counts are
     taken back out, and each replay adds them (``ops.add_launches``). So
-    does ``counter``, a ``collections.Counter`` that ``fn`` adds to (the
-    sharded step's ``block_calls``).
+    do ``counter``, a ``collections.Counter`` that ``fn`` adds to (the
+    sharded step's ``block_calls``), and ``ops/dispatch.py:smooth_passes``,
+    the V-cycle's smoothing passes by route, in every program.
 
     Spans (``utils/timing.py``; in ``timer`` where one is given, on a
     running profiler's timeline always): ``program.capture`` around the
@@ -94,7 +96,9 @@ class Program:
         self.sig = signature(args)
         self.graph = None
         self.tally = {}
-        self.counter, self.counted = counter, collections.Counter()
+        # The counters ``fn`` adds to, and what the capture added to each.
+        self.counters = [dispatch.smooth_passes] + ([counter] if counter is not None else [])
+        self.counted = [collections.Counter() for _ in self.counters]
         self.capture_s = 0.0
         if device.type != "cuda":
             return
@@ -116,7 +120,7 @@ class Program:
                 self.static_log = []
                 graph = torch.cuda.CUDAGraph()
                 before = ops.launch_counts()
-                counter_before = collections.Counter(counter)
+                counters_before = [collections.Counter(c) for c in self.counters]
                 with torch.cuda.graph(graph, pool=pool, stream=stream,
                                       capture_error_mode="thread_local"):
                     self.static_out = fn(*self.static_in, self.static_log)
@@ -126,9 +130,9 @@ class Program:
                 gc.enable()
         self.tally = {k: after[k] - before[k] for k in after if after[k] != before[k]}
         ops.add_launches({k: -n for k, n in self.tally.items()})
-        if counter is not None:
-            self.counted = collections.Counter(counter) - counter_before
-            counter.subtract(self.counted)
+        self.counted = [collections.Counter(c) - b for c, b in zip(self.counters, counters_before)]
+        for c, n in zip(self.counters, self.counted):
+            c.subtract(n)
         self.graph, self.device = graph, device
         self.capture_s = time.perf_counter() - t0
 
@@ -149,8 +153,8 @@ class Program:
             with span("program.replay", self.timer):
                 self.graph.replay()
             ops.add_launches(self.tally)
-            if self.counter is not None:
-                self.counter.update(self.counted)
+            for c, n in zip(self.counters, self.counted):
+                c.update(n)
             if exit_log is not None:
                 # The replay's own counts, copied now, before a later
                 # replay writes them again.

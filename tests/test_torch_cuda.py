@@ -54,6 +54,9 @@ JC_EXIT = {"early_exit": True, "tolerance": 1e-3}
 # place of K1 on 4K L0, and K3 once.
 FRAME_1080P = {"jc_sweep_resident": 3, "jc_sweep_tiles": 24, "defocus_box": 1}
 FRAME_4K = dict(FRAME_1080P, jc_sweep_fused=4)
+# A 1080p V-cycle's polish: two cycles, each a pre- and a post-smoothing pass
+# on the tiles on L3-L0 and one resident pass on L4.
+POLISH_1080P = {"vc_smooth_tiles": 16, "vc_smooth_resident": 2}
 
 
 @pytest.fixture()
@@ -1677,14 +1680,14 @@ def test_windowed_update_graph_sheds_the_probes_glue(dev, monkeypatch):
 
 
 def _plain_routes(mp):
-    """Route every level solve, early-exit probe and defocus of the port on
-    the card to its plain version, as the CPU routes them: the same glue on
-    the card, and no kernel launched."""
+    """Route every level solve, early-exit probe, V-cycle smoothing pass
+    and defocus of the port on the card to its plain version, as the CPU
+    routes them: the same glue on the card, and no kernel launched."""
     from realtimedepthdiffusion_tpu_torch.core import effects
 
     for name in ("_FIXED", "_CHUNKS"):
         mp.setattr(dispatch, name, {k: (p, p) for k, (p, _) in getattr(dispatch, name).items()})
-    for name in ("_FUSED", "_FUSED_CHUNKS", "_PROBE"):
+    for name in ("_FUSED", "_FUSED_CHUNKS", "_PROBE", "_SMOOTH"):
         plain = getattr(dispatch, name)[0]
         mp.setattr(dispatch, name, (plain, plain))
     mp.setattr(effects, "defocus_box", defocus.defocus_sat)
@@ -1933,11 +1936,12 @@ def test_incremental_1080p_frame_equals_plain_and_a_full_resolve(dev, monkeypatc
 
 def test_vcycle_1080p_frame_polishes_its_warm_cascade(dev):
     """A 1080p V-cycle frame: its warm cascade launches what a default
-    frame launches (``FRAME_1080P``) and its polish, plain torch ops on
-    every device, no kernel of the port; the frame's depth is the polish of
-    the warm cascade's depth bit for bit, in [0, 255] with its scribbles
-    pinned, and its fine residual is no larger than 1.05 x the cascade's
-    under the cascade's weights, which are the polish's own."""
+    frame launches (``FRAME_1080P``) and its polish one smoother launch a
+    pass (``POLISH_1080P``), the rest of it plain torch ops; the frame's
+    depth is the polish of the warm cascade's depth bit for bit, in [0, 255]
+    with its scribbles pinned, and its fine residual is no larger than
+    1.05 x the cascade's under the cascade's weights, which are the
+    polish's own."""
     from realtimedepthdiffusion_tpu_torch import DepthPipeline
     from realtimedepthdiffusion_tpu_torch.core import effects as fx
     from realtimedepthdiffusion_tpu_torch.core.multigrid import (solve_cascade, vcycle_polish,
@@ -1952,7 +1956,7 @@ def test_vcycle_1080p_frame_polishes_its_warm_cascade(dev):
     state = pipe.initial_state()
     ops.reset_launch_counts()
     depth, new_state, out = pipe.solve_and_effect(fx.EFFECT_DEFOCUS, gpyr, rgb_d, m, v, state)
-    assert _counts() == FRAME_1080P
+    assert _counts() == dict(FRAME_1080P, **POLISH_1080P)
     assert new_state[0] is depth and out.shape == (1080, 1920, 3) and out.dtype == torch.uint8
     assert 0.0 <= float(depth.min()) and float(depth.max()) <= 255.0
     assert torch.equal(depth[m], v[m].to(torch.float32))
@@ -1960,7 +1964,7 @@ def test_vcycle_1080p_frame_polishes_its_warm_cascade(dev):
     ops.reset_launch_counts()
     polished = vcycle_polish(gpyr, m, v, cascade, cfg)
     torch.cuda.synchronize()
-    assert not any(ops.launch_counts().values())
+    assert _counts() == POLISH_1080P
     assert torch.equal(polished, depth)
     wts = edge_weights(gpyr[0], cascade, 0, len(gpyr) - 1, cfg)
     assert float(residual_norm(depth, m, wts)) <= 1.05 * float(residual_norm(cascade, m, wts))
@@ -1973,9 +1977,13 @@ def test_vcycle_1080p_session_replays_its_eager_update(dev, monkeypatch):
     form), and each stroke update after it replays that graph: its depth,
     state, effect and u8 map equal the eager function's on the same inputs
     bit for bit. A replayed update runs K2 x3, K1 x24, K3 once and the
-    polish's ~11,000 nodes, and under a profiler its counters ``vcycle.*``
-    are ``vcycle_work``'s of the five levels, which are the pixel-sweeps
-    and level visits that ``_smooth_error`` runs in the eager update."""
+    polish: its 18 smoothing passes one launch each (16 on the tiles, 2
+    resident) and ~1,100 torch nodes, about 1,600 kernels in all (more
+    than 10,000 with the plain smoothing sweeps). Under a
+    profiler its counters ``vcycle.*`` are ``vcycle_work``'s of the five
+    levels, which are the pixel-sweeps and level visits that
+    ``_smooth_error`` runs in the eager update, and ``vcycle.smooth_kernel``
+    reads the update's 18 passes on the kernel route."""
     from realtimedepthdiffusion_tpu_torch.core import effects as fx
     from realtimedepthdiffusion_tpu_torch.core import multigrid
     from realtimedepthdiffusion_tpu_torch.live.session import DepthSession
@@ -2011,7 +2019,9 @@ def test_vcycle_1080p_session_replays_its_eager_update(dev, monkeypatch):
             multigrid.vcycle_work(sizes, cfg))
         assert (seen["jc_sweep_resident_kernel"], seen["jc_sweep_tiles_kernel"],
                 seen["defocus_tile_kernel"]) == (3, 24, 1)
-        assert sum(seen.values()) > 10000, sum(seen.values())
+        assert (seen["vc_smooth_tiles_kernel"], seen["vc_smooth_resident_kernel"]) == (16, 2)
+        assert s.timer.counts["vcycle.smooth_kernel"] == 18
+        assert 1000 < sum(seen.values()) < 2000, sum(seen.values())
         m_d = torch.tensor(s.mask_np != 0, device=dev)
         v_d = torch.tensor(s.value_np, device=dev)
         calls.clear()

@@ -77,7 +77,8 @@ def test_slice_matches_jax(jax_run):
     assert ops.launch_counts() == {"jc_sweep_tiles": 0, "jc_sweep_resident": 0,
                                    "defocus_box": 0, "rb_sweep_tiles": 0,
                                    "rb_sweep_resident": 0, "jc_sweep_fused": 0,
-                                   "defocus_block": 0, "residual_probe": 0}
+                                   "defocus_block": 0, "residual_probe": 0,
+                                   "vc_smooth_tiles": 0, "vc_smooth_resident": 0}
 
 
 def test_jax_state_carried_into_port(jax_run):

@@ -135,7 +135,8 @@ def test_cpu_solve_launches_no_kernel():
     assert ops.launch_counts() == {"jc_sweep_tiles": 0, "jc_sweep_resident": 0,
                                    "defocus_box": 0, "rb_sweep_tiles": 0,
                                    "rb_sweep_resident": 0, "jc_sweep_fused": 0,
-                                   "defocus_block": 0, "residual_probe": 0}
+                                   "defocus_block": 0, "residual_probe": 0,
+                                   "vc_smooth_tiles": 0, "vc_smooth_resident": 0}
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():

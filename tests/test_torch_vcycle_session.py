@@ -30,7 +30,7 @@ BENCH = spec.load()
 VCYCLE = spec.config(BENCH, "vcycle_1080p")
 REF = spec.reference("vcycle_1080p")
 CELL = "vcycle_1080p.strokes"
-COUNTERS = ("vcycle.cycles", "vcycle.px_sweeps", "vcycle.px")
+COUNTERS = ("vcycle.cycles", "vcycle.px_sweeps", "vcycle.px", "vcycle.smooth_kernel")
 # (rows, cols, pyramid_base_size): 3 and 4 levels.
 SIZES = [(96, 160, 24), (128, 224, 16)]
 # Per update: the drag's events (x, y) and the depth key.
@@ -272,6 +272,23 @@ def test_polish_counters_count_the_smoothing(monkeypatch, h, w, base):
     assert s.timer.counts["vcycle.px_sweeps"] == sum(px * n for px, n in calls)
     assert s.timer.counts["vcycle.px"] == sum(pre) + sum(coarse)
     assert len(coarse) == 2 * 3 and s.timer.counts["vcycle.px"] > 2 * 3 * finest
+
+
+@pytest.mark.parametrize("h,w,base", SIZES)
+def test_smooth_kernel_counter_reads_zero_on_the_cpu(h, w, base):
+    """``vcycle.smooth_kernel`` counts the smoothing passes on the kernel
+    route: under a profiler it is there after each full V-cycle solve and
+    reads 0 on the CPU, where every pass takes the plain route
+    (``ops/dispatch.py:smooth_passes``), two a finer level and one at the
+    coarsest, each cycle."""
+    dcfg = small_cfg(base)
+    s = DepthSession(_scene(h, w, 8)[0], DiffusionConfig(**dcfg), device="cpu")
+    s.set_effect_key("b")
+    plain = dispatch.smooth_passes["plain"]
+    _profiled_solves(s, 2)
+    assert s.timer.counts["vcycle.smooth_kernel"] == 0 and "vcycle.smooth_kernel" in s.timer.totals
+    levels = s.pipe.levels
+    assert dispatch.smooth_passes["plain"] - plain == 2 * dcfg["vcycles"] * (2 * levels - 1)
 
 
 def test_polish_counters_stay_off_the_cascade():
