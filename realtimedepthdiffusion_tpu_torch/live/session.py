@@ -63,8 +63,13 @@ every cycle) and ``vcycle.px`` (the pixels of every level visit); and
 ``vcycle.smooth_kernel``, the smoothing passes of the solve that took the
 kernel route (``ops/dispatch.py:smooth_passes``, recorded as each pass was
 issued, eagerly or into the replayed graph's capture: 18 a 1080p solve on a
-card, 0 on the CPU). Also
-while a profiler runs, the upload's counters:
+card, 0 on the CPU). Also while a profiler runs, after every solve, the
+defocus renders that the solve issued or replayed
+(``ops/defocus.py:render_counts``, counted in K3's wrapper and in
+``defocus_sat`` alike): ``defocus.renders`` (each whole-image render) and
+``defocus.approx`` (those whose half-widths were snapped: the quality
+resolved to 'approx', as 'auto' does above ``pallas_defocus_auto_max_half``).
+Also while a profiler runs, the upload's counters:
 ``upload.full`` (solves that sent both whole planes), ``upload.rects``
 (rects whose crops were written into the resident planes) and ``upload.px``
 (pixels whose mask and value bytes crossed, on any path: half of
@@ -73,6 +78,7 @@ while a profiler runs, the upload's counters:
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import os
 import time
@@ -88,10 +94,19 @@ from ..core.solver import read_exit_log
 from ..io import depth_to_u8, depth_to_u16, imwrite, load_annotation, save_annotation
 from ..native.runtime import Arena, NativeRuntime
 from ..ops import dispatch
+from ..ops.defocus import render_counts
 from ..pipeline import DepthPipeline
 from ..utils.timing import StageTimer, profiling
 
 _KEY_EFFECT = {"b": fx.EFFECT_DEFOCUS, "g": fx.EFFECT_DESATURATION, "h": fx.EFFECT_HAZE}
+
+
+def _tallies() -> collections.Counter:
+    """The tallies that count as work is issued and grow again at each
+    replay (``utils/program.py``), under their counters' names."""
+    return collections.Counter({"vcycle.smooth_kernel": dispatch.smooth_passes["kernel"],
+                                "defocus.renders": render_counts["renders"],
+                                "defocus.approx": render_counts["approx"]})
 
 
 def window_origin(c: int, lo: int, hi: int, n: int, s: int) -> int:
@@ -315,7 +330,7 @@ class DepthSession:
         self.last_upload_bytes = 0
         exit_log = [] if self.cfg.early_exit and profiling() else None
         number = str(self.solve_count)
-        smoothed = dispatch.smooth_passes["kernel"]
+        tallied = _tallies()
         with self.timer.stage("upload", number):
             # The dirty rects gate (and crop) the host->device annotation
             # transfer: under --live the solve runs every frame, but
@@ -398,8 +413,7 @@ class DepthSession:
                 self._count_exits(read_exit_log(exit_log))
             if profiling():
                 self._count_routes(self.pipe if use_local else pipe, use_local,
-                                   max(len(centers), 1), exit_log,
-                                   dispatch.smooth_passes["kernel"] - smoothed)
+                                   max(len(centers), 1), exit_log, _tallies() - tallied)
         if inc_kick_wanted:
             self.pipe.incremental_ready(fx_key)
         self.solve_count += 1
@@ -421,13 +435,13 @@ class DepthSession:
             self.timer.count("exit.px_iters_run", px * e["iters"])
 
     def _count_routes(self, pipe: DepthPipeline, windowed: bool, solves: int,
-                      exit_log, smooth_kernel: int) -> None:
-        """The counters ``sweep.fused_*``, ``sweep.resident_*`` and, after a
-        full V-cycle solve, ``vcycle.*`` (the module's docstring) over the
-        level calls of ``solves`` solves of ``pipe``; ``exit_log``, read,
-        holds one entry per call under the early exit, whose launches run
-        ``residual_check_every`` sweeps. ``smooth_kernel``: the smoothing
-        passes on the kernel route that the solve issued or replayed."""
+                      exit_log, grown: collections.Counter) -> None:
+        """The counters ``sweep.fused_*``, ``sweep.resident_*``,
+        ``defocus.*`` and, after a full V-cycle solve, ``vcycle.*`` (the
+        module's docstring) over the level calls of ``solves`` solves of
+        ``pipe``; ``exit_log``, read, holds one entry per call under the
+        early exit, whose launches run ``residual_check_every`` sweeps.
+        ``grown``: what the solve issued or replayed of ``_tallies``."""
         calls = pipe.level_calls(windowed) * solves
         iters = [e["iters"] for e in exit_log] if exit_log is not None else [c[2] for c in calls]
         fused = [(h * w, n) for (h, w, _, k6), n in zip(calls, iters) if k6]
@@ -439,11 +453,13 @@ class DepthSession:
                     for (h, w, _, k6), n in zip(calls, iters) if not k6]
         self.timer.count("sweep.resident_sweeps", sum(n for n, _ in resident))
         self.timer.count("sweep.resident_exchanges", sum(x for _, x in resident))
+        self.timer.count("defocus.renders", grown["defocus.renders"])
+        self.timer.count("defocus.approx", grown["defocus.approx"])
         if not windowed and pipe.cfg.multigrid == "vcycle":
             sizes = [pipe.cfg.level_size(pipe.rows, pipe.cols, lv) for lv in range(pipe.levels)]
             for name, n in zip(("cycles", "px_sweeps", "px"), vcycle_work(sizes, pipe.cfg)):
                 self.timer.count("vcycle." + name, n * solves)
-            self.timer.count("vcycle.smooth_kernel", smooth_kernel)
+            self.timer.count("vcycle.smooth_kernel", grown["vcycle.smooth_kernel"])
 
     # --------------------------------------------------------------- effects
     def set_effect_key(self, key: str) -> None:

@@ -21,10 +21,17 @@ neighbourhood in shared memory. Where that neighbourhood outgrows one
 CTA's shared memory, the table route scans a table of the whole image in
 device memory and gathers from it. ``box_blur_tiles_plain`` computes the
 tile route's geometry in plain torch, tile by tile, for the CPU tests.
+
+``render_counts`` tallies the whole-image renders, K3's and
+``defocus_sat``'s: ``"renders"`` each one, ``"approx"`` those whose
+half-widths were snapped (the quality resolved to 'approx'). A render is
+counted where it is issued, eagerly or into a capture; a replayed graph
+adds its capture's renders again (``utils/program.py``).
 """
 
 from __future__ import annotations
 
+import collections
 import warnings
 
 import torch
@@ -51,6 +58,13 @@ DEFOCUS_TILE_MAX_HALF = 72
 _TWO_CTAS = SMEM_PER_CTA // 2
 # Rows per band of the table route's column scan (csrc/defocus.cu).
 SAT_BAND_ROWS = 64
+render_counts = collections.Counter()
+
+
+def _tally(snap) -> None:
+    render_counts["renders"] += 1
+    if snap is not None:
+        render_counts["approx"] += 1
 
 
 def resolved_defocus_quality(cfg: DiffusionConfig, max_half: int) -> str:
@@ -241,6 +255,7 @@ def defocus_sat(rgb: torch.Tensor, depth: torch.Tensor,
     [y-h, y+h-1] x [x-h, x+h-1], or itself where h == 0."""
     h, w = depth.shape
     half = defocus_half_widths(depth, h, w, cfg)
+    _tally(_snap_params(cfg, cfg.defocus_kernel_size(h, w) // 2))
     return _box_blur_plain(rgb[..., :3].permute(2, 0, 1), half, 0, 0, 0, h, w)
 
 
@@ -353,6 +368,7 @@ def defocus_box(rgb: torch.Tensor, depth: torch.Tensor,
         )
     build.check("defocus_box", err)
     defocus_box.launches += 1
+    _tally(snap)
     return out
 
 

@@ -17,7 +17,7 @@ import torch
 
 from .. import ops
 from ..core.solver import read_exit_log
-from ..ops import dispatch
+from ..ops import defocus, dispatch
 from .timing import span
 
 
@@ -80,8 +80,9 @@ class Program:
     wrappers count what the capture would have launched; those counts are
     taken back out, and each replay adds them (``ops.add_launches``). So
     do ``counter``, a ``collections.Counter`` that ``fn`` adds to (the
-    sharded step's ``block_calls``), and ``ops/dispatch.py:smooth_passes``,
-    the V-cycle's smoothing passes by route, in every program.
+    sharded step's ``block_calls``), and, in every program,
+    ``ops/dispatch.py:smooth_passes``, the V-cycle's smoothing passes by
+    route, and ``ops/defocus.py:render_counts``, the defocus renders.
 
     Spans (``utils/timing.py``; in ``timer`` where one is given, on a
     running profiler's timeline always): ``program.capture`` around the
@@ -97,7 +98,8 @@ class Program:
         self.graph = None
         self.tally = {}
         # The counters ``fn`` adds to, and what the capture added to each.
-        self.counters = [dispatch.smooth_passes] + ([counter] if counter is not None else [])
+        self.counters = [dispatch.smooth_passes, defocus.render_counts] + (
+            [counter] if counter is not None else [])
         self.counted = [collections.Counter() for _ in self.counters]
         self.capture_s = 0.0
         if device.type != "cuda":

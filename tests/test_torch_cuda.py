@@ -1076,8 +1076,10 @@ def test_replayed_frame_equals_eager(dev, name, rows, cols, cfg_kw):
     two run eagerly and the second captures the CUDA graph (the V-cycle, which
     has no staged form, captures at its first); later frames replay it. Each
     frame equals the eager function on the same inputs bit for bit, launches
-    what the eager frame launches (a replay adds its capture's tally), and
-    no tensor an earlier frame returned changes under a later replay."""
+    what the eager frame launches (a replay adds its capture's tally) and
+    counts its one defocus render (snapped under approx: ``render_counts``,
+    which a replay adds as it adds the tally), and no tensor an earlier
+    frame returned changes under a later replay."""
     from realtimedepthdiffusion_tpu_torch import DepthPipeline
     from realtimedepthdiffusion_tpu_torch.core import effects as fx
 
@@ -1092,8 +1094,12 @@ def test_replayed_frame_equals_eager(dev, name, rows, cols, cfg_kw):
             mask[rows // 2:rows // 2 + 30, 40:90], value[rows // 2:rows // 2 + 30, 40:90] = True, 96
         m, v = torch.from_numpy(mask).to(dev), torch.from_numpy(value).to(dev)
         ops.reset_launch_counts()
+        rendered = collections.Counter(defocus.render_counts)
         got = pipe.solve_and_effect(fx.EFFECT_DEFOCUS, gpyr, rgb_d, m, v, state)
         counts = {k: n for k, n in ops.launch_counts().items() if n}
+        rendered = collections.Counter(defocus.render_counts) - rendered
+        approx = int(cfg_kw.get("pallas_defocus_quality") == "approx")
+        assert rendered == collections.Counter(renders=1, approx=approx), (name, i)
         ops.reset_launch_counts()
         want = pipe._solve_fx_eager(fx.EFFECT_DEFOCUS, tuple(gpyr), rgb_d, m, v, state)
         assert counts == {k: n for k, n in ops.launch_counts().items() if n} and counts
@@ -2021,6 +2027,7 @@ def test_vcycle_1080p_session_replays_its_eager_update(dev, monkeypatch):
                 seen["defocus_tile_kernel"]) == (3, 24, 1)
         assert (seen["vc_smooth_tiles_kernel"], seen["vc_smooth_resident_kernel"]) == (16, 2)
         assert s.timer.counts["vcycle.smooth_kernel"] == 18
+        assert (s.timer.counts["defocus.renders"], s.timer.counts["defocus.approx"]) == (1, 0)
         assert 1000 < sum(seen.values()) < 2000, sum(seen.values())
         m_d = torch.tensor(s.mask_np != 0, device=dev)
         v_d = torch.tensor(s.value_np, device=dev)
@@ -2087,6 +2094,44 @@ def test_native_runtime_builds_on_the_card_machine(dev):
         nrt.paint(mask, value, x, y, col, rad)
         tm, tv = paint(tm, tv, x, y, col, rad)
     assert np.array_equal(tm.cpu().numpy(), mask != 0) and np.array_equal(tv.cpu().numpy(), value)
+
+
+def test_4k_default_session_replays_the_approximate_defocus(dev):
+    """A live session at 2160 x 3840 with every setting at its default
+    (the ``faithful_4k_approx`` cell): ``auto`` resolves to the approximate
+    defocus at max_half 55. Each replayed update renders once on K3's
+    96-tile route, snapped: under a profiler ``defocus.renders`` and
+    ``defocus.approx`` read 1, and the effect equals the plain approximate
+    blur of the update's depth on the card bit for bit, not the exact
+    one."""
+    import warnings
+
+    from realtimedepthdiffusion_tpu_torch.live.session import DepthSession
+
+    h, w = 2160, 3840
+    cfg = DiffusionConfig(fast_start=True)
+    rgb, mask, value = _photo(h, w, 26)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", RuntimeWarning)
+        s = DepthSession(rgb, cfg, device=dev)
+        s.mask_np[:], s.value_np[:] = mask, value
+        s.mark_all_dirty()
+        s.set_effect_key("b")
+        s.solve()
+        s.solve()  # captures
+        for i in range(2):
+            s.set_color_key(1 + i)
+            for j in range(4):
+                s.paint(1200 + 40 * i + 8 * j, 600 + 30 * i)
+            s.timer.reset()
+            seen = _kernels_on_device(lambda: s.solve())
+            assert s.timer.counts["program.replay"] == 1 and "program.eager" not in s.timer.counts
+            assert (s.timer.counts["defocus.renders"], s.timer.counts["defocus.approx"]) == (1, 1)
+            assert seen["defocus_tile_kernel"] == 1 and seen["jc_sweep_fused_kernel"] == 4
+            depth = torch.clamp(s.depth0, 0.0, 255.0)
+            want = defocus.defocus_sat(s.rgb, depth, cfg)
+            exact = defocus.defocus_sat(s.rgb, depth, DiffusionConfig(pallas_defocus_quality="exact"))
+            assert torch.equal(s.artistic, want) and not torch.equal(s.artistic, exact), i
 
 
 @pytest.mark.parametrize("profile", ["default", "fast"])

@@ -172,12 +172,14 @@ def test_exit_counters_under_a_profiler_only():
                       "exit.px_iters_run", "sweep.fused_levels", "sweep.fused_px",
                       "sweep.fused_px_sweeps", "sweep.resident_sweeps",
                       "sweep.resident_exchanges", "upload.full", "upload.rects",
-                      "upload.px"}
+                      "upload.px", "defocus.renders", "defocus.approx"}
     # the windowed path: one 32 px window's bytes, no whole plane, no rect write
     assert (c["upload.full"], c["upload.rects"], c["upload.px"]) == (0, 0, 32 * 32)
     # red-black sends no level to K6 or K2
     assert c["sweep.fused_levels"] == c["sweep.fused_px"] == c["sweep.fused_px_sweeps"] == 0
     assert c["sweep.resident_sweeps"] == c["sweep.resident_exchanges"] == 0
+    # one render with the effect latched, exact at max_half 2
+    assert (c["defocus.renders"], c["defocus.approx"]) == (1, 0)
     assert 0 < c["exit.chunks_live"] <= c["exit.chunks_issued"]
     assert 0 < c["exit.px_iters_run"] <= c["exit.px"] * 60
     assert all(s.timer.totals[k] == 0.0 for k in c)
